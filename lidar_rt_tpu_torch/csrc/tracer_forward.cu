@@ -1,0 +1,254 @@
+// Forward surfel tracer kernel for Hopper (sm_90a).
+//
+// Replaces: lidar_rt_tpu/ops/pallas_tracer.py::_forward_kernel, the Pallas
+// TPU forward kernel launched by _core_fwd_call, together with the in-kernel
+// helpers it calls from lidar_rt_tpu/ops/pallas_common.py: sh_basis_rows
+// becomes `sh_basis` below, and lane_cumprod_excl becomes the sequential
+// per-ray transmittance walk.  The boundary is the Pallas kernel's (see
+// lidar_rt_tpu_torch/ops/cuda_tracer.py): the same inputs with an int32
+// count, the same channel-major (T, 16, R) output and a (T, K) accum.
+//
+// What bounds it on this card: per (ray, candidate) pair the intersection
+// and gates cost ~25 flops and one exp; a pair that passes the gates adds
+// ~60 flops of SH shading and channel sums.  Candidate parameters are read
+// from shared memory as warp-wide broadcasts; device memory sees each
+// tile's candidates once per 128-ray block (64 floats each) and each ray's
+// 16 output rows once.  At the flagship shapes (168 tiles x 1024 rays x 256
+// candidates = 44 M pairs) that is ~1-2 GFLOP against ~15 MB of traffic:
+// compute- and latency-bound, not bandwidth-bound.
+//
+// Design: one thread per ray walks its tile's candidates front to back in
+// tile order (the binner's nearest-first order) and keeps the transmittance
+// in a register.  The first hit whose T*(1-alpha) falls below T_MIN stops
+// the ray and is not composited: the live-prefix rule of
+// lidar_rt_tpu/ops/geometry.py composite_weights.  A block of 128 rays
+// stages 128 candidates at a time in shared memory (64 floats each, 32 KB,
+// inside the static 48 KB limit) and stops staging once none of its rays is
+// alive.  The SH basis lives in 16 registers, and shading runs only for
+// pairs that pass the gates.  Per-candidate sums over rays go through a warp
+// reduction and one atomicAdd per warp into a zero-initialised (T, K)
+// output: CUDA blocks run in no order, where the TPU kernel carried these
+// sums across its sequential grid.  The intersection arithmetic is written
+// with explicitly rounded operations (no FMA contraction) so it rounds like
+// the plain PyTorch version: t = p / (n.d) amplifies rounding at grazing
+// incidence.  Making it fast (occupancy, splitting K) is later work.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 128;  // rays per block, one thread each
+constexpr int kChunk = 128;    // candidates staged per round (== kThreads)
+constexpr int kGeo = 16;       // n(3) w1(3) w2(3) p a_u a_v 1/s0 1/s1 opac sign
+constexpr int kSh = 48;        // 3 channels x 16 SH coefficients
+constexpr int kOutRows = 16;   // channel rows of the output (10 used)
+
+// Gates, as lidar_rt_tpu/ops/geometry.py:38-42.
+constexpr float kAlphaMax = 0.99f;
+constexpr float kAlphaMin = static_cast<float>(1.0 / 255.0);
+constexpr float kTMin = 1e-4f;
+constexpr float kDenomEps = 1e-12f;
+
+static_assert(kThreads == kChunk, "each thread stages one candidate");
+
+// Degree-3 real SH basis of a direction (lidar_rt_tpu/core/sh.py basis).
+__device__ __forceinline__ void sh_basis(float x, float y, float z,
+                                         float b[16]) {
+  const float inv = rsqrtf(fmaxf(x * x + y * y + z * z, 1e-24f));
+  x *= inv;
+  y *= inv;
+  z *= inv;
+  const float xx = x * x, yy = y * y, zz = z * z;
+  const float xy = x * y, yz = y * z, xz = x * z;
+  b[0] = 0.28209479177387814f;
+  b[1] = -0.4886025119029199f * y;
+  b[2] = 0.4886025119029199f * z;
+  b[3] = -0.4886025119029199f * x;
+  b[4] = 1.0925484305920792f * xy;
+  b[5] = -1.0925484305920792f * yz;
+  b[6] = 0.31539156525252005f * (2.0f * zz - xx - yy);
+  b[7] = -1.0925484305920792f * xz;
+  b[8] = 0.5462742152960396f * (xx - yy);
+  b[9] = -0.5900435899266435f * y * (3.0f * xx - yy);
+  b[10] = 2.890611442640554f * xy * z;
+  b[11] = -0.4570457994644658f * y * (4.0f * zz - xx - yy);
+  b[12] = 0.3731763325901154f * z * (2.0f * zz - 3.0f * xx - 3.0f * yy);
+  b[13] = -0.4570457994644658f * x * (4.0f * zz - xx - yy);
+  b[14] = 1.445305721320277f * z * (xx - yy);
+  b[15] = -0.5900435899266435f * x * (xx - 3.0f * yy);
+}
+
+// d . a with each product and sum rounded separately, left to right.
+__device__ __forceinline__ float dot3_rn(float dx, float dy, float dz,
+                                         float ax, float ay, float az) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(dx, ax), __fmul_rn(dy, ay)),
+                   __fmul_rn(dz, az));
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int off = 16; off > 0; off >>= 1) {
+    v += __shfl_down_sync(0xffffffffu, v, off);
+  }
+  return v;
+}
+
+__global__ void __launch_bounds__(kThreads) tracer_forward_kernel(
+    const int* __restrict__ cnt, const float* __restrict__ dirs,
+    const float* __restrict__ mind, const float* __restrict__ t0,
+    const float* __restrict__ axes, const float* __restrict__ plane,
+    const float* __restrict__ inv_scale, const float* __restrict__ opac,
+    const float* __restrict__ sign, const float* __restrict__ sh,
+    float* __restrict__ chans, float* __restrict__ accum, int rays, int k) {
+  __shared__ float s_geo[kGeo][kChunk];
+  __shared__ float s_sh[kSh][kChunk];
+
+  const long long tile = blockIdx.y;
+  const int ray = blockIdx.x * kThreads + threadIdx.x;
+  const bool has_ray = ray < rays;
+  const int lane = threadIdx.x & 31;
+  const long long ray_at = tile * rays + ray;
+
+  float dx = 0.0f, dy = 0.0f, dz = 0.0f, min_t = 0.0f, trans0 = 0.0f;
+  if (has_ray) {
+    dx = dirs[ray_at * 3 + 0];
+    dy = dirs[ray_at * 3 + 1];
+    dz = dirs[ray_at * 3 + 2];
+    min_t = mind[ray_at];
+    trans0 = t0[ray_at];
+  }
+  float basis[16];
+  sh_basis(dx, dy, dz, basis);
+
+  float trans = trans0;
+  bool alive = has_ray;
+  float acc_c0 = 0.0f, acc_c1 = 0.0f, acc_c2 = 0.0f, acc_t = 0.0f;
+  float acc_w = 0.0f, acc_n0 = 0.0f, acc_n1 = 0.0f, acc_n2 = 0.0f;
+
+  const int count = min(max(cnt[tile], 0), k);
+  for (int base = 0; base < count; base += kChunk) {
+    // Barrier before shared memory is overwritten; the whole block stops
+    // once none of its rays is alive.
+    if (!__syncthreads_or(alive)) break;
+    const int n = min(kChunk, count - base);
+    if (threadIdx.x < n) {
+      const long long c = base + threadIdx.x;
+      for (int f = 0; f < 9; ++f) {
+        s_geo[f][threadIdx.x] = axes[(tile * 9 + f) * k + c];
+      }
+      for (int f = 0; f < 3; ++f) {
+        s_geo[9 + f][threadIdx.x] = plane[(tile * 3 + f) * k + c];
+      }
+      for (int f = 0; f < 2; ++f) {
+        s_geo[12 + f][threadIdx.x] = inv_scale[(tile * 2 + f) * k + c];
+      }
+      s_geo[14][threadIdx.x] = opac[tile * k + c];
+      s_geo[15][threadIdx.x] = sign[tile * k + c];
+      for (int f = 0; f < kSh; ++f) {
+        s_sh[f][threadIdx.x] = sh[(tile * kSh + f) * k + c];
+      }
+    }
+    __syncthreads();
+    if (!__any_sync(0xffffffffu, alive)) continue;  // warp-uniform skip
+
+    for (int j = 0; j < n; ++j) {
+      float w = 0.0f;
+      if (alive) {
+        const float nx = s_geo[0][j], ny = s_geo[1][j], nz = s_geo[2][j];
+        const float qd = dot3_rn(dx, dy, dz, nx, ny, nz);
+        float alpha = 0.0f, t = 0.0f;
+        if (fabsf(qd) > kDenomEps) {
+          t = s_geo[9][j] / qd;
+          if (t >= min_t) {
+            const float bu = dot3_rn(dx, dy, dz, s_geo[3][j], s_geo[4][j],
+                                     s_geo[5][j]);
+            const float bv = dot3_rn(dx, dy, dz, s_geo[6][j], s_geo[7][j],
+                                     s_geo[8][j]);
+            const float u = __fmul_rn(__fadd_rn(s_geo[10][j],
+                                                __fmul_rn(t, bu)),
+                                      s_geo[12][j]);
+            const float v = __fmul_rn(__fadd_rn(s_geo[11][j],
+                                                __fmul_rn(t, bv)),
+                                      s_geo[13][j]);
+            const float g = expf(__fmul_rn(
+                -0.5f, __fadd_rn(__fmul_rn(u, u), __fmul_rn(v, v))));
+            const float a = fminf(kAlphaMax, __fmul_rn(s_geo[14][j], g));
+            if (a >= kAlphaMin) alpha = a;
+          }
+        }
+        const float next = trans * (1.0f - alpha);
+        if (next < kTMin) {
+          alive = false;  // the live prefix ends before this hit
+          trans = next;
+        } else if (alpha > 0.0f) {
+          w = alpha * trans;
+          trans = next;
+          float c0 = 0.0f, c1 = 0.0f, c2 = 0.0f;
+#pragma unroll
+          for (int s = 0; s < 16; ++s) {
+            c0 += basis[s] * s_sh[s][j];
+            c1 += basis[s] * s_sh[16 + s][j];
+            c2 += basis[s] * s_sh[32 + s][j];
+          }
+          const float sw = w * s_geo[15][j];
+          acc_c0 += w * fmaxf(c0 + 0.5f, 0.0f);
+          acc_c1 += w * c1;
+          acc_c2 += w * c2;
+          acc_t += w * t;
+          acc_w += w;
+          acc_n0 += sw * nx;
+          acc_n1 += sw * ny;
+          acc_n2 += sw * nz;
+        }
+      }
+      if (__any_sync(0xffffffffu, w != 0.0f)) {
+        const float s = warp_sum(w);
+        if (lane == 0) atomicAdd(&accum[tile * k + base + j], s);
+      }
+    }
+  }
+
+  if (has_ray) {
+    float* out = chans + tile * kOutRows * rays + ray;
+    out[0 * rays] = acc_c0;
+    out[1 * rays] = acc_c1 + 0.5f * acc_w;
+    out[2 * rays] = acc_c2 + 0.5f * acc_w;
+    out[3 * rays] = acc_t;
+    out[4 * rays] = acc_w;
+    out[5 * rays] = acc_n0;
+    out[6 * rays] = acc_n1;
+    out[7 * rays] = acc_n2;
+    out[8 * rays] = trans0 - acc_w;  // T_out by telescoping
+    out[9 * rays] = trans;           // raw T: partial once a ray stopped
+#pragma unroll
+    for (int r = 10; r < kOutRows; ++r) out[r * rays] = 0.0f;
+  }
+}
+
+}  // namespace
+
+// Launches the kernel on `stream` over (tiles, rays, k); returns
+// cudaGetLastError() of the launch.  chans (tiles, 16, rays) need not be
+// initialised; accum (tiles, k) must be zero.
+extern "C" int tracer_forward(const void* cnt, const void* dirs,
+                              const void* mind, const void* t0,
+                              const void* axes, const void* plane,
+                              const void* inv_scale, const void* opac,
+                              const void* sign, const void* sh, void* chans,
+                              void* accum, int tiles, int rays, int k,
+                              void* stream) {
+  if (tiles == 0 || rays == 0) return static_cast<int>(cudaSuccess);
+  const dim3 grid((rays + kThreads - 1) / kThreads, tiles);
+  tracer_forward_kernel<<<grid, kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(cnt), static_cast<const float*>(dirs),
+      static_cast<const float*>(mind), static_cast<const float*>(t0),
+      static_cast<const float*>(axes), static_cast<const float*>(plane),
+      static_cast<const float*>(inv_scale), static_cast<const float*>(opac),
+      static_cast<const float*>(sign), static_cast<const float*>(sh),
+      static_cast<float*>(chans), static_cast<float*>(accum), rays, k);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" const char* tracer_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

@@ -1,0 +1,61 @@
+"""The port stays jax-free, and `chip_smoke.py` refuses to run off the card.
+
+Each check runs in a fresh interpreter, since the test process itself has
+jax loaded."""
+
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+
+
+def _python(code: str, cwd: Path = ROOT, **env) -> subprocess.CompletedProcess:
+    return subprocess.run([sys.executable, "-c", code], cwd=cwd,
+                          capture_output=True, text=True, timeout=300,
+                          env={**os.environ, **env})
+
+
+def test_port_imports_no_jax():
+    proc = _python(
+        "import sys\n"
+        "import chip_smoke\n"
+        "import lidar_rt_tpu_torch.sim\n"
+        "import lidar_rt_tpu_torch.ops.cuda_tracer\n"
+        "import lidar_rt_tpu_torch.ops.kernels\n"
+        "import lidar_rt_tpu_torch.scene.convert\n"
+        "import lidar_rt_tpu_torch.ops.composite\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m == 'jax' or m.startswith(('jax.', 'jaxlib')))\n"
+        "assert not bad, bad\n"
+        "print('clean')\n")
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "clean"
+
+
+def test_chip_smoke_scene_is_bench_scene():
+    """chip_smoke.py draws bench.py's street soup without importing jax."""
+    proc = _python(
+        "import numpy as np, bench, chip_smoke\n"
+        "ref = bench.street_scene_bundle(512, seed=3)\n"
+        "got = chip_smoke.street_soup(512, seed=3)\n"
+        "for k in ('means', 'rotations', 'scales', 'opacities', 'sh'):\n"
+        "    want = np.asarray(getattr(ref, k))\n"
+        "    np.testing.assert_array_equal(got[k], want)\n"
+        "print('same')\n", JAX_PLATFORMS="cpu")
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("same")
+
+
+def test_chip_smoke_fails_without_card_or_repo(tmp_path):
+    runs = [(ROOT, {"CUDA_VISIBLE_DEVICES": ""})]
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    runs.append((tmp_path, {}))
+    for cwd, env in runs:
+        proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                              capture_output=True, text=True, timeout=300,
+                              env={**os.environ, **env})
+        assert proc.returncode != 0
+        assert '"ok"' not in proc.stdout
