@@ -3,17 +3,29 @@
     python3 chip_smoke.py [--seed 0]
 
 On one CUDA card it:
-  1. builds the CUDA forward tracer kernel from `lidar_rt_tpu_torch/csrc`;
+  1. builds the CUDA forward and backward tracer kernels from
+     `lidar_rt_tpu_torch/csrc` (one nvcc each, started together);
   2. builds a scene with numpy from --seed: the street soup of `bench.py`
      (131,072 background surfels) plus one 4,096-surfel actor on a 4-frame
      track, loaded with `scene_from_numpy`;
-  3. holds the kernel to its plain PyTorch twin on the tile inputs of one
-     flagship render (64 x 2650 scan, 8x128 tiles, K=256, hier binner);
+  3. holds the forward kernel to its plain PyTorch twin on the tile inputs
+     of one flagship render (64 x 2650 scan, 8x128 tiles, K=256, hier
+     binner);
   4. serves re-simulation requests through `lidar_rt_tpu_torch.sim` (one
      `render_scan`, one 4-pose `resimulate`), counts the kernel launches
      they made, and holds one render to the plain torch engine;
-  5. prints times (median ms per render, kernel vs plain twin with CUDA
-     events, a per-stage breakdown) and peak device memory.
+  5. prints serving times (median ms per render, kernel vs plain twin with
+     CUDA events, a per-stage breakdown) and peak device memory;
+  6. holds the backward kernel to its plain twin on the same tile inputs,
+     with upstream gradients drawn from the seed, and again at 1/20 of the
+     opacity (no ray reaches T_MIN) with an upstream gradient on raw T;
+  7. holds the kernel path's render gradients to torch autograd through
+     the plain torch engine;
+  8. trains: renders ground truth from the scene at the 4 poses, perturbs
+     a copy of the scene, and runs `train.loop.Trainer` for 20 steps at the
+     flagship width (rebinning every 10 steps), counting both kernels'
+     launches; then prints ms per step, kernel times against their twins,
+     peak memory and a device profile of one step.
 
 Every failed check raises.  Without a CUDA device it exits non-zero before
 any phase.  The last two lines of standard output are the kernel table
@@ -41,6 +53,11 @@ N_FRAMES = 4
 # fixed order, so it gets a relative bar on top.
 CHAN_ATOL = 1e-3
 ACCUM_RTOL, ACCUM_ATOL = 1e-4, 1e-3
+# Gradients are sums over rays taken with atomics in no fixed order: per
+# field, cosine above the reference's on-device bar and max abs error
+# within 3e-3 of the field's largest magnitude (its CPU bar, scaled).
+GRAD_COS, GRAD_REL = 0.999, 3e-3
+TRAIN_STEPS = 20
 
 
 def street_soup(n: int, seed: int) -> dict[str, np.ndarray]:
@@ -153,12 +170,15 @@ def _event_ms(fn, iters: int) -> float:
 
 
 def _device_profile(fn, iters: int):
-    """Device kernel time over `iters` calls of fn from a torch.profiler
-    trace: (busy ms per call, idle share of the device span from the first
+    """Device time over `iters` calls of fn from a torch.profiler trace:
+    (busy ms per call, idle share of the device span from the first
     kernel's start to the last one's end, top kernels as (name, ms per
     call), device kernels per call), or None when the trace holds no
-    device events.  The profiler slows the host's launches, so the idle
-    share is an upper bound."""
+    device events.  Only kernels, copies and memsets count: the device-side
+    ranges of profiler annotations (such as `Optimizer.step#Adam.step`)
+    cover kernels already counted.  Busy time is the union of their
+    intervals.  The profiler slows the host's launches, so the idle share
+    is an upper bound."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -169,10 +189,17 @@ def _device_profile(fn, iters: int):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    events = [e for e in prof.events()
+              if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)
+              and "annotation" not in str(getattr(e, "activity_type", ""))]
     if not events:
         return None
-    busy = sum(e.time_range.elapsed_us() for e in events)
+    busy, end = 0.0, float("-inf")
+    for start, stop in sorted((e.time_range.start, e.time_range.end)
+                              for e in events):
+        busy += max(0.0, stop - max(start, end))
+        end = max(end, stop)
     span = (max(e.time_range.end for e in events)
             - min(e.time_range.start for e in events))
     by_name = collections.Counter()
@@ -180,6 +207,62 @@ def _device_profile(fn, iters: int):
         by_name[e.name] += e.time_range.elapsed_us()
     top = [(name, us / iters / 1e3) for name, us in by_name.most_common(6)]
     return busy / iters / 1e3, 1.0 - busy / span, top, len(events) // iters
+
+
+def _grad_errors(got, ref, names) -> dict[str, tuple[float, float]]:
+    """Per field: (cosine, max abs error / max |ref|), in float64."""
+    out = {}
+    for name, a, b in zip(names, got, ref):
+        a, b = a.double().flatten(), b.double().flatten()
+        cos = torch.nn.functional.cosine_similarity(a, b, dim=0).item()
+        out[name] = (cos, ((a - b).abs().max()
+                           / (b.abs().max() + 1e-30)).item())
+    return out
+
+
+def _check_grads(errors: dict, what: str) -> None:
+    for name, (cos, rel) in errors.items():
+        _check(cos > GRAD_COS and rel <= GRAD_REL,
+               f"{what} {name}: cosine {cos:.6f}, rel err {rel:.3e}")
+
+
+def _fmt_grads(errors: dict) -> str:
+    return ", ".join(f"{name} cos {cos:.6f} err {rel:.2e}"
+                     for name, (cos, rel) in errors.items())
+
+
+def perturbed(arrays: dict[str, np.ndarray], seed: int
+              ) -> dict[str, np.ndarray]:
+    """A copy of the scene to train back: positions jittered by 3 cm,
+    log-scales +0.3, opacity logits -1, SH noise."""
+    rng = np.random.default_rng(seed)
+    out = dict(arrays)
+    for part in ("background", "actors"):
+        def noisy(key, scale):
+            a = arrays[f"{part}.{key}"]
+            return (a + rng.normal(0, scale, a.shape)).astype(np.float32)
+
+        out[f"{part}.xyz"] = noisy("xyz", 0.03)
+        out[f"{part}.log_scale"] = arrays[f"{part}.log_scale"] + 0.3
+        out[f"{part}.opacity_logit"] = arrays[f"{part}.opacity_logit"] - 1.0
+        out[f"{part}.f_dc"] = noisy("f_dc", 0.05)
+        out[f"{part}.f_rest"] = noisy("f_rest", 0.02)
+    return out
+
+
+def expected_rebins(frames_seen: list[int], num_frames: int,
+                    interval: int) -> int:
+    """Rebins a trainer makes over a frame sequence: a frame is binned when
+    its age (steps since its last binning) reaches the interval."""
+    age = [interval] * num_frames
+    count = 0
+    for f in frames_seen:
+        stale = age[f] >= interval
+        age = [a + 1 for a in age]
+        if stale:
+            age[f] = 1
+            count += 1
+    return count
 
 
 def main() -> None:
@@ -194,7 +277,7 @@ def main() -> None:
 
     from lidar_rt_tpu_torch import sim
     from lidar_rt_tpu_torch.core import rays as rays_lib
-    from lidar_rt_tpu_torch.ops import cuda_tracer, kernels, tracer
+    from lidar_rt_tpu_torch.ops import cuda_tracer, geometry, kernels, tracer
     from lidar_rt_tpu_torch.scene import compose, scene_from_numpy
 
     card = _card()
@@ -203,12 +286,14 @@ def main() -> None:
 
     # 1. Build.
     t = time.perf_counter()
-    lib = kernels.build()
+    libs = kernels.build()
     build_s = time.perf_counter() - t
-    print(f"[build] {build_s:.2f} s -> {lib.name}")
-    for line in lib.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build] ptxas: {line.strip()}")
+    print(f"[build] {build_s:.2f} s -> "
+          + ", ".join(p.name for p in libs.values()))
+    for name, lib in libs.items():
+        for line in lib.with_suffix(".log").read_text().splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[build] {name} ptxas: {line.strip()}")
 
     # 2. Scene.
     t = time.perf_counter()
@@ -254,15 +339,18 @@ def main() -> None:
     poses[:, 0, 3] = torch.arange(N_FRAMES, device=dev, dtype=torch.float32)
     torch.cuda.reset_peak_memory_stats(dev)
     kernels.forward_launches = 0
+    kernels.backward_launches = 0
     scan = sim.render_scan(scene, grid, W, s2w, 0)
     seq = sim.resimulate(scene, grid, W, poses)
     torch.cuda.synchronize()
     launches = kernels.forward_launches
+    serve_bwd = kernels.backward_launches
     peak_mib = torch.cuda.max_memory_allocated(dev) / 2 ** 20
     renders = 1 + N_FRAMES
     print(f"[slice] render_scan + resimulate({N_FRAMES}): {renders} renders, "
-          f"{launches} kernel launches")
+          f"{launches} forward and {serve_bwd} backward kernel launches")
     _check(launches == renders, f"{launches} launches for {renders} renders")
+    _check(serve_bwd == 0, f"{serve_bwd} backward launches while serving")
     for key in ("depth", "intensity", "raydrop"):
         _check(tuple(scan[key].shape) == (H, W), f"render_scan {key} shape")
         _check(tuple(seq[key].shape) == (N_FRAMES, H, W),
@@ -327,15 +415,223 @@ def main() -> None:
         for name, ms in top:
             print(f"[profile]   {ms:8.3f} ms  {name[:100]}")
 
+    # 6. Backward kernel against its plain twin, same tile inputs.
+    names = ("d_axes", "d_plane", "d_inv_scale", "d_opac", "d_sh")
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    g_chans = torch.randn(chans_k.shape, generator=gen, device=dev)
+    g_chans[:, 9:] = 0.0     # raw T: never read by the training loss
+    with torch.no_grad():
+        grads_k = kernels.tracer_backward(*inputs, chans_k, g_chans)
+        grads_p = cuda_tracer.backward_tiles_reference(*inputs, chans_k,
+                                                       g_chans)
+        torch.cuda.synchronize()
+    bwd_err = _grad_errors(grads_k, grads_p, names)
+    bwd_abs = max((a - b).abs().max().item()
+                  for a, b in zip(grads_k, grads_p))
+    print(f"[backward] T={t_total} R={rays_per_tile} K={k}: kernel vs "
+          f"twin {_fmt_grads(bwd_err)} (bars: cosine > {GRAD_COS}, err <= "
+          f"{GRAD_REL} x max|twin|); max abs err {bwd_abs:.3e}")
+    for x in grads_k:
+        _check(bool(torch.isfinite(x).all()), "backward kernel finite")
+    _check_grads(bwd_err, "backward kernel vs twin")
+    # The raw-T row's terms: an upstream gradient on row 9, on the same
+    # tiles at 1/20 of the opacity, where no ray reaches T_MIN and so the
+    # kernel's partial raw T equals the twin's full product.
+    faint = inputs._replace(opac=inputs.opac * 0.05)
+    with torch.no_grad():
+        chans_f, _ = cuda_tracer.forward_tiles_reference(*faint)
+        g_faint = torch.randn(chans_k.shape, generator=gen, device=dev)
+        g_faint[:, 10:] = 0.0
+        grads_fk = kernels.tracer_backward(*faint, chans_f, g_faint)
+        grads_fp = cuda_tracer.backward_tiles_reference(*faint, chans_f,
+                                                        g_faint)
+        torch.cuda.synchronize()
+    min_raw_t = chans_f[:, 9].min().item()
+    _check(min_raw_t >= geometry.T_MIN,
+           f"no ray reaches T_MIN at 1/20 opacity (min raw T {min_raw_t})")
+    faint_err = _grad_errors(grads_fk, grads_fp, names)
+    bwd_abs = max(bwd_abs, *((a - b).abs().max().item()
+                             for a, b in zip(grads_fk, grads_fp)))
+    print(f"[backward] 1/20 opacity, upstream on raw T (min raw T "
+          f"{min_raw_t:.3f}): kernel vs twin {_fmt_grads(faint_err)}")
+    _check_grads(faint_err, "backward kernel vs twin, raw T")
+    del faint, chans_f, g_faint, grads_fk, grads_fp
+
+    # 7. Render gradients: kernel path against torch autograd through the
+    # plain engine.
+    fields = ("means", "rotations", "scales", "opacities", "sh")
+    heads = {key: torch.randn((H, W), generator=gen, device=dev)
+             for key in ("depth", "intensity", "raydrop")}
+    render_grads = {}
+    for engine in ("cuda", "torch"):
+        with torch.no_grad():
+            bundle, _ = compose(scene, 0)
+        leaf = bundle._replace(**{f: getattr(bundle, f).clone()
+                                  .requires_grad_() for f in fields})
+        out = tracer.render_frame(leaf, grid, W, s2w, degree,
+                                  tracer.TraceConfig(engine=engine))
+        sum((out[key] * w).sum() for key, w in heads.items()).backward()
+        render_grads[engine] = [getattr(leaf, f).grad for f in fields]
+        del out, leaf
+    torch.cuda.synchronize()
+    rgrad_err = _grad_errors(render_grads["cuda"], render_grads["torch"],
+                             fields)
+    print(f"[render-grad] kernel path vs torch engine: "
+          f"{_fmt_grads(rgrad_err)}")
+    _check_grads(rgrad_err, "render gradients")
+    del render_grads
+
+    # 8. Training at full width.
+    from lidar_rt_tpu_torch.data.frames import LiDARFrames
+    from lidar_rt_tpu_torch.train import loop, options
+
+    with torch.no_grad():
+        gt = [sim.render_scan(scene, grid, W, poses[f], f)
+              for f in range(N_FRAMES)]
+    depth = torch.stack([o["depth"] * (o["channels"][..., 4] > 0.5)
+                         for o in gt])
+    frames = LiDARFrames(grid, W, poses.clone(), depth,
+                         torch.stack([o["intensity"] for o in gt]))
+    del gt
+    opts = options.experiment_options(seed=args.seed)
+    trainer = loop.Trainer(
+        scene_from_numpy(perturbed(scene_arrays(args.seed), args.seed + 2),
+                         dev), frames, opts, tracer.TraceConfig())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.forward_launches = 0
+    kernels.backward_launches = 0
+    t = time.perf_counter()
+    history = trainer.run(TRAIN_STEPS, log_every=TRAIN_STEPS)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t
+    train_fwd = kernels.forward_launches
+    train_bwd = kernels.backward_launches
+    train_peak_mib = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+    loss = [h["loss"] for h in history]
+    seen = [h["frame"] for h in history]
+    rebins = trainer.state.bins.rebins
+    want_rebins = expected_rebins(seen, N_FRAMES, trainer.rebin_every)
+    print(f"[train] {TRAIN_STEPS} steps at {H}x{W}, "
+          f"{trainer.state.scene.background.capacity} + "
+          f"{trainer.state.scene.num_actors}x"
+          f"{trainer.state.scene.actors.capacity} surfels, rebin every "
+          f"{trainer.rebin_every}: {train_fwd} forward and {train_bwd} "
+          f"backward kernel launches, {rebins} rebins (expected "
+          f"{want_rebins} for frames {seen}); loss first 5 mean "
+          f"{statistics.mean(loss[:5]):.5f}, last 5 mean "
+          f"{statistics.mean(loss[-5:]):.5f}; {train_s:.2f} s in all")
+    print(f"[train] loss per step: {[round(x, 5) for x in loss]}")
+    _check(train_fwd == TRAIN_STEPS and train_bwd == TRAIN_STEPS,
+           f"{train_fwd} forward / {train_bwd} backward launches for "
+           f"{TRAIN_STEPS} steps")
+    _check(all(np.isfinite(loss)), "training losses finite")
+    for part in ("background", "actors"):
+        for name, v in getattr(trainer.state.scene, part).params().items():
+            _check(bool(torch.isfinite(v).all()), f"{part}.{name} finite")
+    _check(statistics.mean(loss[-5:]) < statistics.mean(loss[:5]),
+           "the loss falls over the run")
+    _check(rebins == want_rebins and rebins >= 2,
+           f"{rebins} rebins, expected {want_rebins}")
+
+    # Times of the training path, each beside the card.
+    step_ms = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        trainer.step()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    with torch.no_grad():
+        bundle, _ = compose(trainer.state.scene, 0)
+        t_inputs, _ = cuda_tracer.tile_inputs(
+            bundle, grid, W, poses[0], trainer.state.scene.background
+            .active_sh_degree, cfg.tile)
+        t_chans, _ = kernels.tracer_forward(*t_inputs)
+        g_train = torch.randn(t_chans.shape, generator=gen, device=dev)
+        g_train[:, 9:] = 0.0
+        fwd_ms = _event_ms(lambda: kernels.tracer_forward(*t_inputs), 20)
+        fwd_plain_ms = _event_ms(
+            lambda: cuda_tracer.forward_tiles_reference(*t_inputs), 5)
+        bwd_ms = _event_ms(lambda: kernels.tracer_backward(
+            *t_inputs, t_chans, g_train), 20)
+        bwd_plain_ms = _event_ms(lambda: cuda_tracer.backward_tiles_reference(
+            *t_inputs, t_chans, g_train), 3)
+    # Stages of a step at the training shapes (CUDA events; they include
+    # any host gaps): render forward + backward through both kernels with
+    # the cached assignment, the Chamfer term forward + backward, and the
+    # background's Adam step.
+    from lidar_rt_tpu_torch.core import rays as rays_lib
+    from lidar_rt_tpu_torch.ops.binning import TileAssignment
+    from lidar_rt_tpu_torch.train import losses
+
+    bins = trainer.state.bins
+    cached = TileAssignment(bins.index[0], bins.valid[0],
+                            torch.zeros_like(bins.index[0, :, 0]))
+
+    def render_backward():
+        b, _ = compose(trainer.state.scene, 0)
+        out = tracer.render_frame(
+            b, grid, W, poses[0],
+            trainer.state.scene.background.active_sh_degree, cfg,
+            assignment=cached)
+        (out["depth"].sum() + out["intensity"].sum()).backward()
+
+    origin, dirs3 = rays_lib.range_rays(grid, W, poses[0])
+    stride = max(1, H * W // opts.opt.cd_max_points)
+    gt_pts = origin + dirs3.reshape(-1, 3)[::stride] \
+        * frames.depth(0).reshape(-1)[::stride, None]
+    cd_mask = frames.mask(0).reshape(-1)[::stride]
+    pred_pts = (gt_pts + 0.01 * torch.randn(gt_pts.shape, generator=gen,
+                                            device=dev)).requires_grad_()
+    render_ms = _event_ms(render_backward, 5)
+    cd_ms = _event_ms(lambda: losses.chamfer_loss(
+        pred_pts, cd_mask, gt_pts, cd_mask).backward(), 5)
+    adam_ms = _event_ms(trainer.state.opt_bg.step, 5)
+    print(f"[train-times] {card}: stages: render forward + backward "
+          f"{render_ms:.3f} ms, Chamfer ({int(cd_mask.sum())} points) "
+          f"forward + backward {cd_ms:.3f} ms, background Adam step "
+          f"{adam_ms:.3f} ms")
+    print(f"[train-times] {card}: training step median "
+          f"{statistics.median(step_ms):.3f} ms (min {min(step_ms):.3f}, "
+          f"max {max(step_ms):.3f}, 10 steps, host clock); forward kernel "
+          f"{fwd_ms:.3f} ms vs twin {fwd_plain_ms:.3f} ms, backward kernel "
+          f"{bwd_ms:.3f} ms vs twin {bwd_plain_ms:.3f} ms (CUDA events, "
+          f"the training render's tile inputs)")
+    print(f"[train-memory] {card}: peak allocated {train_peak_mib:.1f} MiB "
+          f"over {TRAIN_STEPS} training steps")
+    prof = _device_profile(trainer.step, 3)
+    if prof is None:
+        print(f"[train-profile] {card}: the trace holds no device events; "
+              "device busy time not measured")
+    else:
+        busy, idle, top, launches_per_step = prof
+        print(f"[train-profile] {card}: training step device busy "
+              f"{busy:.3f} ms, idle share of the device span {idle:.3f} "
+              f"(upper bound), {launches_per_step} device kernels per step")
+        for name, ms in top:
+            print(f"[train-profile]   {ms:8.3f} ms  {name[:100]}")
+
     print(json.dumps({"kernels": [{
         "name": "tracer_forward",
         "route": "cuda",
         "source": "lidar_rt_tpu_torch/csrc/tracer_forward.cu",
         "replaces": "lidar_rt_tpu/ops/pallas_tracer.py:120",
-        "launches": launches,
+        "launches": train_fwd,
+        "launches_by_path": {"serve": launches, "train": train_fwd},
         "max_abs_err": kern_err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
+        "ms": fwd_ms,
+        "plain_ms": fwd_plain_ms,
+    }, {
+        "name": "tracer_backward",
+        "route": "cuda",
+        "source": "lidar_rt_tpu_torch/csrc/tracer_backward.cu",
+        "replaces": "lidar_rt_tpu/ops/pallas_backward.py:52",
+        "launches": train_bwd,
+        "launches_by_path": {"serve": serve_bwd, "train": train_bwd},
+        "max_abs_err": bwd_abs,
+        "ms": bwd_ms,
+        "plain_ms": bwd_plain_ms,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,8 +3,8 @@
 
 b(dir) has static length 16; coefficients of degree > active_degree are
 masked to zero so shapes stay fixed while the SH warm-up grows the degree.
-The CUDA tracer kernel evaluates the same basis in registers
-(`csrc/tracer_forward.cu`, `sh_basis`), with the same constants.
+The CUDA tracer kernels evaluate the same basis in registers
+(`csrc/tracer_common.cuh`, `sh_basis`), with the same constants.
 """
 
 from __future__ import annotations

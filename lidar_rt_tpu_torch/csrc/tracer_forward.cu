@@ -3,10 +3,11 @@
 // Replaces: lidar_rt_tpu/ops/pallas_tracer.py::_forward_kernel, the Pallas
 // TPU forward kernel launched by _core_fwd_call, together with the in-kernel
 // helpers it calls from lidar_rt_tpu/ops/pallas_common.py: sh_basis_rows
-// becomes `sh_basis` below, and lane_cumprod_excl becomes the sequential
-// per-ray transmittance walk.  The boundary is the Pallas kernel's (see
-// lidar_rt_tpu_torch/ops/cuda_tracer.py): the same inputs with an int32
-// count, the same channel-major (T, 16, R) output and a (T, K) accum.
+// becomes `sh_basis` in tracer_common.cuh, and lane_cumprod_excl becomes
+// the sequential per-ray transmittance walk.  The boundary is the Pallas
+// kernel's (see lidar_rt_tpu_torch/ops/cuda_tracer.py): the same inputs
+// with an int32 count, the same channel-major (T, 16, R) output and a
+// (T, K) accum.
 //
 // What bounds it on this card: per (ray, candidate) pair the intersection
 // and gates cost ~25 flops and one exp; a pair that passes the gates adds
@@ -28,69 +29,16 @@
 // pairs that pass the gates.  Per-candidate sums over rays go through a warp
 // reduction and one atomicAdd per warp into a zero-initialised (T, K)
 // output: CUDA blocks run in no order, where the TPU kernel carried these
-// sums across its sequential grid.  The intersection arithmetic is written
-// with explicitly rounded operations (no FMA contraction) so it rounds like
-// the plain PyTorch version: t = p / (n.d) amplifies rounding at grazing
-// incidence.  Making it fast (occupancy, splitting K) is later work.
+// sums across its sequential grid.  The intersection, gates and shading are
+// shared with the backward kernel (tracer_common.cuh), written with
+// explicitly rounded operations so both kernels decide every gate alike.
+// Making it fast (occupancy, splitting K) is later work.
 
-#include <cuda_runtime.h>
+#include "tracer_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;  // rays per block, one thread each
-constexpr int kChunk = 128;    // candidates staged per round (== kThreads)
-constexpr int kGeo = 16;       // n(3) w1(3) w2(3) p a_u a_v 1/s0 1/s1 opac sign
-constexpr int kSh = 48;        // 3 channels x 16 SH coefficients
-constexpr int kOutRows = 16;   // channel rows of the output (10 used)
-
-// Gates, as lidar_rt_tpu/ops/geometry.py:38-42.
-constexpr float kAlphaMax = 0.99f;
-constexpr float kAlphaMin = static_cast<float>(1.0 / 255.0);
-constexpr float kTMin = 1e-4f;
-constexpr float kDenomEps = 1e-12f;
-
-static_assert(kThreads == kChunk, "each thread stages one candidate");
-
-// Degree-3 real SH basis of a direction (lidar_rt_tpu/core/sh.py basis).
-__device__ __forceinline__ void sh_basis(float x, float y, float z,
-                                         float b[16]) {
-  const float inv = rsqrtf(fmaxf(x * x + y * y + z * z, 1e-24f));
-  x *= inv;
-  y *= inv;
-  z *= inv;
-  const float xx = x * x, yy = y * y, zz = z * z;
-  const float xy = x * y, yz = y * z, xz = x * z;
-  b[0] = 0.28209479177387814f;
-  b[1] = -0.4886025119029199f * y;
-  b[2] = 0.4886025119029199f * z;
-  b[3] = -0.4886025119029199f * x;
-  b[4] = 1.0925484305920792f * xy;
-  b[5] = -1.0925484305920792f * yz;
-  b[6] = 0.31539156525252005f * (2.0f * zz - xx - yy);
-  b[7] = -1.0925484305920792f * xz;
-  b[8] = 0.5462742152960396f * (xx - yy);
-  b[9] = -0.5900435899266435f * y * (3.0f * xx - yy);
-  b[10] = 2.890611442640554f * xy * z;
-  b[11] = -0.4570457994644658f * y * (4.0f * zz - xx - yy);
-  b[12] = 0.3731763325901154f * z * (2.0f * zz - 3.0f * xx - 3.0f * yy);
-  b[13] = -0.4570457994644658f * x * (4.0f * zz - xx - yy);
-  b[14] = 1.445305721320277f * z * (xx - yy);
-  b[15] = -0.5900435899266435f * x * (xx - 3.0f * yy);
-}
-
-// d . a with each product and sum rounded separately, left to right.
-__device__ __forceinline__ float dot3_rn(float dx, float dy, float dz,
-                                         float ax, float ay, float az) {
-  return __fadd_rn(__fadd_rn(__fmul_rn(dx, ax), __fmul_rn(dy, ay)),
-                   __fmul_rn(dz, az));
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int off = 16; off > 0; off >>= 1) {
-    v += __shfl_down_sync(0xffffffffu, v, off);
-  }
-  return v;
-}
+using namespace tracer;
 
 __global__ void __launch_bounds__(kThreads) tracer_forward_kernel(
     const int* __restrict__ cnt, const float* __restrict__ dirs,
@@ -130,74 +78,33 @@ __global__ void __launch_bounds__(kThreads) tracer_forward_kernel(
     // once none of its rays is alive.
     if (!__syncthreads_or(alive)) break;
     const int n = min(kChunk, count - base);
-    if (threadIdx.x < n) {
-      const long long c = base + threadIdx.x;
-      for (int f = 0; f < 9; ++f) {
-        s_geo[f][threadIdx.x] = axes[(tile * 9 + f) * k + c];
-      }
-      for (int f = 0; f < 3; ++f) {
-        s_geo[9 + f][threadIdx.x] = plane[(tile * 3 + f) * k + c];
-      }
-      for (int f = 0; f < 2; ++f) {
-        s_geo[12 + f][threadIdx.x] = inv_scale[(tile * 2 + f) * k + c];
-      }
-      s_geo[14][threadIdx.x] = opac[tile * k + c];
-      s_geo[15][threadIdx.x] = sign[tile * k + c];
-      for (int f = 0; f < kSh; ++f) {
-        s_sh[f][threadIdx.x] = sh[(tile * kSh + f) * k + c];
-      }
-    }
+    stage_chunk(s_geo, s_sh, tile, k, base, n, axes, plane, inv_scale, opac,
+                sign, sh);
     __syncthreads();
     if (!__any_sync(0xffffffffu, alive)) continue;  // warp-uniform skip
 
     for (int j = 0; j < n; ++j) {
       float w = 0.0f;
       if (alive) {
-        const float nx = s_geo[0][j], ny = s_geo[1][j], nz = s_geo[2][j];
-        const float qd = dot3_rn(dx, dy, dz, nx, ny, nz);
-        float alpha = 0.0f, t = 0.0f;
-        if (fabsf(qd) > kDenomEps) {
-          t = s_geo[9][j] / qd;
-          if (t >= min_t) {
-            const float bu = dot3_rn(dx, dy, dz, s_geo[3][j], s_geo[4][j],
-                                     s_geo[5][j]);
-            const float bv = dot3_rn(dx, dy, dz, s_geo[6][j], s_geo[7][j],
-                                     s_geo[8][j]);
-            const float u = __fmul_rn(__fadd_rn(s_geo[10][j],
-                                                __fmul_rn(t, bu)),
-                                      s_geo[12][j]);
-            const float v = __fmul_rn(__fadd_rn(s_geo[11][j],
-                                                __fmul_rn(t, bv)),
-                                      s_geo[13][j]);
-            const float g = expf(__fmul_rn(
-                -0.5f, __fadd_rn(__fmul_rn(u, u), __fmul_rn(v, v))));
-            const float a = fminf(kAlphaMax, __fmul_rn(s_geo[14][j], g));
-            if (a >= kAlphaMin) alpha = a;
-          }
-        }
-        const float next = trans * (1.0f - alpha);
+        const Hit h = intersect(s_geo, j, dx, dy, dz, min_t);
+        const float next = next_trans(trans, h.alpha);
         if (next < kTMin) {
           alive = false;  // the live prefix ends before this hit
           trans = next;
-        } else if (alpha > 0.0f) {
-          w = alpha * trans;
+        } else if (h.alpha > 0.0f) {
+          w = h.alpha * trans;
           trans = next;
-          float c0 = 0.0f, c1 = 0.0f, c2 = 0.0f;
-#pragma unroll
-          for (int s = 0; s < 16; ++s) {
-            c0 += basis[s] * s_sh[s][j];
-            c1 += basis[s] * s_sh[16 + s][j];
-            c2 += basis[s] * s_sh[32 + s][j];
-          }
-          const float sw = w * s_geo[15][j];
+          float c0, c1, c2;
+          shade(basis, s_sh, j, c0, c1, c2);
+          const float sw = w * s_geo[kSign][j];
           acc_c0 += w * fmaxf(c0 + 0.5f, 0.0f);
           acc_c1 += w * c1;
           acc_c2 += w * c2;
-          acc_t += w * t;
+          acc_t += w * h.t;
           acc_w += w;
-          acc_n0 += sw * nx;
-          acc_n1 += sw * ny;
-          acc_n2 += sw * nz;
+          acc_n0 += sw * s_geo[kNx][j];
+          acc_n1 += sw * s_geo[kNy][j];
+          acc_n2 += sw * s_geo[kNz][j];
         }
       }
       if (__any_sync(0xffffffffu, w != 0.0f)) {

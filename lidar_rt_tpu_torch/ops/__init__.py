@@ -6,5 +6,6 @@
 - binning:      surfel -> range-image tile binning
 - tracer:       public trace()/render_frame(), the plain torch engine
 - cuda_tracer:  host side of the kernel path and its plain twin
-- kernels:      build, binding and launch counter of the CUDA kernel
+- kernels:      build, bindings and launch counters of the CUDA kernels
+- ssim, chamfer: the training losses' windowed SSIM and Chamfer distance
 """

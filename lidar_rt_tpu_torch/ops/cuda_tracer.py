@@ -18,9 +18,11 @@ and its outputs are the channel-major (T, 16, R) rows (0 Σw·max(b·sh0+.5, 0),
 1-2 b·Σw·sh + .5Σw, 3 Σw·t, 4 Σw, 5-7 Σw·sign·n, 8 t0 − Σw, 9 raw T,
 10-15 zero) and the per-(tile, candidate) Σ_rays w, (T, K).
 
-`forward_tiles` takes the plain twin for CPU tensors and launches the CUDA
-kernel for CUDA tensors; nothing falls back.  The background term and the
-ray-drop head stay outside the kernel.
+`forward_tiles` is differentiable (`_TracerCore`, the counterpart of the
+reference's `_pallas_core` custom_vjp): the forward and backward kernels
+for CUDA tensors, their plain twins (`forward_tiles_reference`,
+`backward_tiles_reference`) for CPU tensors; nothing falls back.  The
+background term and the ray-drop head stay outside the kernels.
 """
 
 from __future__ import annotations
@@ -157,13 +159,31 @@ def tile_inputs(bundle: SurfelBundle, grid: rays_lib.SensorGrid, width: int,
     return inputs, assignment
 
 
-def forward_tiles_reference(cnt: Tensor, dirs: Tensor, mind: Tensor,
-                            t0: Tensor, axes: Tensor, plane: Tensor,
-                            inv_scale: Tensor, opac: Tensor, sign: Tensor,
-                            sh: Tensor) -> tuple[Tensor, Tensor]:
-    """Plain PyTorch version of the kernel boundary: (chans (T, 16, R),
-    accum (T, K)).  Dense over every (ray, candidate) pair of a tile;
-    candidates at or past `cnt` are masked out, as the kernel skips them."""
+class _Pairs(NamedTuple):
+    """Per-(ray, candidate) replay of the kernels, all (T, R, K)."""
+
+    safe_qd: Tensor
+    b_u: Tensor
+    b_v: Tensor
+    t: Tensor
+    u: Tensor
+    v: Tensor
+    g: Tensor
+    alpha_raw: Tensor
+    ok: Tensor
+    alpha: Tensor
+    t_excl: Tensor
+    t_incl: Tensor
+    live: Tensor
+    w: Tensor
+
+
+def _pairs(cnt: Tensor, dirs: Tensor, mind: Tensor, t0: Tensor,
+           axes: Tensor, plane: Tensor, inv_scale: Tensor, opac: Tensor
+           ) -> _Pairs:
+    """Intersect, gate and composite every (ray, candidate) pair of each
+    tile densely; candidates at or past `cnt` are masked out, as the
+    kernels skip them."""
     k = axes.shape[-1]
     n, w1, w2 = axes[:, 0], axes[:, 1], axes[:, 2]            # (T, 3, K)
     qd = geometry.ray_dot(dirs, n.transpose(1, 2))            # (T, R, K)
@@ -185,8 +205,23 @@ def forward_tiles_reference(cnt: Tensor, dirs: Tensor, mind: Tensor,
     # Live prefix: T_incl is non-increasing, so the T_MIN test is a prefix.
     t_incl = t0[..., None] * torch.cumprod(1.0 - alpha, dim=-1)
     t_excl = torch.cat([t0[..., None], t_incl[..., :-1]], dim=-1)
-    w = torch.where(t_incl >= geometry.T_MIN, alpha * t_excl, 0.0)
+    live = t_incl >= geometry.T_MIN
+    w = torch.where(live, alpha * t_excl, 0.0)
+    return _Pairs(safe_qd, b_u, b_v, t, u, v, g, alpha_raw, ok, alpha,
+                  t_excl, t_incl, live, w)
 
+
+def forward_tiles_reference(cnt: Tensor, dirs: Tensor, mind: Tensor,
+                            t0: Tensor, axes: Tensor, plane: Tensor,
+                            inv_scale: Tensor, opac: Tensor, sign: Tensor,
+                            sh: Tensor) -> tuple[Tensor, Tensor]:
+    """Plain PyTorch version of the forward kernel: (chans (T, 16, R),
+    accum (T, K)).  Dense over every (ray, candidate) pair of a tile.
+    Row 9 is the product of (1 - alpha) over every pair; the kernel's stops
+    at a ray's T_MIN hit."""
+    f = _pairs(cnt, dirs, mind, t0, axes, plane, inv_scale, opac)
+    w = f.w
+    n = axes[:, 0]
     basis = sh_lib.basis(dirs, sh_lib.MAX_SH_DEGREE)          # (T, R, 16)
     col0 = (torch.matmul(basis, sh[:, 0]) + 0.5).clamp_min(0.0)
     sum_w = w.sum(-1)
@@ -196,27 +231,130 @@ def forward_tiles_reference(cnt: Tensor, dirs: Tensor, mind: Tensor,
         + 0.5 * sum_w,
         (basis * torch.matmul(w, sh[:, 2].transpose(1, 2))).sum(-1)
         + 0.5 * sum_w,
-        (w * t).sum(-1),
+        (w * f.t).sum(-1),
         sum_w,
         *torch.matmul(w, (sign[:, None] * n).transpose(1, 2)).unbind(-1),
         t0 - sum_w,
-        t_incl[..., -1],
+        f.t_incl[..., -1],
     ]
     chans = torch.stack(rows, dim=1)                          # (T, 10, R)
     chans = torch.nn.functional.pad(chans, (0, 0, 0, NUM_OUT_ROWS - 10))
     return chans, w.sum(1)
 
 
+def backward_tiles_reference(cnt: Tensor, dirs: Tensor, mind: Tensor,
+                             t0: Tensor, axes: Tensor, plane: Tensor,
+                             inv_scale: Tensor, opac: Tensor, sign: Tensor,
+                             sh: Tensor, fwd_chans: Tensor, g_chans: Tensor
+                             ) -> tuple[Tensor, ...]:
+    """Plain PyTorch version of the backward kernel: the closed-form VJP of
+    `forward_tiles_reference`, dense over pairs.  fwd_chans are the
+    forward's (T, 16, R) channels, g_chans their upstream gradients.
+    Returns (d_axes (T, 3, 3, K), d_plane (T, 3, K), d_inv_scale (T, 2, K),
+    d_opac (T, K), d_sh (T, 3, 16, K)), each summed over the tile's rays.
+
+    dL/dalpha_j = gw_j T_j - (A_j + g_8 T_out + g_9 T_raw) / (1 - alpha_j),
+    A_j = sum_{k>j} gw_k w_k, gw = dL/dw; pairs past a ray's stop get
+    only the raw-T term, since their w and suffix are exactly 0."""
+    f = _pairs(cnt, dirs, mind, t0, axes, plane, inv_scale, opac)
+    w, t = f.w, f.t
+    n = axes[:, 0]                                            # (T, 3, K)
+    basis = sh_lib.basis(dirs, sh_lib.MAX_SH_DEGREE)          # (T, R, 16)
+    c0, c1, c2 = (torch.matmul(basis, sh[:, ch]) for ch in range(3))
+    g = [g_chans[:, ch, :, None] for ch in range(10)]         # (T, R, 1)
+    sg = sign[:, None, :]                                     # (T, 1, K)
+    col0_raw = c0 + 0.5
+    gw = (g[0] * col0_raw.clamp_min(0.0) + g[1] * (c1 + 0.5)
+          + g[2] * (c2 + 0.5) + g[3] * t + g[4]
+          + sg * (g[5] * n[:, 0:1] + g[6] * n[:, 1:2] + g[7] * n[:, 2:3]))
+    gww = gw * w
+    rev = torch.flip(torch.cumsum(torch.flip(gww, [-1]), -1), [-1])
+    suffix = torch.nn.functional.pad(rev[..., 1:], (0, 1))    # sum_{k>j}
+    one_m = (1.0 - f.alpha).clamp_min(1e-6)
+    t_out = fwd_chans[:, 8, :, None]
+    t_raw = fwd_chans[:, 9, :, None]
+    live = f.live.to(w.dtype)
+    d_alpha = (gw * f.t_excl * live
+               - (suffix + g[8] * t_out * live + g[9] * t_raw) / one_m)
+    d_alpha = torch.where(f.ok & (f.alpha_raw < geometry.ALPHA_MAX),
+                          d_alpha, 0.0)
+
+    # alpha -> (opacity, G) -> (u, v) -> (a_u, a_v, 1/s, t) -> axes.
+    inv_s0, inv_s1 = inv_scale[:, 0:1], inv_scale[:, 1:2]     # (T, 1, K)
+    d_gg = d_alpha * opac[:, None, :] * f.g
+    d_u = -d_gg * f.u
+    d_v = -d_gg * f.v
+    d_t = d_u * inv_s0 * f.b_u + d_v * inv_s1 * f.b_v + g[3] * w
+    d_qd = -d_t * t / f.safe_qd
+    d_au = d_u * inv_s0
+    d_av = d_v * inv_s1
+    d_is0 = d_u * (plane[:, 1:2] + t * f.b_u)
+    d_is1 = d_v * (plane[:, 2:3] + t * f.b_v)
+
+    def over_rays(a, b):
+        """(T, R, C) x (T, R, K) -> (T, C, K)."""
+        return torch.matmul(a.transpose(1, 2), b)
+
+    g_norm = g_chans[:, 5:8].transpose(1, 2)                  # (T, R, 3)
+    d_axes = torch.stack([
+        over_rays(dirs, d_qd) + sign[:, None, :] * over_rays(g_norm, w),
+        over_rays(dirs, d_au * t),
+        over_rays(dirs, d_av * t)], dim=1)
+    d_plane = torch.stack([(d_t / f.safe_qd).sum(1), d_au.sum(1),
+                           d_av.sum(1)], dim=1)
+    d_inv_scale = torch.stack([d_is0.sum(1), d_is1.sum(1)], dim=1)
+    d_opac = (d_alpha * f.g).sum(1)
+    x0 = torch.where(col0_raw > 0.0, g[0] * w, 0.0)
+    d_sh = torch.stack([over_rays(basis, x0), over_rays(basis, g[1] * w),
+                        over_rays(basis, g[2] * w)], dim=1)
+    return d_axes, d_plane, d_inv_scale, d_opac, d_sh
+
+
+class _TracerCore(torch.autograd.Function):
+    """The differentiable kernel boundary (counterpart of the reference's
+    `_pallas_core` custom_vjp): the forward kernel, and the backward kernel
+    as its VJP; on CPU tensors their plain twins.  Gradients reach the
+    candidate geometry, opacity, SH and t0; cnt, dirs, mind and sign get
+    none, and accum (densify statistics only) passes no gradient back."""
+
+    @staticmethod
+    def forward(ctx, cnt, dirs, mind, t0, axes, plane, inv_scale, opac,
+                sign, sh):
+        inputs = (cnt, dirs, mind, t0, axes, plane, inv_scale, opac, sign,
+                  sh)
+        if dirs.device.type == "cpu":
+            chans, accum = forward_tiles_reference(*inputs)
+        else:
+            chans, accum = kernels.tracer_forward(*inputs)
+        ctx.save_for_backward(*inputs, chans)
+        ctx.mark_non_differentiable(accum)
+        return chans, accum
+
+    @staticmethod
+    def backward(ctx, g_chans, _g_accum):
+        *inputs, chans = ctx.saved_tensors
+        g_chans = g_chans.contiguous()
+        if g_chans.device.type == "cpu":
+            grads = backward_tiles_reference(*inputs, chans, g_chans)
+        else:
+            grads = kernels.tracer_backward(*inputs, chans, g_chans)
+        d_axes, d_plane, d_inv_scale, d_opac, d_sh = grads
+        d_t0 = None
+        if ctx.needs_input_grad[3]:
+            # Every channel row scales linearly in t0 (w = alpha T0
+            # prod(1 - alpha)); the T_MIN cutoff's t0-dependence is a
+            # measure-zero step, ignored as the reference does.
+            d_t0 = ((g_chans[:, :10] * chans[:, :10]).sum(1)
+                    / inputs[3].clamp_min(1e-12))
+        return (None, None, None, d_t0, d_axes, d_plane, d_inv_scale,
+                d_opac, None, d_sh)
+
+
 def forward_tiles(inputs: TileInputs) -> tuple[Tensor, Tensor]:
-    """The forward tracer on one render's tiles: the plain twin for CPU
-    tensors, the CUDA kernel for CUDA tensors (which raises on failure)."""
-    if torch.is_grad_enabled() and any(x.requires_grad for x in inputs):
-        raise NotImplementedError(
-            "the tracer kernel has no backward pass yet: render under "
-            "torch.no_grad() or with tensors that do not require grad")
-    if inputs.dirs.device.type == "cpu":
-        return forward_tiles_reference(*inputs)
-    return kernels.tracer_forward(*inputs)
+    """The forward tracer on one render's tiles, differentiable: the plain
+    twins for CPU tensors, the CUDA kernels for CUDA tensors (which raise
+    on failure; nothing falls back)."""
+    return _TracerCore.apply(*inputs)
 
 
 def trace_forward(bundle: SurfelBundle, grid: rays_lib.SensorGrid,

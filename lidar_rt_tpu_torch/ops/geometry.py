@@ -4,7 +4,7 @@
 A ray  x = o + t*d  meets a surfel plane at  t = n . (mu - o) / (n . d);
 splat-frame coordinates  u = w1 . (x - mu) / s1,  v = w2 . (x - mu) / s2;
 G = exp(-(u^2+v^2)/2) and alpha = min(0.99, opacity*G).  The five gate
-constants below are shared with the CUDA kernel (`csrc/tracer_forward.cu`).
+constants below are shared with the CUDA kernels (`csrc/tracer_common.cuh`).
 """
 
 from __future__ import annotations

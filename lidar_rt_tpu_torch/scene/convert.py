@@ -4,9 +4,12 @@ This is how a scene crosses from `lidar_rt_tpu` (or from any numpy source)
 to the port: one array per leaf, keyed `<part>.<field>`:
 
     background.{xyz, f_dc, f_rest, log_scale, quat, opacity_logit, alive,
-                active_sh_degree}
+                active_sh_degree[, max_sh_degree, extent]}
     actors.{same fields, stacked with a leading actor axis}      (optional)
     tracks.{size, translations, quats, present}   (required with actors)
+
+`max_sh_degree` and `extent` are scalars; absent, they take the
+reference's defaults, 3 and 200.0.
 """
 
 from __future__ import annotations
@@ -38,7 +41,9 @@ def _asset(arrays, part: str, device) -> GaussianAsset:
     degree = int(np.max(arrays[f"{part}.active_sh_degree"]))
     return GaussianAsset(
         *(_tensor(arrays, f"{part}.{f}", device) for f in ASSET_FIELDS),
-        active_sh_degree=degree)
+        active_sh_degree=degree,
+        max_sh_degree=int(arrays.get(f"{part}.max_sh_degree", 3)),
+        extent=float(arrays.get(f"{part}.extent", 200.0)))
 
 
 def scene_from_numpy(arrays: Mapping[str, np.ndarray],

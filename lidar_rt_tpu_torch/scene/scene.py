@@ -7,6 +7,7 @@ flattened world-frame bundle has B + M*A surfels whatever the alive counts.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import torch
@@ -36,6 +37,20 @@ class Scene:
     def num_frames(self) -> int:
         """Length of the actor timeline (1 for a static scene)."""
         return 1 if self.tracks is None else self.tracks.num_frames
+
+    @property
+    def total_capacity(self) -> int:
+        """Surfel slots of the composed bundle: B + M*A."""
+        cap = self.background.capacity
+        if self.actors is not None:
+            cap += self.actors.xyz.shape[0] * self.actors.xyz.shape[1]
+        return cap
+
+    def one_up_sh_degree(self) -> "Scene":
+        return dataclasses.replace(
+            self, background=self.background.one_up_sh_degree(),
+            actors=None if self.actors is None
+            else self.actors.one_up_sh_degree())
 
 
 def _actor_world(actors: GaussianAsset, tracks: ActorTrack, frame: int
@@ -95,3 +110,14 @@ def compose(scene: Scene, frame: int, decomp: str | None = None
         scales=torch.cat(scales), opacities=torch.cat(opac),
         sh=torch.cat(shs))
     return bundle, torch.cat(alive)
+
+
+def split_by_asset(scene: Scene, flat: Tensor) -> list[Tensor]:
+    """Split a per-splat (B + M*A, ...) tensor into per-asset views ordered
+    background first, then each actor (routes tracer gradients and weights
+    to each asset's densify statistics)."""
+    sizes = [scene.background.capacity]
+    if scene.actors is not None:
+        m, a = scene.actors.xyz.shape[:2]
+        sizes.extend([a] * m)
+    return list(torch.split(flat, sizes))

@@ -28,6 +28,15 @@ class ActorTrack:
     def num_frames(self) -> int:
         return self.translations.shape[-2]
 
+    @property
+    def min_xyz(self) -> Tensor:
+        """Box corner in the box frame, (..., 3)."""
+        return -self.size / 2.0
+
+    @property
+    def max_xyz(self) -> Tensor:
+        return self.size / 2.0
+
     def pose(self, frame: int) -> tuple[Tensor, Tensor]:
         """(translation (..., 3), quaternion (..., 4)) at a frame index."""
         return self.translations[..., frame, :], self.quats[..., frame, :]

@@ -19,6 +19,8 @@ def _python(code: str, cwd: Path = ROOT, **env) -> subprocess.CompletedProcess:
 
 
 def test_port_imports_no_jax():
+    """No jax anywhere in the port, and no yaml on the training path (the
+    card's machine has neither)."""
     proc = _python(
         "import sys\n"
         "import chip_smoke\n"
@@ -27,8 +29,12 @@ def test_port_imports_no_jax():
         "import lidar_rt_tpu_torch.ops.kernels\n"
         "import lidar_rt_tpu_torch.scene.convert\n"
         "import lidar_rt_tpu_torch.ops.composite\n"
+        "import lidar_rt_tpu_torch.train.loop\n"
+        "import lidar_rt_tpu_torch.train.options\n"
+        "import lidar_rt_tpu_torch.data.frames\n"
         "bad = sorted(m for m in sys.modules\n"
-        "             if m == 'jax' or m.startswith(('jax.', 'jaxlib')))\n"
+        "             if m in ('jax', 'yaml', 'lidar_rt_tpu.config')\n"
+        "             or m.startswith(('jax.', 'jaxlib')))\n"
         "assert not bad, bad\n"
         "print('clean')\n")
     assert proc.returncode == 0, proc.stderr

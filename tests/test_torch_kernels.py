@@ -1,5 +1,5 @@
-"""The hand-written CUDA kernel: its build key and input checks (here), and
-the kernel against its plain twin (on a card).
+"""The hand-written CUDA kernels: their build key and input checks (here),
+and each kernel against its plain twin (on a card).
 
 This file imports torch and the port only, so the card tests run where
 jax is not installed:
@@ -9,7 +9,9 @@ jax is not installed:
 
 Bars on the card: channels 1e-3 absolute (the reference's on-device parity
 bar); accum, a sum over rays taken with atomics in no fixed order, 1e-3
-absolute plus 1e-4 relative.
+absolute plus 1e-4 relative.  Gradients, also sums taken with atomics:
+cosine > 0.999 per field (the reference's on-device gradient bar) and max
+abs error <= 3e-3 x max |twin| (its CPU gradient bar, scaled).
 """
 
 import numpy as np
@@ -17,7 +19,7 @@ import pytest
 import torch
 
 from lidar_rt_tpu_torch.core import rays as t_rays
-from lidar_rt_tpu_torch.ops import cuda_tracer, kernels
+from lidar_rt_tpu_torch.ops import cuda_tracer, geometry, kernels
 from lidar_rt_tpu_torch.ops import tracer as t_tracer
 from lidar_rt_tpu_torch.ops.binning import TileConfig
 from lidar_rt_tpu_torch.ops.composite import SurfelBundle
@@ -63,16 +65,23 @@ def _case(k, seed, device, tile_h=8, tile_w=128):
 
 
 def test_library_is_keyed_by_source(tmp_path, monkeypatch):
-    a, b = tmp_path / "a.cu", tmp_path / "b.cu"
-    a.write_text("// one\n")
-    b.write_text("// two\n")
-    monkeypatch.setattr(kernels, "SOURCE", a)
-    path_a = kernels.library_path()
-    monkeypatch.setattr(kernels, "SOURCE", b)
-    assert kernels.library_path() != path_a
-    b.write_text("// one\n")
-    assert kernels.library_path() == path_a
-    assert path_a.parent == kernels.BUILD_DIR
+    """Every file under csrc/ keys every library: an edit to a kernel
+    source or to the header both kernels include rebuilds both."""
+    (tmp_path / "tracer_forward.cu").write_text("// one\n")
+    (tmp_path / "tracer_backward.cu").write_text("// two\n")
+    header = tmp_path / "tracer_common.cuh"
+    header.write_text("// shared\n")
+    monkeypatch.setattr(kernels, "CSRC", tmp_path)
+    paths = {name: kernels.library_path(name) for name in kernels.KERNELS}
+    assert len(set(paths.values())) == len(kernels.KERNELS)
+    assert all(p.parent == kernels.BUILD_DIR for p in paths.values())
+    header.write_text("// shared, edited\n")
+    edited = {name: kernels.library_path(name) for name in kernels.KERNELS}
+    assert all(edited[n] != paths[n] for n in kernels.KERNELS)
+    header.write_text("// shared\n")
+    assert {n: kernels.library_path(n) for n in kernels.KERNELS} == paths
+    (tmp_path / "tracer_forward.cu").write_text("// one, edited\n")
+    assert kernels.library_path("tracer_backward") != paths["tracer_backward"]
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():
@@ -81,6 +90,39 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         kernels.tracer_forward(*inputs)
     assert kernels.forward_launches == before
+    chans, _ = cuda_tracer.forward_tiles_reference(*inputs)
+    before = kernels.backward_launches
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.tracer_backward(*inputs, chans, torch.ones_like(chans))
+    assert kernels.backward_launches == before
+
+
+def _upstream(chans, seed, raw_t=False):
+    """Upstream gradients for rows 0-8, drawn from a seed; row 9 (raw T,
+    never read by the training loss) gets one only if raw_t."""
+    g = torch.randn(chans.shape, generator=torch.Generator().manual_seed(
+        seed)).to(chans.device)
+    g[:, 10 if raw_t else 9:] = 0.0
+    return g
+
+
+GRAD_FIELDS = ("d_axes", "d_plane", "d_inv_scale", "d_opac", "d_sh")
+
+
+def grad_errors(got, ref) -> dict[str, tuple[float, float]]:
+    """Per gradient field: (cosine, max abs error / max |ref|)."""
+    out = {}
+    for name, a, b in zip(GRAD_FIELDS, got, ref):
+        a, b = a.double().flatten(), b.double().flatten()
+        cos = float(torch.nn.functional.cosine_similarity(a, b, dim=0))
+        scale = float(b.abs().max()) + 1e-30
+        out[name] = (cos, float((a - b).abs().max()) / scale)
+    return out
+
+
+def _assert_grad_bars(got, ref):
+    for name, (cos, rel) in grad_errors(got, ref).items():
+        assert cos > 0.999 and rel <= 3e-3, (name, cos, rel)
 
 
 @pytest.fixture
@@ -112,6 +154,54 @@ def test_kernel_matches_twin_on_card(cuda_device, k, tile_h, tile_w):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("k,tile_h,tile_w,fac", [
+    (128, 8, 128, 1.0), (256, 8, 128, 1.0), (200, 4, 48, 1.0),
+    (128, 8, 128, 0.05), (256, 8, 128, 0.05), (200, 4, 48, 0.05)])
+def test_backward_kernel_matches_twin_on_card(cuda_device, k, tile_h,
+                                              tile_w, fac):
+    """Ragged shapes, an empty first tile and a 5-candidate second one.
+    At 1/20 of the opacity no ray reaches T_MIN, so the kernel's raw T is
+    the twin's full product and row 9 gets an upstream gradient too."""
+    inputs = _case(k, k + 1, cuda_device, tile_h, tile_w)
+    inputs = inputs._replace(opac=inputs.opac * fac)
+    raw_t = fac < 1.0
+    with torch.no_grad():
+        chans, _ = kernels.tracer_forward(*inputs)
+        if raw_t:
+            ref_chans, _ = cuda_tracer.forward_tiles_reference(*inputs)
+            assert float(ref_chans[:, 9].min()) >= geometry.T_MIN
+        g = _upstream(chans, k, raw_t)
+        before = kernels.backward_launches
+        got = kernels.tracer_backward(*inputs, chans, g)
+        torch.cuda.synchronize()
+        assert kernels.backward_launches == before + 1
+        ref = cuda_tracer.backward_tiles_reference(*inputs, chans, g)
+    _assert_grad_bars(got, ref)
+    for x in got:
+        assert bool(x[0].eq(0).all())          # the empty tile
+    assert float(got[3].abs().max()) > 0.0
+
+
+@pytest.mark.cuda
+def test_forward_tiles_gradients_on_card(cuda_device):
+    """Autograd through the kernel boundary launches the backward kernel
+    once and gives the twin's gradients, t0 included."""
+    inputs = _case(256, 7, cuda_device)
+    diff = [x.clone().requires_grad_(x.is_floating_point()) for x in inputs]
+    chans, _ = cuda_tracer.forward_tiles(cuda_tracer.TileInputs(*diff))
+    g = _upstream(chans, 3)
+    before = kernels.backward_launches
+    (chans * g).sum().backward()
+    torch.cuda.synchronize()
+    assert kernels.backward_launches == before + 1
+    with torch.no_grad():
+        ref = cuda_tracer.backward_tiles_reference(*inputs, chans, g)
+    _assert_grad_bars([diff[i].grad for i in (4, 5, 6, 7, 9)], ref)
+    d_t0 = (g[:, :10] * chans[:, :10]).sum(1) / inputs.t0
+    torch.testing.assert_close(diff[3].grad, d_t0)
+
+
+@pytest.mark.cuda
 def test_kernel_rejects_wrong_inputs_on_card(cuda_device):
     inputs = _case(128, 3, cuda_device)
     with pytest.raises(ValueError, match="cnt"):
@@ -119,6 +209,9 @@ def test_kernel_rejects_wrong_inputs_on_card(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         kernels.tracer_forward(*inputs._replace(
             plane=inputs.plane.transpose(1, 2).contiguous().transpose(1, 2)))
+    chans, _ = kernels.tracer_forward(*inputs)
+    with pytest.raises(ValueError, match="g_chans"):
+        kernels.tracer_backward(*inputs, chans, chans[:, :10])
 
 
 @pytest.mark.cuda

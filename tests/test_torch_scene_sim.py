@@ -48,6 +48,8 @@ def scene_arrays(sc) -> dict[str, np.ndarray]:
     for part, asset in parts:
         for f in convert.ASSET_FIELDS + ("active_sh_degree",):
             out[f"{part}.{f}"] = np.asarray(getattr(asset, f))
+        out[f"{part}.extent"] = np.float32(asset.extent)
+        out[f"{part}.max_sh_degree"] = np.int32(asset.max_sh_degree)
     return out
 
 
@@ -103,12 +105,45 @@ class TestScene:
         for name in jb._fields:
             _close(getattr(tb, name), getattr(jb, name), atol=1e-5)
 
+    def test_training_accessors(self, j_scene, t_scene):
+        """extent, max_sh_degree, num_alive, params, total_capacity,
+        one_up_sh_degree and split_by_asset as the reference's."""
+        from lidar_rt_tpu.scene import split_by_asset as j_split
+        from lidar_rt_tpu_torch.scene import split_by_asset as t_split
+
+        for part in ("background", "actors"):
+            ja, ta = getattr(j_scene, part), getattr(t_scene, part)
+            assert ta.extent == pytest.approx(ja.extent, rel=1e-6)
+            assert ta.max_sh_degree == ja.max_sh_degree == 3
+            assert int(ta.num_alive) == int(ja.num_alive)
+            jp, tp = ja.params(), ta.params()
+            assert list(tp) == list(jp)
+            for k in jp:
+                np.testing.assert_array_equal(tp[k].numpy(),
+                                              np.asarray(jp[k]))
+            twice = ta.with_params({k: v * 2 for k, v in tp.items()})
+            np.testing.assert_array_equal(twice.quat.numpy(),
+                                          2 * np.asarray(ja.quat))
+        assert t_scene.total_capacity == j_scene.total_capacity
+        up = t_scene.one_up_sh_degree()
+        j_up = j_scene.one_up_sh_degree().one_up_sh_degree()
+        assert up.background.active_sh_degree == 3
+        assert up.one_up_sh_degree().background.active_sh_degree == int(
+            j_up.background.active_sh_degree) == 3
+        flat = np.arange(j_scene.total_capacity, dtype=np.float32)
+        for a, b in zip(t_split(t_scene, torch.tensor(flat)),
+                        j_split(j_scene, jnp.asarray(flat)), strict=True):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
     def test_missing_arrays_and_static_scene(self, j_scene):
         arrays = scene_arrays(j_scene)
         static = {k: v for k, v in arrays.items()
                   if k.startswith("background.")}
         sc = convert.scene_from_numpy(static)
         assert sc.actors is None and sc.num_frames == 1
+        del static["background.extent"], static["background.max_sh_degree"]
+        bg = convert.scene_from_numpy(static).background
+        assert (bg.extent, bg.max_sh_degree) == (200.0, 3)
         del arrays["tracks.quats"]
         with pytest.raises(KeyError, match="tracks.quats"):
             convert.scene_from_numpy(arrays)

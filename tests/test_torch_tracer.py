@@ -1,13 +1,16 @@
 """Port tracer held to `lidar_rt_tpu`'s tile-order tracer on the same numpy
-inputs, at the kernel boundary and for whole renders.
+inputs, at the kernel boundary and for whole renders, forward and backward.
 
 The reference for tiled rendering is the jax engine (engine="jax", exact
-top-k).  Bars are the Pallas kernel's CPU parity bar, 2e-4 absolute
-(tests/test_pallas_tracer.py).  On the CPU the kernel path runs the
-kernel's plain twin `forward_tiles_reference`; the CUDA kernel itself is
-held to that twin in tests/test_torch_kernels.py, on a card.
+top-k).  Bars are the Pallas kernels' CPU parity bars: 2e-4 absolute on
+channels, and on gradients 3e-3 absolute after scaling by the reference's
+largest magnitude (tests/test_pallas_tracer.py).  On the CPU the kernel path
+runs the kernels' plain twins `forward_tiles_reference` and
+`backward_tiles_reference`; the CUDA kernels themselves are held to those
+twins in tests/test_torch_kernels.py, on a card.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -127,12 +130,124 @@ class TestForwardTilesReference:
             torch.testing.assert_close(a, b, rtol=0, atol=0)
 
     def test_gradients_are_refused(self):
+        """Inputs that require grad are not refused: forward_tiles under
+        autograd gives the plain backward twin's gradients on the CPU, and
+        launches no kernel."""
         inputs, _ = _tile_case(128, seed=6)
-        inputs = inputs._replace(opac=inputs.opac.requires_grad_())
-        with pytest.raises(NotImplementedError, match="backward"):
-            cuda_tracer.forward_tiles(inputs)
-        with torch.no_grad():
-            cuda_tracer.forward_tiles(inputs)
+        diff = _requiring_grad(inputs)
+        kernels.forward_launches = kernels.backward_launches = 0
+        chans, _ = cuda_tracer.forward_tiles(cuda_tracer.TileInputs(*diff))
+        g = _upstream(chans, seed=6)
+        (chans * g).sum().backward()
+        assert kernels.forward_launches == kernels.backward_launches == 0
+        ref = cuda_tracer.backward_tiles_reference(*inputs, chans.detach(),
+                                                   g)
+        for name, got, want in zip(GRAD_FIELDS, _grads_of(diff), ref):
+            torch.testing.assert_close(got, want, rtol=0, atol=0, msg=name)
+        d_t0 = (g[:, :10] * chans.detach()[:, :10]).sum(1) / inputs.t0
+        torch.testing.assert_close(diff[3].grad, d_t0)
+
+
+GRAD_FIELDS = ("d_axes", "d_plane", "d_inv_scale", "d_opac", "d_sh")
+
+
+def _requiring_grad(inputs):
+    return [x.detach().clone().requires_grad_(x.is_floating_point())
+            for x in inputs]
+
+
+def _grads_of(diff):
+    """Gradients of the kernel boundary's differentiable inputs, in the
+    backward's output order."""
+    return [diff[i].grad for i in (4, 5, 6, 7, 9)]
+
+
+def _upstream(chans, seed, raw_t=True):
+    """Random upstream gradients for the 10 channel rows (row 9, raw T,
+    optional), zero on the padding rows."""
+    rng = np.random.default_rng(seed)
+    g = torch.tensor(rng.normal(size=chans.shape), dtype=torch.float32)
+    g[:, 10:] = 0.0
+    if not raw_t:
+        g[:, 9] = 0.0
+    return g
+
+
+def _grad_close(got, want, name, atol=3e-3):
+    """The Pallas gradient bar: absolute after scaling by max |want|."""
+    got, want = np.asarray(got), np.asarray(want)
+    scale = np.abs(want).max() + 1e-8
+    np.testing.assert_allclose(got / scale, want / scale, atol=atol,
+                               err_msg=name)
+
+
+# (K, seed, opacity factor, upstream on raw T): no ray reaches T_MIN where
+# row 9 gets a gradient (the twin's raw T is the full product, the
+# kernel's stops); the opaque case stops ~30 rays and clamps alphas.
+GRAD_CASES = [(128, 31, 1.0, True), (256, 32, 1.0, True),
+              (256, 256, 3.0, False)]
+
+
+def _grad_case(k, seed, fac):
+    """`_tile_case` with opacities scaled by fac (clamped below 1) in both
+    packages' inputs."""
+    inputs, ref_args = _tile_case(k, seed)
+    inputs = inputs._replace(opac=(inputs.opac * fac).clamp_max(0.999))
+    ref_args = [(a[:3] + (np.minimum(a[3] * fac, 0.999).astype(np.float32),)
+                 + a[4:]) for a in ref_args]
+    return inputs, ref_args
+
+
+class TestBackwardTilesReference:
+    @pytest.mark.parametrize("k,seed,fac,raw_t", GRAD_CASES)
+    def test_matches_jax_grad_of_composite(self, k, seed, fac, raw_t):
+        """The twin's gradients against jax.grad through the reference's
+        `_composite_tile` of a loss over all 10 channel rows."""
+        inputs, ref_args = _grad_case(k, seed, fac)
+        diff = _requiring_grad(inputs)
+        chans, _ = cuda_tracer.forward_tiles(cuda_tracer.TileInputs(*diff))
+        g = _upstream(chans, seed, raw_t)
+        (chans * g).sum().backward()
+        d_axes, d_plane, d_inv_s, d_opac, d_sh = _grads_of(diff)
+        stopped = int((chans.detach()[:, 9] < j_geo.T_MIN).sum())
+        assert (stopped > 0) == (not raw_t)
+        for i, (dirs, fr, scales, opac, sh, valid, bg, deg, exact, mind,
+                t0) in enumerate(ref_args):
+            g_i = jnp.asarray(g[i, :10].T.numpy())
+
+            def loss(fr, scales, opac, sh, t0):
+                ch, _ = j_tracer._composite_tile(dirs, fr, scales, opac, sh,
+                                                 valid, bg, deg, exact, mind,
+                                                 t0)
+                return jnp.sum(ch * g_i)
+
+            jf, js, jo, jsh, jt0 = jax.grad(loss, argnums=(0, 1, 2, 3, 4))(
+                fr, scales, opac, sh, t0)
+            for a, name in enumerate(("n", "w1", "w2")):
+                _grad_close(d_axes[i, a].T, getattr(jf, name), name)
+            for r, name in enumerate(("p", "a_u", "a_v")):
+                _grad_close(d_plane[i, r], getattr(jf, name), name)
+            inv_s = inputs.inv_scale[i].T
+            _grad_close(-d_inv_s[i].T * inv_s * inv_s, js, "scales")
+            _grad_close(d_opac[i], jo, "opacities")
+            _grad_close(d_sh[i].permute(2, 1, 0), jsh, "sh")
+            _grad_close(diff[3].grad[i], jt0, "t0")
+            assert float(np.abs(np.asarray(jo)).max()) > 0.0
+
+    @pytest.mark.parametrize("k,seed,fac,raw_t", GRAD_CASES)
+    def test_equals_autograd_of_forward_twin(self, k, seed, fac, raw_t):
+        """The closed-form VJP equals torch autograd through
+        `forward_tiles_reference` (1e-5 relative to each field's largest
+        magnitude)."""
+        inputs, _ = _grad_case(k, seed, fac)
+        diff = _requiring_grad(inputs)
+        chans, _ = cuda_tracer.forward_tiles_reference(*diff)
+        g = _upstream(chans, seed, raw_t)
+        (chans * g).sum().backward()
+        got = cuda_tracer.backward_tiles_reference(*inputs, chans.detach(),
+                                                   g)
+        for name, a, b in zip(GRAD_FIELDS, got, _grads_of(diff)):
+            _grad_close(a, b, name, atol=1e-5)
 
 
 def _configs(k, binner="hier", exact=False):
@@ -192,6 +307,35 @@ class TestTrace:
                            torch.tensor(BG), 3,
                            t_tracer.TraceConfig(tile=tile, exact_order=True))
 
+    @pytest.mark.parametrize("k,binner", [(128, "hier"), (256, "topk")])
+    def test_render_frame_gradients_match_jax(self, k, binner):
+        """Gradients w.r.t. every SurfelBundle field through render_frame's
+        depth, intensity and ray-drop heads: the kernel path (twins) and
+        the torch engine against jax.grad of the jax engine."""
+        s = _surfels(300, seed=40 + k)
+        jg, tg = _grids()
+        j_cfg, tile = _configs(k, binner)
+        rng = np.random.default_rng(k)
+        wts = {key: f32(rng.normal(size=(H, W)))
+               for key in ("depth", "intensity", "raydrop")}
+
+        def j_loss(b):
+            out = j_tracer.render_frame(b, jg, W, POSE, 3, j_cfg)
+            return sum(jnp.sum(out[key] * w) for key, w in wts.items())
+
+        ref = jax.grad(j_loss)(_jb(s))
+        for engine in ("cuda", "torch"):
+            b = TBundle(**{key: torch.tensor(v, requires_grad=True)
+                           for key, v in s.items()})
+            out = t_tracer.render_frame(
+                b, tg, W, torch.tensor(POSE), 3,
+                t_tracer.TraceConfig(tile=tile, tile_batch=3, engine=engine))
+            sum((out[key] * torch.tensor(w)).sum()
+                for key, w in wts.items()).backward()
+            for name in s:
+                _grad_close(getattr(b, name).grad, getattr(ref, name),
+                            f"{engine}: {name}")
+
     @pytest.mark.parametrize("use_rayhit", [True, False])
     def test_render_frame_heads(self, use_rayhit):
         s = _surfels(300, seed=12)
@@ -227,3 +371,27 @@ def test_twin_matches_pallas_kernel_interpret():
         *(v[:1] for v in inputs))
     _close(ref_chans[:, :9], np.asarray(chans)[:, :9])
     _close(ref_accum, np.asarray(accum)[:, 0])
+
+
+@pytest.mark.slow
+def test_backward_twin_matches_pallas_kernel_interpret():
+    """backward_tiles_reference against the Pallas backward kernel itself
+    (interpret mode) on one tile, with the Pallas forward's channels."""
+    from lidar_rt_tpu.ops import pallas_backward, pallas_tracer
+
+    inputs, _ = _tile_case(128, seed=22)
+    x = [np.asarray(v[:1]) for v in inputs]
+    cnt, dirs, mind, t0, axes, plane, inv_scale, opac, sign, sh = x
+    args = (jnp.asarray(cnt, jnp.float32)[:, None], dirs,
+            dirs.transpose(0, 2, 1), mind[..., None], t0[..., None], axes,
+            plane, inv_scale, opac[:, None], sign[:, None], sh)
+    chans, _ = pallas_tracer._core_fwd_call(512, False, False, False, *args)
+    g = _upstream(torch.tensor(np.asarray(chans)), seed=22, raw_t=False)
+    ref = pallas_backward.backward_pallas_call(*args, chans,
+                                               jnp.asarray(g.numpy()), 512)
+    got = cuda_tracer.backward_tiles_reference(
+        *(v[:1] for v in inputs), torch.tensor(np.asarray(chans)), g)
+    ref = [np.asarray(r) for r in ref]
+    ref[3] = ref[3][:, 0]                      # d_opac (T, 1, K) -> (T, K)
+    for name, a, b in zip(GRAD_FIELDS, got, ref):
+        _grad_close(a, b, name)
