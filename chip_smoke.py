@@ -25,17 +25,31 @@ On one CUDA card it:
      a copy of the scene, and runs `train.loop.Trainer` for 20 steps at the
      flagship width (rebinning every 10 steps), counting both kernels'
      launches; then prints ms per step, kernel times against their twins,
-     peak memory and a device profile of one step.
+     peak memory and a device profile of one step;
+  9. holds the exact-order (per-ray depth order) forward and backward
+     kernels to their plain twins on phase 3's tile inputs and at K=128,
+     and times them beside the tile-order kernels;
+ 10. serves in the other modes: an exact-order `render_scan` and 4-pose
+     `resimulate`, `render_multi_return` (dual returns) and a
+     `render_scan` with one tail pass, each against the torch engine in
+     the same mode, counting each mode's launches;
+ 11. holds the exact-order render gradients to torch autograd through the
+     torch engine;
+ 12. trains 10 steps in exact order and 10 with one tail pass, counting
+     launches per mode and rebins.
 
 Every failed check raises.  Without a CUDA device it exits non-zero before
 any phase.  The last two lines of standard output are the kernel table
-{"kernels": [...]} and {"ok": true, "device": {...}}.
+{"kernels": [...]} (each kernel's launches per path, error, time, plain
+twin's time and the bound of its work on this run's data) and
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -58,6 +72,21 @@ ACCUM_RTOL, ACCUM_ATOL = 1e-4, 1e-3
 # within 3e-3 of the field's largest magnitude (its CPU bar, scaled).
 GRAD_COS, GRAD_REL = 0.999, 3e-3
 TRAIN_STEPS = 20
+MODE_STEPS = 10        # training steps in each other mode (phase 12)
+
+# The card's published peaks (NVIDIA H100 SXM data sheet, at 700 W):
+# float32 outside the tensor cores, and device memory bandwidth.
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+# Operations the tracer's work needs, counted per (ray, candidate) pair the
+# kernel must evaluate (the intersection and gates: three 3-dots, the
+# range, splat coordinates, exp, opacity, clamps) and per composited hit
+# (forward: 48 SH multiply-adds and the channel sums; backward: the replay,
+# dL/dw, dL/dalpha, the chain to the candidate's fields and its 63 sums).
+# Ordering a ray's hits by depth is not counted: the bound stays a floor.
+PAIR_FLOPS = 30
+FWD_HIT_FLOPS = 120
+BWD_HIT_FLOPS = 230
 
 
 def street_soup(n: int, seed: int) -> dict[str, np.ndarray]:
@@ -265,6 +294,72 @@ def expected_rebins(frames_seen: list[int], num_frames: int,
     return count
 
 
+def tracer_work(inputs, exact: bool) -> tuple[int, int]:
+    """(pairs the kernel must evaluate, hits it composites) on these tile
+    inputs, from the plain twin's replay: in tile order a ray evaluates its
+    candidates up to the one that stops it; in exact order every candidate
+    (any may be the nearest)."""
+    from lidar_rt_tpu_torch.ops import cuda_tracer
+
+    with torch.no_grad():
+        f = cuda_tracer._pairs(*inputs[:8], exact=exact)
+        k = inputs.axes.shape[-1]
+        cnt = inputs.cnt.clamp(0, k).to(torch.int64)
+        if exact:
+            pairs = int(cnt.sum()) * inputs.dirs.shape[1]
+        else:
+            in_cnt = torch.arange(k, device=cnt.device) < cnt[:, None]
+            live = (f.live & in_cnt[:, None, :]).sum(-1)        # (T, R)
+            pairs = int(torch.minimum(live + 1, cnt[:, None]).sum())
+        hits = int((f.w > 0).sum())
+    return pairs, hits
+
+
+def bound(inputs, work: tuple[int, int], backward: bool
+          ) -> tuple[float, str]:
+    """The least ms the card could take for a tracer kernel's work, and
+    what bounds it: the larger of its bytes (each input read once, each
+    output written once) over the memory rate and its operations (`work`,
+    from `tracer_work`) over the float32 rate."""
+    t, r = inputs.dirs.shape[:2]
+    k = inputs.axes.shape[-1]
+    pairs, hits = work
+    nbytes = 4 * (t + 5 * t * r + 64 * t * k)   # cnt, dirs/mind/t0, candidates
+    if backward:
+        nbytes += 4 * (2 * 16 * t * r + 64 * t * k)   # channels, grads in/out
+        flops = pairs * PAIR_FLOPS + hits * BWD_HIT_FLOPS
+    else:
+        nbytes += 4 * (16 * t * r + t * k)            # channels, accum out
+        flops = pairs * PAIR_FLOPS + hits * FWD_HIT_FLOPS
+    by_bytes = nbytes / PEAK_BYTES * 1e3
+    by_ops = flops / PEAK_F32_FLOPS * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                           "operations")
+
+
+def render_grads(scene, grid, s2w, degree, heads, exact: bool):
+    """Gradients of every bundle field through `render_frame`'s heads
+    weighted by `heads`, on the kernel path and through torch autograd of
+    the plain engine: {engine: [grads]}."""
+    from lidar_rt_tpu_torch.ops import tracer
+    from lidar_rt_tpu_torch.scene import compose
+
+    fields = ("means", "rotations", "scales", "opacities", "sh")
+    out_grads = {}
+    for engine in ("cuda", "torch"):
+        with torch.no_grad():
+            bundle, _ = compose(scene, 0)
+        leaf = bundle._replace(**{f: getattr(bundle, f).clone()
+                                  .requires_grad_() for f in fields})
+        out = tracer.render_frame(leaf, grid, W, s2w, degree,
+                                  tracer.TraceConfig(engine=engine,
+                                                     exact_order=exact))
+        sum((out[key] * w).sum() for key, w in heads.items()).backward()
+        out_grads[engine] = [getattr(leaf, f).grad for f in fields]
+    torch.cuda.synchronize()
+    return _grad_errors(out_grads["cuda"], out_grads["torch"], fields)
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -338,8 +433,7 @@ def main() -> None:
     poses = s2w.repeat(N_FRAMES, 1, 1)
     poses[:, 0, 3] = torch.arange(N_FRAMES, device=dev, dtype=torch.float32)
     torch.cuda.reset_peak_memory_stats(dev)
-    kernels.forward_launches = 0
-    kernels.backward_launches = 0
+    kernels.reset_launches()
     scan = sim.render_scan(scene, grid, W, s2w, 0)
     seq = sim.resimulate(scene, grid, W, poses)
     torch.cuda.synchronize()
@@ -459,27 +553,12 @@ def main() -> None:
 
     # 7. Render gradients: kernel path against torch autograd through the
     # plain engine.
-    fields = ("means", "rotations", "scales", "opacities", "sh")
     heads = {key: torch.randn((H, W), generator=gen, device=dev)
              for key in ("depth", "intensity", "raydrop")}
-    render_grads = {}
-    for engine in ("cuda", "torch"):
-        with torch.no_grad():
-            bundle, _ = compose(scene, 0)
-        leaf = bundle._replace(**{f: getattr(bundle, f).clone()
-                                  .requires_grad_() for f in fields})
-        out = tracer.render_frame(leaf, grid, W, s2w, degree,
-                                  tracer.TraceConfig(engine=engine))
-        sum((out[key] * w).sum() for key, w in heads.items()).backward()
-        render_grads[engine] = [getattr(leaf, f).grad for f in fields]
-        del out, leaf
-    torch.cuda.synchronize()
-    rgrad_err = _grad_errors(render_grads["cuda"], render_grads["torch"],
-                             fields)
+    rgrad_err = render_grads(scene, grid, s2w, degree, heads, exact=False)
     print(f"[render-grad] kernel path vs torch engine: "
           f"{_fmt_grads(rgrad_err)}")
     _check_grads(rgrad_err, "render gradients")
-    del render_grads
 
     # 8. Training at full width.
     from lidar_rt_tpu_torch.data.frames import LiDARFrames
@@ -499,8 +578,7 @@ def main() -> None:
                          dev), frames, opts, tracer.TraceConfig())
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    kernels.forward_launches = 0
-    kernels.backward_launches = 0
+    kernels.reset_launches()
     t = time.perf_counter()
     history = trainer.run(TRAIN_STEPS, log_every=TRAIN_STEPS)
     torch.cuda.synchronize()
@@ -566,8 +644,8 @@ def main() -> None:
     from lidar_rt_tpu_torch.train import losses
 
     bins = trainer.state.bins
-    cached = TileAssignment(bins.index[0], bins.valid[0],
-                            torch.zeros_like(bins.index[0, :, 0]))
+    cached = TileAssignment(bins.index[0, 0], bins.valid[0, 0],
+                            torch.zeros_like(bins.index[0, 0, :, 0]))
 
     def render_backward():
         b, _ = compose(trainer.state.scene, 0)
@@ -612,27 +690,278 @@ def main() -> None:
         for name, ms in top:
             print(f"[train-profile]   {ms:8.3f} ms  {name[:100]}")
 
+    # 9. Exact-order kernels against their plain twins: phase 3's tile
+    # inputs (K=256) and the same render at K=128.
+    with torch.no_grad():
+        bundle, _ = compose(scene, 0)
+        inputs_128, _ = cuda_tracer.tile_inputs(
+            bundle, grid, W, s2w, degree,
+            dataclasses.replace(cfg.tile, max_per_tile=128))
+    exact_fwd_err = exact_bwd_err = 0.0
+    for case in (inputs, inputs_128):
+        shape = (f"T={case.dirs.shape[0]} R={case.dirs.shape[1]} "
+                 f"K={case.axes.shape[-1]}")
+        with torch.no_grad():
+            ch_x, acc_x = kernels.tracer_forward(*case, exact=True)
+            ch_p, acc_p = cuda_tracer.forward_tiles_reference(*case,
+                                                              exact=True)
+            ch_t, _ = kernels.tracer_forward(*case)
+            torch.cuda.synchronize()
+        err = (ch_x - ch_p).abs().max().item()
+        acc_err, acc_ok = _accum_err(acc_x, acc_p)
+        print(f"[exact] forward {shape}: channels max abs err {err:.3e} "
+              f"(bar {CHAN_ATOL}), accum {acc_err:.3e} (bar {ACCUM_ATOL} + "
+              f"{ACCUM_RTOL}|ref|); differs from tile order by up to "
+              f"{(ch_x - ch_t).abs().max().item():.3e}")
+        _check(bool(torch.isfinite(ch_x).all()), "exact channels finite")
+        _check(err <= CHAN_ATOL, f"exact forward kernel vs twin, {shape}")
+        _check(acc_ok, f"exact forward accum vs twin, {shape}")
+        exact_fwd_err = max(exact_fwd_err, err)
+        g_x = torch.randn(ch_x.shape, generator=gen, device=dev)
+        g_x[:, 9:] = 0.0     # raw T: never read by the training loss
+        faint = case._replace(opac=case.opac * 0.05)
+        with torch.no_grad():
+            got = kernels.tracer_backward(*case, ch_x, g_x, exact=True)
+            want = cuda_tracer.backward_tiles_reference(*case, ch_x, g_x,
+                                                        exact=True)
+            ch_f, _ = cuda_tracer.forward_tiles_reference(*faint, exact=True)
+            g_f = torch.randn(ch_x.shape, generator=gen, device=dev)
+            g_f[:, 10:] = 0.0
+            got_f = kernels.tracer_backward(*faint, ch_f, g_f, exact=True)
+            want_f = cuda_tracer.backward_tiles_reference(*faint, ch_f, g_f,
+                                                          exact=True)
+            torch.cuda.synchronize()
+        min_raw_t = ch_f[:, 9].min().item()
+        _check(min_raw_t >= geometry.T_MIN,
+               f"no ray reaches T_MIN at 1/20 opacity ({min_raw_t})")
+        for what, a, b in (("opaque", got, want),
+                           ("1/20 opacity, upstream on raw T", got_f,
+                            want_f)):
+            errs = _grad_errors(a, b, names)
+            print(f"[exact] backward {shape}, {what}: {_fmt_grads(errs)}")
+            for x in a:
+                _check(bool(torch.isfinite(x).all()), "exact grads finite")
+            _check_grads(errs, f"exact backward kernel vs twin, {shape}, "
+                         f"{what}")
+            exact_bwd_err = max(exact_bwd_err, *(
+                (x - y).abs().max().item() for x, y in zip(a, b)))
+        if case is inputs:
+            g_exact = g_x
+            chans_x = ch_x
+        del ch_p, acc_p, ch_t, want, ch_f, got_f, want_f, faint
+    del inputs_128
+    with torch.no_grad():
+        fx_ms = _event_ms(lambda: kernels.tracer_forward(*inputs, exact=True),
+                          10)
+        fx_plain_ms = _event_ms(lambda: cuda_tracer.forward_tiles_reference(
+            *inputs, exact=True), 3)
+        ft_ms = _event_ms(lambda: kernels.tracer_forward(*inputs), 10)
+        bx_ms = _event_ms(lambda: kernels.tracer_backward(
+            *inputs, chans_x, g_exact, exact=True), 10)
+        bx_plain_ms = _event_ms(lambda: cuda_tracer.backward_tiles_reference(
+            *inputs, chans_x, g_exact, exact=True), 3)
+        bt_ms = _event_ms(lambda: kernels.tracer_backward(
+            *inputs, chans_k, g_chans), 10)
+    exact_work = tracer_work(inputs, exact=True)
+    print(f"[exact-times] {card}: T={t_total} R={rays_per_tile} K={k}, "
+          f"{exact_work[0]} pairs, {exact_work[1]} hits composited: forward "
+          f"exact kernel {fx_ms:.3f} ms vs twin {fx_plain_ms:.3f} ms (tile "
+          f"order {ft_ms:.3f} ms), backward exact kernel {bx_ms:.3f} ms vs "
+          f"twin {bx_plain_ms:.3f} ms (tile order {bt_ms:.3f} ms); CUDA "
+          f"events")
+
+    # 10. Serving in the other modes, each against the torch engine in the
+    # same mode, with each mode's launches counted.
+    exact_cfg = tracer.TraceConfig(exact_order=True)
+    kernels.reset_launches()
+    scan_x = sim.render_scan(scene, grid, W, s2w, 0, exact_cfg)
+    seq_x = sim.resimulate(scene, grid, W, poses, cfg=exact_cfg)
+    torch.cuda.synchronize()
+    serve_exact = kernels.forward_exact_launches
+    _check((serve_exact, kernels.forward_launches, kernels.backward_launches,
+            kernels.backward_exact_launches) == (renders, 0, 0, 0),
+           f"{serve_exact} exact forward launches for {renders} renders, "
+           f"{kernels.forward_launches} tile-order")
+    for key in ("depth", "intensity", "raydrop"):
+        _check(tuple(seq_x[key].shape) == (N_FRAMES, H, W)
+               and bool(torch.isfinite(seq_x[key]).all()),
+               f"exact resimulate {key}")
+    plain_x = sim.render_scan(scene, grid, W, s2w, 0, tracer.TraceConfig(
+        exact_order=True, engine="torch"))
+    err_x = (scan_x["channels"] - plain_x["channels"]).abs().max().item()
+    acc_err, acc_ok = _accum_err(scan_x["accum_weights"],
+                                 plain_x["accum_weights"])
+    print(f"[serve-exact] render_scan + resimulate({N_FRAMES}) in exact "
+          f"order: {serve_exact} exact forward launches; vs torch engine: "
+          f"channels max abs err {err_x:.3e}, accum {acc_err:.3e}; differs "
+          f"from the tile-order scan by up to "
+          f"{(scan_x['channels'] - scan['channels']).abs().max().item():.3e}")
+    _check(err_x <= CHAN_ATOL, "exact render vs torch engine channels")
+    _check(acc_ok, "exact render vs torch engine accum")
+
+    kernels.reset_launches()
+    with torch.no_grad():
+        bundle, _ = compose(scene, 0)
+        ret1, ret2 = tracer.render_multi_return(bundle, grid, W, s2w, degree)
+        torch.cuda.synchronize()
+        multi = kernels.forward_launches
+        _check((multi, kernels.forward_exact_launches) == (2, 0),
+               f"{multi} forward launches for two returns")
+        torch_cfg = tracer.TraceConfig(engine="torch")
+        ref1 = tracer.render_frame(bundle, grid, W, s2w, degree, torch_cfg)
+        ref2 = tracer.trace(bundle, grid, W, s2w,
+                            torch.tensor([0.0, 0.0, 1.0], device=dev),
+                            degree, torch_cfg,
+                            min_depth=ret1["depth"].clamp_min(0.0) + 1.0)
+    err1 = (ret1["channels"] - ref1["channels"]).abs().max().item()
+    err2 = (ret2["channels"] - ref2.channels).abs().max().item()
+    second = (ret2["channels"][..., 4] > 0.5).float().mean().item()
+    print(f"[serve-multi] render_multi_return: {multi} forward launches, "
+          f"rays with a second return (accum > 0.5) {second:.3f}; vs torch "
+          f"engine at the same min depth: return 1 channels {err1:.3e}, "
+          f"return 2 {err2:.3e}")
+    _check(err1 <= CHAN_ATOL and err2 <= CHAN_ATOL,
+           "dual returns vs torch engine")
+    _check(bool(torch.isfinite(ret2["channels"]).all()) and second > 0.0,
+           "second return finite, some rays return twice")
+
+    tail_cfg = tracer.TraceConfig(tail_passes=1)
+    kernels.reset_launches()
+    scan_t = sim.render_scan(scene, grid, W, s2w, 0, tail_cfg)
+    torch.cuda.synchronize()
+    serve_tail = kernels.forward_launches
+    _check((serve_tail, kernels.forward_exact_launches) == (2, 0),
+           f"{serve_tail} forward launches for a one-tail-pass scan")
+    plain_t = sim.render_scan(scene, grid, W, s2w, 0, tracer.TraceConfig(
+        tail_passes=1, engine="torch"))
+    err_t = (scan_t["channels"] - plain_t["channels"]).abs().max().item()
+    acc_err, acc_ok = _accum_err(scan_t["accum_weights"],
+                                 plain_t["accum_weights"])
+    gain = (scan_t["channels"][..., 4] - scan["channels"][..., 4]).max()
+    print(f"[serve-tail] render_scan with one tail pass: {serve_tail} "
+          f"forward launches; vs torch engine: channels max abs err "
+          f"{err_t:.3e}, accum {acc_err:.3e}; the tail pass adds up to "
+          f"{gain.item():.3e} accumulated weight to a ray")
+    _check(err_t <= CHAN_ATOL, "tail render vs torch engine channels")
+    _check(acc_ok, "tail render vs torch engine accum")
+    mode_ms = {}
+    for label, fn in (
+            ("exact render_scan", lambda: sim.render_scan(
+                scene, grid, W, s2w, 0, exact_cfg)),
+            ("tail render_scan", lambda: sim.render_scan(
+                scene, grid, W, s2w, 0, tail_cfg)),
+            ("render_multi_return", lambda: tracer.render_multi_return(
+                bundle, grid, W, s2w, degree))):
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with torch.no_grad():
+                fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        mode_ms[label] = statistics.median(times)
+    print(f"[serve-times] {card}: median of 5, host clock: "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in mode_ms.items()))
+    del scan_x, seq_x, plain_x, ret1, ret2, ref1, ref2, scan_t, plain_t
+
+    # 11. Exact-order render gradients against torch autograd through the
+    # plain engine.
+    xgrad_err = render_grads(scene, grid, s2w, degree, heads, exact=True)
+    print(f"[render-grad-exact] kernel path vs torch engine: "
+          f"{_fmt_grads(xgrad_err)}")
+    _check_grads(xgrad_err, "exact render gradients")
+
+    # 12. Training in the other modes.
+    del trainer, bins, cached
+    mode_launches = {}
+    for label, mode_cfg, want in (
+            ("exact", exact_cfg, (0, 0, MODE_STEPS, MODE_STEPS)),
+            ("tail", tail_cfg, (2 * MODE_STEPS, 2 * MODE_STEPS, 0, 0))):
+        trainer = loop.Trainer(
+            scene_from_numpy(perturbed(scene_arrays(args.seed),
+                                       args.seed + 2), dev),
+            frames, opts, mode_cfg)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        step_ms = []
+        for _ in range(MODE_STEPS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            trainer.run(1, log_every=1)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+        got = (kernels.forward_launches, kernels.backward_launches,
+               kernels.forward_exact_launches,
+               kernels.backward_exact_launches)
+        mode_launches[label] = got
+        loss = [h["loss"] for h in trainer.history]
+        seen = [h["frame"] for h in trainer.history]
+        rebins = trainer.state.bins.rebins
+        want_rebins = expected_rebins(seen, N_FRAMES, trainer.rebin_every)
+        print(f"[train-{label}] {card}: {MODE_STEPS} steps at {H}x{W}, "
+              f"K={mode_cfg.tile.max_per_tile}: launches (forward, backward, "
+              f"exact forward, exact backward) {got}, {rebins} rebins "
+              f"(expected {want_rebins} for frames {seen}); loss "
+              f"{[round(x, 5) for x in loss]}; step median "
+              f"{statistics.median(step_ms):.3f} ms (min {min(step_ms):.3f},"
+              f" max {max(step_ms):.3f}, host clock)")
+        _check(got == want, f"{label} training launches {got}, want {want}")
+        _check(rebins == want_rebins, f"{label}: {rebins} rebins, expected "
+               f"{want_rebins}")
+        _check(all(np.isfinite(loss)), f"{label} training losses finite")
+        for part in ("background", "actors"):
+            for name, v in getattr(trainer.state.scene,
+                                   part).params().items():
+                _check(bool(torch.isfinite(v).all()),
+                       f"{label}: {part}.{name} finite")
+        half = MODE_STEPS // 2
+        _check(statistics.mean(loss[-half:]) < statistics.mean(loss[:half]),
+               f"{label}: the loss falls over the run")
+        del trainer
+
+    fwd_paths = {"serve": launches, "train": train_fwd,
+                 "serve_multi_return": multi, "serve_tail": serve_tail,
+                 "train_tail": mode_launches["tail"][0]}
+    bwd_paths = {"train": train_bwd, "train_tail": mode_launches["tail"][1]}
+    fwd_x_paths = {"serve_exact": serve_exact,
+                   "train_exact": mode_launches["exact"][2]}
+    bwd_x_paths = {"train_exact": mode_launches["exact"][3]}
+    train_work = tracer_work(t_inputs, exact=False)
+    entries = [
+        ("tracer_forward", "lidar_rt_tpu_torch/csrc/tracer_forward.cu",
+         "lidar_rt_tpu/ops/pallas_tracer.py:120", fwd_paths, kern_err,
+         fwd_ms, fwd_plain_ms, bound(t_inputs, train_work, False)),
+        ("tracer_backward", "lidar_rt_tpu_torch/csrc/tracer_backward.cu",
+         "lidar_rt_tpu/ops/pallas_backward.py:52", bwd_paths, bwd_abs,
+         bwd_ms, bwd_plain_ms, bound(t_inputs, train_work, True)),
+        ("tracer_forward_exact", "lidar_rt_tpu_torch/csrc/tracer_forward.cu",
+         "lidar_rt_tpu/ops/pallas_sort.py:30 (in pallas_tracer.py:120)",
+         fwd_x_paths, exact_fwd_err, fx_ms, fx_plain_ms,
+         bound(inputs, exact_work, False)),
+        ("tracer_backward_exact",
+         "lidar_rt_tpu_torch/csrc/tracer_backward.cu",
+         "lidar_rt_tpu/ops/pallas_sort.py:30 (in pallas_backward.py:52)",
+         bwd_x_paths, exact_bwd_err, bx_ms, bx_plain_ms,
+         bound(inputs, exact_work, True)),
+    ]
+    works = {"tracer_forward": train_work, "tracer_backward": train_work,
+             "tracer_forward_exact": exact_work,
+             "tracer_backward_exact": exact_work}
+    for name, _src, _rep, paths, _err, ms, _plain, (b_ms, b_by) in entries:
+        print(f"[bound] {card}: {name} {ms:.3f} ms against a bound of "
+              f"{b_ms:.4f} ms ({b_by}; {works[name][0]} pairs evaluated, "
+              f"{works[name][1]} hits composited); launches {paths}")
+        _check(all(n > 0 for n in paths.values()),
+               f"{name} launched on every path it serves: {paths}")
     print(json.dumps({"kernels": [{
-        "name": "tracer_forward",
-        "route": "cuda",
-        "source": "lidar_rt_tpu_torch/csrc/tracer_forward.cu",
-        "replaces": "lidar_rt_tpu/ops/pallas_tracer.py:120",
-        "launches": train_fwd,
-        "launches_by_path": {"serve": launches, "train": train_fwd},
-        "max_abs_err": kern_err,
-        "ms": fwd_ms,
-        "plain_ms": fwd_plain_ms,
-    }, {
-        "name": "tracer_backward",
-        "route": "cuda",
-        "source": "lidar_rt_tpu_torch/csrc/tracer_backward.cu",
-        "replaces": "lidar_rt_tpu/ops/pallas_backward.py:52",
-        "launches": train_bwd,
-        "launches_by_path": {"serve": serve_bwd, "train": train_bwd},
-        "max_abs_err": bwd_abs,
-        "ms": bwd_ms,
-        "plain_ms": bwd_plain_ms,
-    }]}))
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces, "launches": sum(paths.values()),
+        "launches_by_path": paths, "max_abs_err": err, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None,
+    } for name, source, replaces, paths, err, ms, plain_ms, (b_ms, b_by)
+        in entries]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

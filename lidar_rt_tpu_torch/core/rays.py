@@ -37,9 +37,10 @@ class SensorGrid:
     @staticmethod
     def from_bounds(height: int, inclination_bounds: tuple[float, float],
                     pixel_offset: float = 0.0, angle_offset: float = 0.0,
-                    device=None) -> "SensorGrid":
-        """Linear inclination raster:
-        row i -> ((H - i - off)/H) * (hi - lo) + lo."""
+                    device: str | torch.device = "cuda") -> "SensorGrid":
+        """Linear inclination raster on `device` (the card unless the
+        caller names another): row i -> ((H - i - off)/H) * (hi - lo) +
+        lo."""
         lo, hi = inclination_bounds
         i = np.arange(height, dtype=np.float32)
         grid_y = (height - i - pixel_offset) / float(height)
@@ -49,9 +50,11 @@ class SensorGrid:
 
     @staticmethod
     def from_beams(beam_inclinations, pixel_offset: float = 0.5,
-                   angle_offset: float = 0.0, device=None) -> "SensorGrid":
-        """Beam-table raster; beams given bottom-up (Waymo calibration order),
-        stored top-down."""
+                   angle_offset: float = 0.0,
+                   device: str | torch.device = "cuda") -> "SensorGrid":
+        """Beam-table raster on `device` (the card unless the caller names
+        another); beams given bottom-up (Waymo calibration order), stored
+        top-down."""
         rows = torch.as_tensor(np.asarray(beam_inclinations, np.float32),
                                device=device).flip(0)
         return SensorGrid(rows, float(pixel_offset), float(angle_offset))

@@ -1,7 +1,8 @@
 // Shared by the forward and backward surfel tracer kernels for Hopper
 // (tracer_forward.cu, tracer_backward.cu): the gate constants, the SH
 // basis, the ray/surfel intersection with every gate, the transmittance
-// update and the per-hit shading.
+// update, the per-hit shading, candidate staging, and the exact mode's
+// depth-order walk (`nearest_hits`).
 //
 // The backward kernel replays the forward's hit sequence, so each gate it
 // decides (ok, the ALPHA_MAX clamp, the T_MIN stop, the channel-0 clamp)
@@ -16,6 +17,7 @@
 #pragma once
 
 #include <cuda_runtime.h>
+#include <math_constants.h>
 
 namespace tracer {
 
@@ -24,6 +26,7 @@ constexpr int kChunk = 128;    // candidates staged per round (== kThreads)
 constexpr int kGeo = 16;       // n(3) w1(3) w2(3) p a_u a_v 1/s0 1/s1 opac sign
 constexpr int kSh = 48;        // 3 channels x 16 SH coefficients
 constexpr int kOutRows = 16;   // channel rows of the forward output (10 used)
+constexpr int kBuf = 16;       // hits a ray gathers per pass in exact order
 
 static_assert(kThreads == kChunk, "each thread stages one candidate");
 
@@ -80,6 +83,17 @@ enum GeoRow {
   kP, kAu, kAv, kInvS0, kInvS1, kOpac, kSign
 };
 
+// Rows of `stride` floats in dynamic shared memory: rows[r][j] reads as
+// s_geo[r][j] does for the tile-order kernels' fixed-width arrays, so the
+// functions below take either (template parameter Rows).
+struct RowView {
+  float* base;
+  int stride;
+  __device__ __forceinline__ float* operator[](int r) const {
+    return base + r * stride;
+  }
+};
+
 // A ray's hit on one candidate.  alpha is 0 unless every gate passes
 // (|n.d| > eps, t >= min_t, alpha_raw >= ALPHA_MIN); the fields past
 // `qd` are 0 unless |n.d| > eps, and past `t` 0 unless t >= min_t.
@@ -92,10 +106,10 @@ struct Hit {
 };
 
 // The intersection and gates of lidar_rt_tpu/ops/geometry.py, for
-// candidate j of the staged chunk s_geo[kGeo][kChunk].
-__device__ __forceinline__ Hit intersect(float (*s_geo)[kChunk], int j,
-                                         float dx, float dy, float dz,
-                                         float min_t) {
+// candidate j of the staged rows s_geo (kGeo rows).
+template <typename Rows>
+__device__ __forceinline__ Hit intersect(Rows s_geo, int j, float dx,
+                                         float dy, float dz, float min_t) {
   Hit h = {};
   h.qd = dot3_rn(dx, dy, dz, s_geo[kNx][j], s_geo[kNy][j], s_geo[kNz][j]);
   if (fabsf(h.qd) > kDenomEps) {
@@ -125,10 +139,11 @@ __device__ __forceinline__ float next_trans(float trans, float alpha) {
 }
 
 // Per-hit SH values c_ch = basis . sh[ch] of candidate j (before the +0.5
-// shift), from the staged chunk s_sh[kSh][kChunk].
-__device__ __forceinline__ void shade(const float basis[16],
-                                      float (*s_sh)[kChunk], int j,
-                                      float& c0, float& c1, float& c2) {
+// shift), from the staged rows s_sh (kSh rows).
+template <typename Rows>
+__device__ __forceinline__ void shade(const float basis[16], Rows s_sh,
+                                      int j, float& c0, float& c1,
+                                      float& c2) {
   c0 = 0.0f;
   c1 = 0.0f;
   c2 = 0.0f;
@@ -163,6 +178,74 @@ __device__ __forceinline__ void stage_chunk(
   s_geo[kSign][threadIdx.x] = sign[tile * k + c];
   for (int f = 0; f < kSh; ++f) {
     s_sh[f][threadIdx.x] = sh[(tile * kSh + f) * k + c];
+  }
+}
+
+// Exact order: stage all `count` candidates of `tile` at once, into rows
+// of stride k; thread i loads candidates i, i + kThreads, ...
+__device__ __forceinline__ void stage_all(
+    RowView s_geo, RowView s_sh, long long tile, int k, int count,
+    const float* __restrict__ axes, const float* __restrict__ plane,
+    const float* __restrict__ inv_scale, const float* __restrict__ opac,
+    const float* __restrict__ sign, const float* __restrict__ sh) {
+  for (int c = threadIdx.x; c < count; c += kThreads) {
+    for (int f = 0; f < 9; ++f) {
+      s_geo[kNx + f][c] = axes[(tile * 9 + f) * k + c];
+    }
+    for (int f = 0; f < 3; ++f) {
+      s_geo[kP + f][c] = plane[(tile * 3 + f) * k + c];
+    }
+    for (int f = 0; f < 2; ++f) {
+      s_geo[kInvS0 + f][c] = inv_scale[(tile * 2 + f) * k + c];
+    }
+    s_geo[kOpac][c] = opac[tile * k + c];
+    s_geo[kSign][c] = sign[tile * k + c];
+    for (int f = 0; f < kSh; ++f) {
+      s_sh[f][c] = sh[(tile * kSh + f) * k + c];
+    }
+  }
+}
+
+// One pass of the exact mode's depth-order walk (the reference's k-buffer,
+// forward.cu:312-356): fill (bt, bj) with this ray's kBuf nearest
+// gate-passing hits strictly after the cursor (cur_t, cur_j) in (t,
+// candidate index) order, ascending; empty slots hold t = +inf.  A full
+// buffer may leave hits for the next pass, which starts after its last
+// entry.  Candidates are scanned in index order, so a hit whose t ties a
+// buffered one goes after it, as a stable sort puts it.  The range is
+// computed as intersect() computes it, so the key is the hit's exact t;
+// hits outside (cursor, last entry) skip the rest of the intersection.
+// The buffer's indices are compile-time constants: it stays in registers.
+__device__ __forceinline__ void nearest_hits(
+    RowView s_geo, int count, float dx, float dy, float dz, float min_t,
+    float cur_t, int cur_j, float (&bt)[kBuf], int (&bj)[kBuf]) {
+#pragma unroll
+  for (int b = 0; b < kBuf; ++b) {
+    bt[b] = CUDART_INF_F;
+    bj[b] = 0;
+  }
+  for (int j = 0; j < count; ++j) {
+    const float qd = dot3_rn(dx, dy, dz, s_geo[kNx][j], s_geo[kNy][j],
+                             s_geo[kNz][j]);
+    if (!(fabsf(qd) > kDenomEps)) continue;
+    const float t = s_geo[kP][j] / qd;
+    if (!(t >= min_t) || t < cur_t || (t == cur_t && j <= cur_j) ||
+        !(t < bt[kBuf - 1])) {
+      continue;
+    }
+    if (!(intersect(s_geo, j, dx, dy, dz, min_t).alpha > 0.0f)) continue;
+    float kt = t;
+    int kj = j;
+#pragma unroll
+    for (int b = 0; b < kBuf; ++b) {  // insert; the last entry drops out
+      const bool before = kt < bt[b];
+      const float st = bt[b];
+      const int sj = bj[b];
+      bt[b] = before ? kt : st;
+      bj[b] = before ? kj : sj;
+      kt = before ? st : kt;
+      kj = before ? sj : kj;
+    }
   }
 }
 

@@ -35,8 +35,9 @@ class LiDARFrames:
 
     @staticmethod
     def from_numpy(grid: rays_lib.SensorGrid, sensor2world, range1,
-                   intensity1, device=None, train_frames=(),
-                   eval_frames=()) -> "LiDARFrames":
+                   intensity1, device: str | torch.device = "cuda",
+                   train_frames=(), eval_frames=()) -> "LiDARFrames":
+        """Frames on `device`, the card unless the caller names another."""
         def f32(a):
             return torch.as_tensor(np.asarray(a, np.float32), device=device)
 

@@ -8,7 +8,8 @@ That order is the compositing order, the sentinel index is N, and `valid`
 is a prefix of each row.  Selection is exact (a stable sort).
 
 Binners: "topk" scores a dense (T, N) overlap matrix; "hier" selects per
-azimuth sector first (K_c = coarse_factor * K), then per row tile.  The
+azimuth sector first (K_c = coarse_factor * K), then per row tile.  Both
+take a per-tile `min_range`, the re-binning half of tail re-tracing.  The
 reference's "sort" binner, `macro_cols` and `approx_topk` are not ported.
 """
 
@@ -114,6 +115,19 @@ def cutoff_radius(scales: Tensor, opacities: Tensor, eps: float) -> Tensor:
     return scales.amax(-1) * (cut + eps)
 
 
+def sensor_points(world2sensor: Tensor, means: Tensor
+                  ) -> tuple[Tensor, Tensor, Tensor, Tensor]:
+    """Surfel centers in the sensor frame and their range: (px, py, pz,
+    rng), each (N,).  The binner and the tail passes' range cutoff share
+    it, so a cutoff equals its candidate's binned range bit for bit."""
+    mx, my, mz = means.unbind(-1)
+    r = world2sensor
+    px = r[0, 0] * mx + r[0, 1] * my + r[0, 2] * mz + r[0, 3]
+    py = r[1, 0] * mx + r[1, 1] * my + r[1, 2] * mz + r[1, 3]
+    pz = r[2, 0] * mx + r[2, 1] * my + r[2, 2] * mz + r[2, 3]
+    return px, py, pz, torch.sqrt(px * px + py * py + pz * pz)
+
+
 def footprint_bounds(grid: rays_lib.SensorGrid, width: int,
                      world2sensor: Tensor, means: Tensor, scales: Tensor,
                      opacities: Tensor, cfg: TileConfig,
@@ -121,13 +135,9 @@ def footprint_bounds(grid: rays_lib.SensorGrid, width: int,
     """Per-surfel raster footprint: (row_lo, row_hi, col_c, col_half, rng,
     live).  With rotations (N, 4) the bound is the oriented disk's support
     along the elevation/azimuth tangents, else an isotropic sphere."""
-    mx, my, mz = means.unbind(-1)
     r = world2sensor
-    px = r[0, 0] * mx + r[0, 1] * my + r[0, 2] * mz + r[0, 3]
-    py = r[1, 0] * mx + r[1, 1] * my + r[1, 2] * mz + r[1, 3]
-    pz = r[2, 0] * mx + r[2, 1] * my + r[2, 2] * mz + r[2, 3]
+    px, py, pz, rng = sensor_points(world2sensor, means)
     horiz = torch.sqrt(px * px + py * py).clamp_min(1e-12)
-    rng = torch.sqrt(px * px + py * py + pz * pz)
     safe_rng = rng.clamp_min(geometry.DEPTH_MIN)
     incl = torch.atan2(pz, horiz)
     azim = torch.atan2(py, px)
@@ -208,11 +218,15 @@ def _pad_k(index: Tensor, valid: Tensor, k: int, n: int):
 
 def bin_surfels(grid: rays_lib.SensorGrid, width: int, world2sensor: Tensor,
                 means: Tensor, scales: Tensor, opacities: Tensor,
-                cfg: TileConfig, rotations: Tensor | None = None
-                ) -> TileAssignment:
+                cfg: TileConfig, rotations: Tensor | None = None,
+                min_range: Tensor | None = None) -> TileAssignment:
     """Assign surfels (N, 3 world) to tiles, row-major over (tiles_y,
     tiles_x): per-tile nearest-first candidate lists.  Binning is a
-    visibility oracle: inputs are detached."""
+    visibility oracle: inputs are detached.
+
+    min_range (T,): a tile lists only surfels with center range strictly
+    above it (+inf lists none): tail re-tracing passes the range of each
+    truncated tile's K-th candidate and gets ranks K+1, K+2, ..."""
     means, scales, opacities = means.detach(), scales.detach(), \
         opacities.detach()
     rotations = None if rotations is None else rotations.detach()
@@ -254,6 +268,8 @@ def bin_surfels(grid: rays_lib.SensorGrid, width: int, world2sensor: Tensor,
         overlap = (row_overlap_of(row_lo[None], row_hi[None])[:, None, :]
                    & col_overlap_of(col_c[None], col_half[None])[None]
                    & live).reshape(tiles_y * tiles_x, n)
+        if min_range is not None:
+            overlap = overlap & (rng[None, :] > min_range[:, None])
         kk = min(k, n)
         top, idx = _nearest(torch.where(overlap, rng, torch.inf), kk)
         valid = torch.isfinite(top)
@@ -262,8 +278,15 @@ def bin_surfels(grid: rays_lib.SensorGrid, width: int, world2sensor: Tensor,
         return TileAssignment(index=index, valid=valid, truncated=truncated)
 
     # hier, stage 1: nearest K_c per azimuth sector, row extent ignored.
+    # Under min_range a sector keeps what its most permissive row tile
+    # may list: a candidate consumed by one row tile may still be rank
+    # K+1 of a sibling.
     k_c = min(cfg.coarse_factor * k, n)
     col_overlap = col_overlap_of(col_c[None], col_half[None]) & live
+    if min_range is not None:
+        min_range = min_range.reshape(tiles_y, tiles_x)
+        col_overlap = col_overlap & (rng[None, :]
+                                     > min_range.amin(0)[:, None])
     top_c, idx_c = _nearest(torch.where(col_overlap, rng, torch.inf), k_c)
     valid_c = torch.isfinite(top_c)                        # (tiles_x, K_c)
     coarse_trunc = (col_overlap.sum(-1) - k_c).clamp_min(0)
@@ -272,6 +295,8 @@ def bin_surfels(grid: rays_lib.SensorGrid, width: int, world2sensor: Tensor,
     rng_c = rng[idx_c]
     row_ok = row_overlap_of(row_lo[idx_c][None], row_hi[idx_c][None]) \
         & valid_c                                          # (ty, tx, K_c)
+    if min_range is not None:
+        row_ok = row_ok & (rng_c[None] > min_range[:, :, None])
     kk = min(k, k_c)
     top, sel = _nearest(
         torch.where(row_ok, rng_c, torch.inf).reshape(-1, k_c), kk)

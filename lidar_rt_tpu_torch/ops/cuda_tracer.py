@@ -21,7 +21,9 @@ and its outputs are the channel-major (T, 16, R) rows (0 Σw·max(b·sh0+.5, 0),
 `forward_tiles` is differentiable (`_TracerCore`, the counterpart of the
 reference's `_pallas_core` custom_vjp): the forward and backward kernels
 for CUDA tensors, their plain twins (`forward_tiles_reference`,
-`backward_tiles_reference`) for CPU tensors; nothing falls back.  The
+`backward_tiles_reference`) for CPU tensors; nothing falls back.  Both
+kernels and twins composite in tile order, or with `exact` in each ray's
+ascending (depth, candidate index) order of its gate-passing hits.  The
 background term and the ray-drop head stay outside the kernels.
 """
 
@@ -137,18 +139,28 @@ def _prepare_tile_inputs(bundle: SurfelBundle, origin: Tensor,
 
 def tile_inputs(bundle: SurfelBundle, grid: rays_lib.SensorGrid, width: int,
                 sensor2world: Tensor, active_sh_degree: int,
-                tile: TileConfig, assignment: TileAssignment | None = None
+                tile: TileConfig, assignment: TileAssignment | None = None,
+                min_depth: Tensor | None = None,
+                init_trans: Tensor | None = None
                 ) -> tuple[TileInputs, TileAssignment]:
     """Bin (unless given an assignment), make the rays, and lay out one
-    render's kernel inputs."""
+    render's kernel inputs.  min_depth and init_trans are optional per-ray
+    (H, W) images of the minimum hit range (default DEPTH_MIN; it gets no
+    gradient) and the initial transmittance (default 1; differentiable)."""
     if assignment is None:
         assignment = bin_bundle(bundle, grid, width, sensor2world, tile)
     origin, dirs = rays_lib.range_rays(grid, width, sensor2world)
     dirs_t = to_tiles(dirs, tile).contiguous()                # (T, R, 3)
     t_total, rays_per_tile = dirs_t.shape[:2]
-    mind = torch.full((t_total, rays_per_tile), geometry.DEPTH_MIN,
-                      device=dirs_t.device)
-    t0 = torch.ones((t_total, rays_per_tile), device=dirs_t.device)
+    if min_depth is None:
+        mind = torch.full((t_total, rays_per_tile), geometry.DEPTH_MIN,
+                          device=dirs_t.device)
+    else:
+        mind = to_tiles(min_depth, tile).contiguous()
+    if init_trans is None:
+        t0 = torch.ones((t_total, rays_per_tile), device=dirs_t.device)
+    else:
+        t0 = to_tiles(init_trans, tile).contiguous()
     axes, plane, inv_scale, opac, sign, sh = _prepare_tile_inputs(
         bundle, origin, assignment.index, assignment.valid)
     # The kernel computes the full-degree basis; the mask folds into sh.
@@ -160,7 +172,8 @@ def tile_inputs(bundle: SurfelBundle, grid: rays_lib.SensorGrid, width: int,
 
 
 class _Pairs(NamedTuple):
-    """Per-(ray, candidate) replay of the kernels, all (T, R, K)."""
+    """Per-(ray, candidate) replay of the kernels, all (T, R, K) in
+    candidate order."""
 
     safe_qd: Tensor
     b_u: Tensor
@@ -173,17 +186,30 @@ class _Pairs(NamedTuple):
     ok: Tensor
     alpha: Tensor
     t_excl: Tensor
-    t_incl: Tensor
     live: Tensor
     w: Tensor
+    t_raw: Tensor      # (T, R): t0 times the product of every (1 - alpha)
+    perm: Tensor | None  # (T, R, K) compositing order (exact), else None
+
+
+def _in_order(x: Tensor, perm: Tensor | None) -> Tensor:
+    """x (T, R, K) in compositing order."""
+    return x if perm is None else torch.gather(x, -1, perm)
+
+
+def _from_order(x: Tensor, perm: Tensor | None) -> Tensor:
+    """Inverse of `_in_order`: back to candidate order."""
+    return x if perm is None else torch.zeros_like(x).scatter(-1, perm, x)
 
 
 def _pairs(cnt: Tensor, dirs: Tensor, mind: Tensor, t0: Tensor,
-           axes: Tensor, plane: Tensor, inv_scale: Tensor, opac: Tensor
-           ) -> _Pairs:
+           axes: Tensor, plane: Tensor, inv_scale: Tensor, opac: Tensor,
+           exact: bool = False) -> _Pairs:
     """Intersect, gate and composite every (ray, candidate) pair of each
     tile densely; candidates at or past `cnt` are masked out, as the
-    kernels skip them."""
+    kernels skip them.  Tile order composites in candidate order; exact
+    order in each ray's ascending (t, candidate index) order of its
+    gate-passing hits (a stable sort, as the reference's argsort)."""
     k = axes.shape[-1]
     n, w1, w2 = axes[:, 0], axes[:, 1], axes[:, 2]            # (T, 3, K)
     qd = geometry.ray_dot(dirs, n.transpose(1, 2))            # (T, R, K)
@@ -201,25 +227,30 @@ def _pairs(cnt: Tensor, dirs: Tensor, mind: Tensor, t0: Tensor,
     ok = ((t >= mind[..., None]) & (abs_qd > geometry.DENOM_EPS)
           & (alpha_raw >= geometry.ALPHA_MIN) & in_cnt[:, None, :])
     alpha = torch.where(ok, alpha_raw, 0.0)
+    perm = (torch.argsort(torch.where(ok, t, torch.inf), dim=-1, stable=True)
+            if exact else None)
 
     # Live prefix: T_incl is non-increasing, so the T_MIN test is a prefix.
-    t_incl = t0[..., None] * torch.cumprod(1.0 - alpha, dim=-1)
+    t_incl = t0[..., None] * torch.cumprod(1.0 - _in_order(alpha, perm),
+                                           dim=-1)
     t_excl = torch.cat([t0[..., None], t_incl[..., :-1]], dim=-1)
-    live = t_incl >= geometry.T_MIN
+    live = _from_order(t_incl >= geometry.T_MIN, perm)
+    t_excl = _from_order(t_excl, perm)
     w = torch.where(live, alpha * t_excl, 0.0)
     return _Pairs(safe_qd, b_u, b_v, t, u, v, g, alpha_raw, ok, alpha,
-                  t_excl, t_incl, live, w)
+                  t_excl, live, w, t_incl[..., -1], perm)
 
 
 def forward_tiles_reference(cnt: Tensor, dirs: Tensor, mind: Tensor,
                             t0: Tensor, axes: Tensor, plane: Tensor,
                             inv_scale: Tensor, opac: Tensor, sign: Tensor,
-                            sh: Tensor) -> tuple[Tensor, Tensor]:
-    """Plain PyTorch version of the forward kernel: (chans (T, 16, R),
-    accum (T, K)).  Dense over every (ray, candidate) pair of a tile.
-    Row 9 is the product of (1 - alpha) over every pair; the kernel's stops
-    at a ray's T_MIN hit."""
-    f = _pairs(cnt, dirs, mind, t0, axes, plane, inv_scale, opac)
+                            sh: Tensor, exact: bool = False
+                            ) -> tuple[Tensor, Tensor]:
+    """Plain PyTorch version of the forward kernel, in tile order or (exact)
+    per-ray depth order: (chans (T, 16, R), accum (T, K)).  Dense over
+    every (ray, candidate) pair of a tile.  Row 9 is the product of
+    (1 - alpha) over every pair; the kernel's stops at a ray's T_MIN hit."""
+    f = _pairs(cnt, dirs, mind, t0, axes, plane, inv_scale, opac, exact)
     w = f.w
     n = axes[:, 0]
     basis = sh_lib.basis(dirs, sh_lib.MAX_SH_DEGREE)          # (T, R, 16)
@@ -235,7 +266,7 @@ def forward_tiles_reference(cnt: Tensor, dirs: Tensor, mind: Tensor,
         sum_w,
         *torch.matmul(w, (sign[:, None] * n).transpose(1, 2)).unbind(-1),
         t0 - sum_w,
-        f.t_incl[..., -1],
+        f.t_raw,
     ]
     chans = torch.stack(rows, dim=1)                          # (T, 10, R)
     chans = torch.nn.functional.pad(chans, (0, 0, 0, NUM_OUT_ROWS - 10))
@@ -245,18 +276,20 @@ def forward_tiles_reference(cnt: Tensor, dirs: Tensor, mind: Tensor,
 def backward_tiles_reference(cnt: Tensor, dirs: Tensor, mind: Tensor,
                              t0: Tensor, axes: Tensor, plane: Tensor,
                              inv_scale: Tensor, opac: Tensor, sign: Tensor,
-                             sh: Tensor, fwd_chans: Tensor, g_chans: Tensor
-                             ) -> tuple[Tensor, ...]:
+                             sh: Tensor, fwd_chans: Tensor, g_chans: Tensor,
+                             exact: bool = False) -> tuple[Tensor, ...]:
     """Plain PyTorch version of the backward kernel: the closed-form VJP of
-    `forward_tiles_reference`, dense over pairs.  fwd_chans are the
-    forward's (T, 16, R) channels, g_chans their upstream gradients.
+    `forward_tiles_reference` in the same order, dense over pairs.
+    fwd_chans are the forward's (T, 16, R) channels, g_chans their
+    upstream gradients.
     Returns (d_axes (T, 3, 3, K), d_plane (T, 3, K), d_inv_scale (T, 2, K),
     d_opac (T, K), d_sh (T, 3, 16, K)), each summed over the tile's rays.
 
     dL/dalpha_j = gw_j T_j - (A_j + g_8 T_out + g_9 T_raw) / (1 - alpha_j),
-    A_j = sum_{k>j} gw_k w_k, gw = dL/dw; pairs past a ray's stop get
-    only the raw-T term, since their w and suffix are exactly 0."""
-    f = _pairs(cnt, dirs, mind, t0, axes, plane, inv_scale, opac)
+    A_j = sum of gw_k w_k over the pairs k composited after j, gw = dL/dw;
+    pairs past a ray's stop get only the raw-T term, since their w and
+    suffix are exactly 0."""
+    f = _pairs(cnt, dirs, mind, t0, axes, plane, inv_scale, opac, exact)
     w, t = f.w, f.t
     n = axes[:, 0]                                            # (T, 3, K)
     basis = sh_lib.basis(dirs, sh_lib.MAX_SH_DEGREE)          # (T, R, 16)
@@ -267,9 +300,10 @@ def backward_tiles_reference(cnt: Tensor, dirs: Tensor, mind: Tensor,
     gw = (g[0] * col0_raw.clamp_min(0.0) + g[1] * (c1 + 0.5)
           + g[2] * (c2 + 0.5) + g[3] * t + g[4]
           + sg * (g[5] * n[:, 0:1] + g[6] * n[:, 1:2] + g[7] * n[:, 2:3]))
-    gww = gw * w
+    gww = _in_order(gw * w, f.perm)
     rev = torch.flip(torch.cumsum(torch.flip(gww, [-1]), -1), [-1])
-    suffix = torch.nn.functional.pad(rev[..., 1:], (0, 1))    # sum_{k>j}
+    suffix = _from_order(torch.nn.functional.pad(rev[..., 1:], (0, 1)),
+                         f.perm)                              # after j
     one_m = (1.0 - f.alpha).clamp_min(1e-6)
     t_out = fwd_chans[:, 8, :, None]
     t_raw = fwd_chans[:, 9, :, None]
@@ -313,19 +347,21 @@ def backward_tiles_reference(cnt: Tensor, dirs: Tensor, mind: Tensor,
 class _TracerCore(torch.autograd.Function):
     """The differentiable kernel boundary (counterpart of the reference's
     `_pallas_core` custom_vjp): the forward kernel, and the backward kernel
-    as its VJP; on CPU tensors their plain twins.  Gradients reach the
-    candidate geometry, opacity, SH and t0; cnt, dirs, mind and sign get
-    none, and accum (densify statistics only) passes no gradient back."""
+    as its VJP, both in tile order or (exact) per-ray depth order; on CPU
+    tensors their plain twins.  Gradients reach the candidate geometry,
+    opacity, SH and t0; cnt, dirs, mind and sign get none, and accum
+    (densify statistics only) passes no gradient back."""
 
     @staticmethod
-    def forward(ctx, cnt, dirs, mind, t0, axes, plane, inv_scale, opac,
-                sign, sh):
+    def forward(ctx, exact, cnt, dirs, mind, t0, axes, plane, inv_scale,
+                opac, sign, sh):
         inputs = (cnt, dirs, mind, t0, axes, plane, inv_scale, opac, sign,
                   sh)
         if dirs.device.type == "cpu":
-            chans, accum = forward_tiles_reference(*inputs)
+            chans, accum = forward_tiles_reference(*inputs, exact=exact)
         else:
-            chans, accum = kernels.tracer_forward(*inputs)
+            chans, accum = kernels.tracer_forward(*inputs, exact=exact)
+        ctx.exact = exact
         ctx.save_for_backward(*inputs, chans)
         ctx.mark_non_differentiable(accum)
         return chans, accum
@@ -335,37 +371,44 @@ class _TracerCore(torch.autograd.Function):
         *inputs, chans = ctx.saved_tensors
         g_chans = g_chans.contiguous()
         if g_chans.device.type == "cpu":
-            grads = backward_tiles_reference(*inputs, chans, g_chans)
+            grads = backward_tiles_reference(*inputs, chans, g_chans,
+                                             exact=ctx.exact)
         else:
-            grads = kernels.tracer_backward(*inputs, chans, g_chans)
+            grads = kernels.tracer_backward(*inputs, chans, g_chans,
+                                            exact=ctx.exact)
         d_axes, d_plane, d_inv_scale, d_opac, d_sh = grads
         d_t0 = None
-        if ctx.needs_input_grad[3]:
+        if ctx.needs_input_grad[4]:                           # t0
             # Every channel row scales linearly in t0 (w = alpha T0
             # prod(1 - alpha)); the T_MIN cutoff's t0-dependence is a
             # measure-zero step, ignored as the reference does.
             d_t0 = ((g_chans[:, :10] * chans[:, :10]).sum(1)
                     / inputs[3].clamp_min(1e-12))
-        return (None, None, None, d_t0, d_axes, d_plane, d_inv_scale,
+        return (None, None, None, None, d_t0, d_axes, d_plane, d_inv_scale,
                 d_opac, None, d_sh)
 
 
-def forward_tiles(inputs: TileInputs) -> tuple[Tensor, Tensor]:
+def forward_tiles(inputs: TileInputs, exact: bool = False
+                  ) -> tuple[Tensor, Tensor]:
     """The forward tracer on one render's tiles, differentiable: the plain
     twins for CPU tensors, the CUDA kernels for CUDA tensors (which raise
-    on failure; nothing falls back)."""
-    return _TracerCore.apply(*inputs)
+    on failure; nothing falls back).  exact composites each ray's hits in
+    depth order, else in tile order."""
+    return _TracerCore.apply(exact, *inputs)
 
 
 def trace_forward(bundle: SurfelBundle, grid: rays_lib.SensorGrid,
                   width: int, sensor2world: Tensor, active_sh_degree: int,
-                  tile: TileConfig, assignment: TileAssignment | None = None
+                  tile: TileConfig, assignment: TileAssignment | None = None,
+                  exact: bool = False, min_depth: Tensor | None = None,
+                  init_trans: Tensor | None = None
                   ) -> tuple[Tensor, Tensor]:
     """Kernel-path render -> (channels (H, W, 10): 9 public channels + raw
     transmittance, accum_weights (N,))."""
     inputs, assignment = tile_inputs(bundle, grid, width, sensor2world,
-                                     active_sh_degree, tile, assignment)
-    chans, accum_tk = forward_tiles(inputs)
+                                     active_sh_degree, tile, assignment,
+                                     min_depth, init_trans)
+    chans, accum_tk = forward_tiles(inputs, exact)
     img = from_tiles(chans.transpose(1, 2), tile, grid.height, width)
     return img[..., :10], scatter_accum(assignment, accum_tk,
                                          bundle.num_surfels)
@@ -374,10 +417,14 @@ def trace_forward(bundle: SurfelBundle, grid: rays_lib.SensorGrid,
 def trace(bundle: SurfelBundle, grid: rays_lib.SensorGrid, width: int,
           sensor2world: Tensor, background: Tensor,
           active_sh_degree: int = 3, tile: TileConfig = TileConfig(),
-          assignment: TileAssignment | None = None) -> RenderOutputs:
-    """Kernel-path counterpart of `ops.tracer.trace`'s torch engine."""
+          assignment: TileAssignment | None = None, exact: bool = False,
+          min_depth: Tensor | None = None, init_trans: Tensor | None = None
+          ) -> RenderOutputs:
+    """Kernel-path counterpart of `ops.tracer.trace`'s torch engine (one
+    pass; the tail passes chain it)."""
     img, accum = trace_forward(bundle, grid, width, sensor2world,
-                               active_sh_degree, tile, assignment)
+                               active_sh_degree, tile, assignment, exact,
+                               min_depth, init_trans)
     final_t = img[..., 8:9]
     channels = torch.cat([img[..., 0:3] + final_t * background, img[..., 3:8],
                           final_t], dim=-1)

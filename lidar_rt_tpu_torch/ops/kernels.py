@@ -3,10 +3,12 @@
 Each kernel source under `csrc/` (`tracer_forward.cu`, `tracer_backward.cu`;
 both include `tracer_common.cuh`) is compiled with nvcc for sm_90a into its
 own shared library with a plain C entry point, loaded with ctypes, at first
-use.  The nvcc processes of all missing libraries start together.  The
-libraries go to `lidar_rt_tpu_torch/_build/`, keyed by a hash of every file
-under `csrc/` and the flags, so an edited source or header rebuilds and an
-unchanged tree does not.  Nothing here runs at import: the module imports
+use.  Each library holds both modes of its kernel, tile order and exact
+(per-ray depth) order, chosen per launch.  The nvcc processes of all
+missing libraries start together.  The libraries go to
+`lidar_rt_tpu_torch/_build/`, keyed by a hash of every file under `csrc/`
+and the flags, so an edited source or header rebuilds and an unchanged
+tree does not.  Nothing here runs at import: the module imports
 on machines without nvcc.
 """
 
@@ -28,12 +30,34 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 GRAD_ROWS = 64     # rows of the backward kernel's (T, 64, K) output
+# The exact-order kernels stage all K candidates of a tile and keep
+# per-candidate sums in shared memory: at most 64 + 64 floats per candidate
+# in the backward, 128 KB at K = 256 of the 227 KB a block may use.
+EXACT_MAX_K = 256
 
-# Launches of each kernel: raised by one per launch in `tracer_forward` and
-# `tracer_backward`, nowhere else.  Callers reset them to count a run's
-# launches.
-forward_launches = 0
+# Launches of each kernel in each mode: raised by one per launch in
+# `tracer_forward` and `tracer_backward`, nowhere else.  Callers reset
+# them to count a run's launches.
+forward_launches = 0           # tile order
 backward_launches = 0
+forward_exact_launches = 0     # exact (per-ray depth) order
+backward_exact_launches = 0
+
+
+def reset_launches() -> None:
+    """Set every launch count to 0."""
+    global forward_launches, backward_launches
+    global forward_exact_launches, backward_exact_launches
+    forward_launches = backward_launches = 0
+    forward_exact_launches = backward_exact_launches = 0
+
+
+def check_exact_k(k: int) -> None:
+    """Raise ValueError unless the exact-order kernels take K candidates
+    per tile (1 <= K <= EXACT_MAX_K)."""
+    if not 1 <= k <= EXACT_MAX_K:
+        raise ValueError(f"exact order supports 1 <= K <= {EXACT_MAX_K} "
+                         f"candidates per tile, got K = {k}")
 
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -99,7 +123,7 @@ def _library(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build()[name]))
         n_ptr = 12 if name == "tracer_forward" else 13
         fn = getattr(lib, name)
-        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 3
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 4
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         lib.tracer_error_string.argtypes = [ctypes.c_int]
@@ -157,13 +181,18 @@ def _launch(name: str, dev: torch.device, pointers, dims) -> None:
 
 
 def tracer_forward(cnt, dirs, mind, t0, axes, plane, inv_scale, opac, sign,
-                   sh) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the forward tracer kernel on the current stream.
+                   sh, exact: bool = False
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the forward tracer kernel on the current stream, in tile order
+    or (exact) in each ray's depth order.
 
     Inputs as `ops.cuda_tracer.TileInputs`, all contiguous CUDA tensors on
     one device.  Returns (chans (T, 16, R), accum (T, K)).  Raises on any
-    input the kernel does not take and on a failed launch."""
-    global forward_launches
+    input the kernel does not take (exact: K outside [1, EXACT_MAX_K]) and
+    on a failed launch."""
+    global forward_launches, forward_exact_launches
+    if exact:
+        check_exact_k(axes.shape[-1])
     expected = _tile_shapes(cnt, dirs, mind, t0, axes, plane, inv_scale,
                             opac, sign, sh)
     dev = _check("tracer_forward", expected)
@@ -172,14 +201,19 @@ def tracer_forward(cnt, dirs, mind, t0, axes, plane, inv_scale, opac, sign,
     accum = torch.zeros((t, k), dtype=torch.float32, device=dev)
     _launch("tracer_forward", dev,
             [x.data_ptr() for x, _, _ in expected.values()]
-            + [chans.data_ptr(), accum.data_ptr()], (t, r, k))
-    forward_launches += 1
+            + [chans.data_ptr(), accum.data_ptr()], (t, r, k, int(exact)))
+    if exact:
+        forward_exact_launches += 1
+    else:
+        forward_launches += 1
     return chans, accum
 
 
 def tracer_backward(cnt, dirs, mind, t0, axes, plane, inv_scale, opac, sign,
-                    sh, fwd_chans, g_chans) -> tuple[torch.Tensor, ...]:
-    """Launch the backward tracer kernel on the current stream.
+                    sh, fwd_chans, g_chans, exact: bool = False
+                    ) -> tuple[torch.Tensor, ...]:
+    """Launch the backward tracer kernel on the current stream, in the
+    forward's order (tile, or exact per-ray depth order).
 
     Inputs: the forward's, plus its channels `fwd_chans` and their upstream
     gradients `g_chans`, both (T, 16, R); all contiguous CUDA tensors on
@@ -187,7 +221,9 @@ def tracer_backward(cnt, dirs, mind, t0, axes, plane, inv_scale, opac, sign,
     d_inv_scale (T, 2, K), d_opac (T, K), d_sh (T, 3, 16, K)), each summed
     over the tile's rays, as views of one (T, 64, K) buffer.  Raises on any
     input the kernel does not take and on a failed launch."""
-    global backward_launches
+    global backward_launches, backward_exact_launches
+    if exact:
+        check_exact_k(axes.shape[-1])
     expected = _tile_shapes(cnt, dirs, mind, t0, axes, plane, inv_scale,
                             opac, sign, sh)
     t, r, k = dirs.shape[0], dirs.shape[1], axes.shape[-1]
@@ -197,7 +233,10 @@ def tracer_backward(cnt, dirs, mind, t0, axes, plane, inv_scale, opac, sign,
     grads = torch.zeros((t, GRAD_ROWS, k), dtype=torch.float32, device=dev)
     _launch("tracer_backward", dev,
             [x.data_ptr() for x, _, _ in expected.values()]
-            + [grads.data_ptr()], (t, r, k))
-    backward_launches += 1
+            + [grads.data_ptr()], (t, r, k, int(exact)))
+    if exact:
+        backward_exact_launches += 1
+    else:
+        backward_launches += 1
     return (grads[:, 0:9].view(t, 3, 3, k), grads[:, 9:12],
             grads[:, 12:14], grads[:, 14], grads[:, 16:].view(t, 3, 16, k))

@@ -47,8 +47,9 @@ def _asset(arrays, part: str, device) -> GaussianAsset:
 
 
 def scene_from_numpy(arrays: Mapping[str, np.ndarray],
-                     device: str | torch.device = "cpu") -> Scene:
-    """Port Scene on `device` from `<part>.<field>` numpy arrays."""
+                     device: str | torch.device = "cuda") -> Scene:
+    """Port Scene on `device` (the card unless the caller names another)
+    from `<part>.<field>` numpy arrays."""
     background = _asset(arrays, "background", device)
     if "actors.xyz" not in arrays:
         return Scene(background=background)

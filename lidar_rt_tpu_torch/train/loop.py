@@ -28,8 +28,8 @@ import numpy as np
 import torch
 
 from lidar_rt_tpu_torch.core import rays as rays_lib
+from lidar_rt_tpu_torch.core import transforms
 from lidar_rt_tpu_torch.data.frames import LiDARFrames
-from lidar_rt_tpu_torch.ops import cuda_tracer
 from lidar_rt_tpu_torch.ops import tracer as tracer_lib
 from lidar_rt_tpu_torch.ops.binning import TileAssignment
 from lidar_rt_tpu_torch.scene.asset import PARAM_FIELDS, GaussianAsset
@@ -62,21 +62,24 @@ class BinCache:
     sets for many steps.  `age[f]` counts optimizer steps (of any frame)
     since frame f was last binned; densify and opacity-reset events mark
     every frame stale.  Ages live on the host: the staleness decision
-    costs no device sync.  `rebins` counts the binning passes made."""
+    costs no device sync.  `rebins` counts the frames binned.
 
-    index: Tensor    # (F, T, K)
-    valid: Tensor    # (F, T, K) bool
+    P (= tail_passes + 1) caches a frame's whole tail re-trace chain
+    (`bin_tail_chain`): pass p lists candidates strictly past pass p-1's
+    per-tile K-th candidate range, so the passes stay disjoint."""
+
+    index: Tensor    # (F, P, T, K)
+    valid: Tensor    # (F, P, T, K) bool
     age: list[int]   # (F,)
     rebins: int = 0
 
     @staticmethod
-    def stale(num_frames: int, t_total: int, k: int, device=None
-              ) -> "BinCache":
+    def stale(num_frames: int, t_total: int, k: int, passes: int = 1,
+              device=None) -> "BinCache":
+        shape = (num_frames, passes, t_total, k)
         return BinCache(
-            index=torch.zeros((num_frames, t_total, k), dtype=torch.int64,
-                              device=device),
-            valid=torch.zeros((num_frames, t_total, k), dtype=torch.bool,
-                              device=device),
+            index=torch.zeros(shape, dtype=torch.int64, device=device),
+            valid=torch.zeros(shape, dtype=torch.bool, device=device),
             age=[STALE_AGE] * num_frames)
 
 
@@ -138,9 +141,9 @@ def make_train_step(frames: LiDARFrames, args,
     """Build the training step: train_step(state, batch) -> (state,
     metrics), updating the state in place.
 
-    The step renders with the frame's cached tile assignment (state.bins)
-    and re-bins it, with 2 px of footprint padding, once its age reaches
-    `rebin_every` (>= 1) steps."""
+    The step renders with the frame's cached tile assignment (state.bins;
+    with tail passes the whole chain) and re-bins it, with 2 px of
+    footprint padding, once its age reaches `rebin_every` (>= 1) steps."""
     if rebin_every < 1:
         raise ValueError(f"rebin_every must be >= 1, got {rebin_every}")
     lw = losses.LossWeights(
@@ -162,8 +165,10 @@ def make_train_step(frames: LiDARFrames, args,
                                    pad_px=max(trace_cfg.tile.pad_px, 2.0),
                                    snap_pad_px=0.5)
 
+    tail = trace_cfg.tail_passes
+
     def loss_fn(scene: Scene, probe: Tensor, batch: FrameBatch,
-                assignment: TileAssignment):
+                assignment: TileAssignment | list[TileAssignment]):
         bundle, _ = compose(scene, batch.frame)
         # World-mean gradient probe for the densify statistics.
         bundle = bundle._replace(means=bundle.means + probe)
@@ -195,26 +200,32 @@ def make_train_step(frames: LiDARFrames, args,
         return lb, out
 
     def assignment_from_cache(state: TrainState, batch: FrameBatch
-                              ) -> TileAssignment:
+                              ) -> TileAssignment | list[TileAssignment]:
+        """The frame's cached assignment, or its chain of tail_passes + 1
+        with tail passes; a stale frame bins the whole chain first."""
         f = batch.frame
         bins = state.bins
         stale = bins.age[f] >= rebin_every
         if stale:
             with torch.no_grad():
                 bundle, _ = compose(state.scene, f)
-                a = cuda_tracer.bin_bundle(bundle, grid, width,
-                                           batch.sensor2world, bin_tile)
-            bins.index[f] = a.index
-            bins.valid[f] = a.valid
+                chain = tracer_lib.bin_tail_chain(
+                    bundle, grid, width,
+                    transforms.invert_se3(batch.sensor2world), bin_tile,
+                    tail)
+            for p, a in enumerate(chain):
+                bins.index[f, p] = a.index
+                bins.valid[f, p] = a.valid
             bins.rebins += 1
         # Every frame ages on every step: drift accrues per optimizer step.
         bins.age = [age + 1 for age in bins.age]
         if stale:
             bins.age[f] = 1
-        return TileAssignment(
-            index=bins.index[f], valid=bins.valid[f],
-            truncated=torch.zeros(bins.index.shape[1], dtype=torch.int64,
-                                  device=bins.index.device))
+        zero = torch.zeros(bins.index.shape[2], dtype=torch.int64,
+                           device=bins.index.device)
+        chain = [TileAssignment(bins.index[f, p], bins.valid[f, p], zero)
+                 for p in range(tail + 1)]
+        return chain if tail else chain[0]
 
     def train_step(state: TrainState, batch: FrameBatch
                    ) -> tuple[TrainState, dict[str, Tensor]]:
@@ -279,7 +290,8 @@ class Trainer:
                                                          frames.width)
         self.state.bins = BinCache.stale(
             frames.num_frames, tiles_y * tiles_x,
-            self.trace_cfg.tile.max_per_tile, frames.range1.device)
+            self.trace_cfg.tile.max_per_tile,
+            self.trace_cfg.tail_passes + 1, frames.range1.device)
         self._frame_stack: list[int] = []
         self.iteration = 0
         self.history: list[dict] = []

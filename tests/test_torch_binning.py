@@ -11,8 +11,11 @@ import torch
 from lidar_rt_tpu.core import rays as j_rays
 from lidar_rt_tpu.core import transforms as j_tf
 from lidar_rt_tpu.ops import binning as j_bin
+from lidar_rt_tpu.ops import tracer as j_tracer
 from lidar_rt_tpu_torch.core import rays as t_rays
 from lidar_rt_tpu_torch.ops import binning as t_bin
+from lidar_rt_tpu_torch.ops import tracer as t_tracer
+from lidar_rt_tpu_torch.ops.composite import SurfelBundle as TBundle
 
 torch.set_num_threads(1)
 
@@ -44,19 +47,25 @@ def _pose(seed):
     return m
 
 
-def _both(s, pose, oriented, **cfg):
-    jg = j_rays.SensorGrid.from_bounds(H, (-0.42, 0.08), pixel_offset=0.5)
-    tg = t_rays.SensorGrid.from_bounds(H, (-0.42, 0.08), pixel_offset=0.5)
+def _grids():
+    return (j_rays.SensorGrid.from_bounds(H, (-0.42, 0.08), pixel_offset=0.5),
+            t_rays.SensorGrid.from_bounds(H, (-0.42, 0.08), pixel_offset=0.5,
+                                          device="cpu"))
+
+
+def _both(s, pose, oriented, min_range=None, **cfg):
+    jg, tg = _grids()
     w2s = np.asarray(j_tf.invert_se3(pose))
     rot = s["rotations"] if oriented else None
     ja = j_bin.bin_surfels(jg, W, w2s, s["means"], s["scales"],
                            s["opacities"], j_bin.TileConfig(**cfg),
-                           rotations=rot)
+                           rotations=rot, min_range=min_range)
     ta = t_bin.bin_surfels(
         tg, W, torch.tensor(w2s), torch.tensor(s["means"]),
         torch.tensor(s["scales"]), torch.tensor(s["opacities"]),
         t_bin.TileConfig(**cfg),
-        rotations=None if rot is None else torch.tensor(rot))
+        rotations=None if rot is None else torch.tensor(rot),
+        min_range=None if min_range is None else torch.tensor(min_range))
     return ja, ta
 
 
@@ -102,6 +111,67 @@ class TestBinSurfels:
         assert int(ta.truncated.sum()) > 0
 
 
+class TestMinRange:
+    @pytest.mark.parametrize("binner,extra", [
+        ("topk", {}), ("hier", {}), ("hier", {"coarse_factor": 2})])
+    def test_matches_reference(self, binner, extra):
+        """Per-tile strict range floors (some +inf, some -inf), exactly."""
+        s = _scene(N, seed=21)
+        tiles = 2 * (W // 128)
+        rng = np.random.default_rng(21)
+        min_range = f32(rng.uniform(4.0, 30.0, tiles))
+        min_range[0], min_range[-1] = np.inf, -np.inf
+        ja, ta = _both(s, _pose(21), True, min_range=min_range,
+                       binner=binner, tile_h=8, tile_w=128, max_per_tile=16,
+                       **extra)
+        _assert_same(ja, ta)
+        assert ta.valid.any() and not ta.valid[0].any()
+        rng_c = t_bin.sensor_points(
+            torch.linalg.inv(torch.tensor(_pose(21))),
+            torch.tensor(s["means"]))[3][ta.index.clamp_max(N - 1)]
+        assert bool((rng_c > torch.tensor(min_range)[:, None])[ta.valid]
+                    .all())
+
+    @pytest.mark.parametrize("binner", ["topk", "hier"])
+    def test_tail_chain_matches_reference(self, binner):
+        """`bin_tail_chain`: three disjoint passes, each past the previous
+        pass's K-th candidate per truncated tile.  Each pass equals the
+        reference's binner at the same range floors exactly, and the
+        floors equal the reference's `_tile_range_cutoff` to one ulp: the
+        reference takes the cutoff's range through a matmul, which can
+        round one ulp below its binner's range and list the K-th
+        candidate again in the next pass; the port takes the binner's
+        own range, so its passes stay disjoint."""
+        s = _scene(N, seed=22)
+        sh = np.zeros((N, 16, 3), np.float32)
+        pose = _pose(22)
+        w2s = np.asarray(j_tf.invert_se3(pose))
+        jg, tg = _grids()
+        kw = dict(binner=binner, tile_h=8, tile_w=128, max_per_tile=16)
+        t_chain = t_tracer.bin_tail_chain(
+            TBundle(**{k: torch.tensor(v) for k, v in s.items()},
+                    sh=torch.tensor(sh)),
+            tg, W, torch.tensor(w2s), t_bin.TileConfig(**kw), 2)
+        assert len(t_chain) == 3
+        floor = None
+        for ta in t_chain:
+            ja = j_bin.bin_surfels(jg, W, w2s, s["means"], s["scales"],
+                                   s["opacities"], j_bin.TileConfig(**kw),
+                                   rotations=s["rotations"],
+                                   min_range=floor)
+            _assert_same(ja, ta)
+            cut = t_tracer._tile_range_cutoff(ta, torch.tensor(s["means"]),
+                                              torch.tensor(w2s)).numpy()
+            np.testing.assert_allclose(
+                cut, np.asarray(j_tracer._tile_range_cutoff(
+                    ja, s["means"], w2s)), rtol=1e-6)
+            floor = cut if floor is None else np.maximum(cut, floor)
+        assert t_chain[2].valid.any()
+        for t in range(t_chain[0].index.shape[0]):
+            seen = [set(a.index[t][a.valid[t]].tolist()) for a in t_chain]
+            assert not (seen[0] & seen[1]) and not (seen[1] & seen[2])
+
+
 class TestFootprint:
     @pytest.mark.parametrize("oriented", [True, False])
     def test_bounds_match(self, oriented):
@@ -110,7 +180,7 @@ class TestFootprint:
         w2s = np.asarray(j_tf.invert_se3(pose))
         cfg = dict(pad_px=1.0, snap_pad_px=0.5)
         jg = j_rays.SensorGrid.from_bounds(H, (-0.42, 0.08))
-        tg = t_rays.SensorGrid.from_bounds(H, (-0.42, 0.08))
+        tg = t_rays.SensorGrid.from_bounds(H, (-0.42, 0.08), device="cpu")
         rot = s["rotations"] if oriented else None
         jb = j_bin.footprint_bounds(jg, W, w2s, s["means"], s["scales"],
                                     s["opacities"], j_bin.TileConfig(**cfg),

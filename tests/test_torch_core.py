@@ -88,10 +88,11 @@ class TestRays:
 
     def _grids(self, kind, args):
         if kind == "bounds":
-            return (t_rays.SensorGrid.from_bounds(*args),
+            return (t_rays.SensorGrid.from_bounds(*args, device="cpu"),
                     j_rays.SensorGrid.from_bounds(*args))
         beams, off, ang = args
-        return (t_rays.SensorGrid.from_beams(f32(beams), off, ang),
+        return (t_rays.SensorGrid.from_beams(f32(beams), off, ang,
+                                             device="cpu"),
                 j_rays.SensorGrid.from_beams(f32(beams), off, ang))
 
     @pytest.mark.parametrize("kind,args", GRIDS)

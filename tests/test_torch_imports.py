@@ -19,8 +19,10 @@ def _python(code: str, cwd: Path = ROOT, **env) -> subprocess.CompletedProcess:
 
 
 def test_port_imports_no_jax():
-    """No jax anywhere in the port, and no yaml on the training path (the
-    card's machine has neither)."""
+    """No jax anywhere in the port, no module of the reference package
+    `lidar_rt_tpu` (not even one free of jax: the port keeps its own
+    copies), and no yaml on the training path (the card's machine has
+    neither jax nor yaml)."""
     proc = _python(
         "import sys\n"
         "import chip_smoke\n"
@@ -32,9 +34,12 @@ def test_port_imports_no_jax():
         "import lidar_rt_tpu_torch.train.loop\n"
         "import lidar_rt_tpu_torch.train.options\n"
         "import lidar_rt_tpu_torch.data.frames\n"
+        "from lidar_rt_tpu_torch.ops.tracer import (bin_tail_chain,\n"
+        "                                           render_multi_return)\n"
+        "from lidar_rt_tpu_torch.ops.kernels import check_exact_k\n"
         "bad = sorted(m for m in sys.modules\n"
-        "             if m in ('jax', 'yaml', 'lidar_rt_tpu.config')\n"
-        "             or m.startswith(('jax.', 'jaxlib')))\n"
+        "             if m in ('jax', 'yaml', 'lidar_rt_tpu')\n"
+        "             or m.startswith(('jax.', 'jaxlib', 'lidar_rt_tpu.')))\n"
         "assert not bad, bad\n"
         "print('clean')\n")
     assert proc.returncode == 0, proc.stderr

@@ -1,5 +1,6 @@
 """The hand-written CUDA kernels: their build key and input checks (here),
-and each kernel against its plain twin (on a card).
+and each kernel in each mode (tile order, exact per-ray depth order)
+against its plain twin (on a card).
 
 This file imports torch and the port only, so the card tests run where
 jax is not installed:
@@ -84,6 +85,26 @@ def test_library_is_keyed_by_source(tmp_path, monkeypatch):
     assert kernels.library_path("tracer_backward") != paths["tracer_backward"]
 
 
+def test_exact_kernels_refuse_unsupported_k():
+    """The exact kernels take 1 <= K <= EXACT_MAX_K; a wider tile is
+    refused before any launch, on any device (nothing falls back)."""
+    big = 2 * kernels.EXACT_MAX_K
+    inputs = _case(big, 0, "cpu")
+    kernels.reset_launches()
+    with pytest.raises(ValueError, match="exact"):
+        kernels.tracer_forward(*inputs, exact=True)
+    chans, _ = cuda_tracer.forward_tiles_reference(*inputs)
+    with pytest.raises(ValueError, match="exact"):
+        kernels.tracer_backward(*inputs, chans, chans, exact=True)
+    with pytest.raises(ValueError, match="exact"):
+        t_tracer.TraceConfig(tile=TileConfig(max_per_tile=big),
+                             exact_order=True)
+    assert kernels.forward_exact_launches == 0
+    assert kernels.backward_exact_launches == 0
+    kernels.check_exact_k(128)
+    kernels.check_exact_k(kernels.EXACT_MAX_K)
+
+
 def test_kernel_wrapper_refuses_cpu_tensors():
     inputs = _case(128, 0, "cpu")
     before = kernels.forward_launches
@@ -137,28 +158,47 @@ def _assert_bars(chans, accum, ref_chans, ref_accum):
     torch.testing.assert_close(accum, ref_accum, rtol=1e-4, atol=1e-3)
 
 
+def _launches(exact):
+    return ((kernels.forward_exact_launches, kernels.backward_exact_launches)
+            if exact else (kernels.forward_launches,
+                           kernels.backward_launches))
+
+
+# Ragged: 192 rays per tile, K not a chunk multiple.
+FWD_CASES = [pytest.param(*c, id="-".join(map(str, c[:3]))
+                          + ("-exact" if c[3] else ""))
+             for c in [(128, 8, 128, False), (256, 8, 128, False),
+                       (200, 4, 48, False), (128, 8, 128, True),
+                       (256, 8, 128, True), (200, 4, 48, True)]]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("k,tile_h,tile_w", [
-    (128, 8, 128), (256, 8, 128),
-    (200, 4, 48)])     # ragged: 192 rays per tile, K not a chunk multiple
-def test_kernel_matches_twin_on_card(cuda_device, k, tile_h, tile_w):
+@pytest.mark.parametrize("k,tile_h,tile_w,exact", FWD_CASES)
+def test_kernel_matches_twin_on_card(cuda_device, k, tile_h, tile_w, exact):
     inputs = _case(k, k, cuda_device, tile_h, tile_w)
-    before = kernels.forward_launches
+    before = _launches(exact)[0]
     with torch.no_grad():
-        chans, accum = cuda_tracer.forward_tiles(inputs)
+        chans, accum = cuda_tracer.forward_tiles(inputs, exact)
         torch.cuda.synchronize()
-        assert kernels.forward_launches == before + 1
-        _assert_bars(chans, accum,
-                     *cuda_tracer.forward_tiles_reference(*inputs))
+        assert _launches(exact)[0] == before + 1
+        _assert_bars(chans, accum, *cuda_tracer.forward_tiles_reference(
+            *inputs, exact=exact))
     assert float(chans[:, 4].max()) > 0.5
 
 
+BWD_CASES = [pytest.param(*c, id="-".join(map(str, c[:4]))
+                          + ("-exact" if c[4] else ""))
+             for c in [(128, 8, 128, 1.0, False), (256, 8, 128, 1.0, False),
+                       (200, 4, 48, 1.0, False), (128, 8, 128, 0.05, False),
+                       (256, 8, 128, 0.05, False), (200, 4, 48, 0.05, False),
+                       (128, 8, 128, 1.0, True), (256, 8, 128, 1.0, True),
+                       (128, 8, 128, 0.05, True), (256, 8, 128, 0.05, True)]]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("k,tile_h,tile_w,fac", [
-    (128, 8, 128, 1.0), (256, 8, 128, 1.0), (200, 4, 48, 1.0),
-    (128, 8, 128, 0.05), (256, 8, 128, 0.05), (200, 4, 48, 0.05)])
+@pytest.mark.parametrize("k,tile_h,tile_w,fac,exact", BWD_CASES)
 def test_backward_kernel_matches_twin_on_card(cuda_device, k, tile_h,
-                                              tile_w, fac):
+                                              tile_w, fac, exact):
     """Ragged shapes, an empty first tile and a 5-candidate second one.
     At 1/20 of the opacity no ray reaches T_MIN, so the kernel's raw T is
     the twin's full product and row 9 gets an upstream gradient too."""
@@ -166,16 +206,18 @@ def test_backward_kernel_matches_twin_on_card(cuda_device, k, tile_h,
     inputs = inputs._replace(opac=inputs.opac * fac)
     raw_t = fac < 1.0
     with torch.no_grad():
-        chans, _ = kernels.tracer_forward(*inputs)
+        chans, _ = kernels.tracer_forward(*inputs, exact=exact)
         if raw_t:
-            ref_chans, _ = cuda_tracer.forward_tiles_reference(*inputs)
+            ref_chans, _ = cuda_tracer.forward_tiles_reference(*inputs,
+                                                               exact=exact)
             assert float(ref_chans[:, 9].min()) >= geometry.T_MIN
         g = _upstream(chans, k, raw_t)
-        before = kernels.backward_launches
-        got = kernels.tracer_backward(*inputs, chans, g)
+        before = _launches(exact)[1]
+        got = kernels.tracer_backward(*inputs, chans, g, exact=exact)
         torch.cuda.synchronize()
-        assert kernels.backward_launches == before + 1
-        ref = cuda_tracer.backward_tiles_reference(*inputs, chans, g)
+        assert _launches(exact)[1] == before + 1
+        ref = cuda_tracer.backward_tiles_reference(*inputs, chans, g,
+                                                   exact=exact)
     _assert_grad_bars(got, ref)
     for x in got:
         assert bool(x[0].eq(0).all())          # the empty tile
@@ -215,14 +257,26 @@ def test_kernel_rejects_wrong_inputs_on_card(cuda_device):
 
 
 @pytest.mark.cuda
-def test_render_on_card_matches_torch_engine(cuda_device):
+@pytest.mark.parametrize("exact,tail", [
+    pytest.param(False, 0, id="tile"), pytest.param(True, 0, id="exact"),
+    pytest.param(False, 1, id="tail"), pytest.param(True, 1, id="tail-exact")])
+def test_render_on_card_matches_torch_engine(cuda_device, exact, tail):
+    """A render through the kernels against the plain torch engine in the
+    same mode.  900 surfels truncate K = 128, so the tail renders take two
+    launches; where a ray stops, both carry raw T below T_MIN and the
+    second pass composites nothing for it."""
     grid = t_rays.SensorGrid.from_bounds(16, (-0.3, 0.1), device=cuda_device)
     pose = torch.eye(4, device=cuda_device)
-    bundle = _bundle(300, 9, cuda_device)
+    bundle = _bundle(900 if tail else 300, 9, cuda_device)
     background = torch.tensor([0.0, 0.0, 1.0], device=cuda_device)
     tile = TileConfig(tile_h=8, tile_w=128, max_per_tile=128, binner="hier")
+    kernels.reset_launches()
     outs = [t_tracer.trace(bundle, grid, 256, pose, background, 3,
-                           t_tracer.TraceConfig(tile=tile, engine=engine))
+                           t_tracer.TraceConfig(tile=tile, engine=engine,
+                                                exact_order=exact,
+                                                tail_passes=tail))
             for engine in ("cuda", "torch")]
+    assert _launches(exact)[0] == tail + 1
+    assert _launches(not exact)[0] == 0
     _assert_bars(outs[0].channels, outs[0].accum_weights,
                  outs[1].channels, outs[1].accum_weights)

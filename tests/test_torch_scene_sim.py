@@ -72,7 +72,7 @@ def j_scene():
 
 @pytest.fixture(scope="module")
 def t_scene(j_scene):
-    return convert.scene_from_numpy(scene_arrays(j_scene))
+    return convert.scene_from_numpy(scene_arrays(j_scene), device="cpu")
 
 
 def _close(t_out, j_out, atol=ATOL):
@@ -139,14 +139,14 @@ class TestScene:
         arrays = scene_arrays(j_scene)
         static = {k: v for k, v in arrays.items()
                   if k.startswith("background.")}
-        sc = convert.scene_from_numpy(static)
+        sc = convert.scene_from_numpy(static, device="cpu")
         assert sc.actors is None and sc.num_frames == 1
         del static["background.extent"], static["background.max_sh_degree"]
-        bg = convert.scene_from_numpy(static).background
+        bg = convert.scene_from_numpy(static, device="cpu").background
         assert (bg.extent, bg.max_sh_degree) == (200.0, 3)
         del arrays["tracks.quats"]
         with pytest.raises(KeyError, match="tracks.quats"):
-            convert.scene_from_numpy(arrays)
+            convert.scene_from_numpy(arrays, device="cpu")
         with pytest.raises(ValueError, match="decomp"):
             t_compose(sc, 0, "actors")
 
@@ -155,7 +155,7 @@ class TestSim:
     @pytest.mark.parametrize("engine", ["cuda", "torch"])
     def test_render_scan(self, j_scene, t_scene, engine):
         jg = j_rays.SensorGrid.from_bounds(H, (-0.42, 0.08))
-        tg = t_rays.SensorGrid.from_bounds(H, (-0.42, 0.08))
+        tg = t_rays.SensorGrid.from_bounds(H, (-0.42, 0.08), device="cpu")
         ref = j_sim.render_scan(j_scene, jg, W, _pose(), 1, J_CFG)
         kernels.forward_launches = 0
         out = t_sim.render_scan(
@@ -167,6 +167,30 @@ class TestSim:
                     "channels"):
             _close(out[key], ref[key])
 
+    @pytest.mark.parametrize("mode", [{"exact_order": True},
+                                      {"tail_passes": 1}],
+                             ids=["exact", "tail"])
+    def test_render_scan_modes(self, j_scene, t_scene, mode):
+        """Exact order and tail passes reach the tracer through
+        `render_scan` on both engines, as through the reference's.  (Both
+        together are held at the trace level, on a scene without the
+        range ties to rounding that this assembled scene holds.)"""
+        jg = j_rays.SensorGrid.from_bounds(H, (-0.42, 0.08))
+        tg = t_rays.SensorGrid.from_bounds(H, (-0.42, 0.08), device="cpu")
+        ref = j_sim.render_scan(j_scene, jg, W, _pose(), 1,
+                                dataclasses.replace(J_CFG, **mode))
+        plain = j_sim.render_scan(j_scene, jg, W, _pose(), 1, J_CFG)
+        assert np.abs(np.asarray(ref["channels"])
+                      - np.asarray(plain["channels"])).max() > 1e-2
+        for engine in ("cuda", "torch"):
+            out = t_sim.render_scan(
+                t_scene, tg, W, torch.tensor(_pose()), 1,
+                t_tracer.TraceConfig(tile=TTileConfig(**TILE), engine=engine,
+                                     **mode))
+            for key in ("depth", "intensity", "raydrop", "accum_weights",
+                        "channels"):
+                _close(out[key], ref[key])
+
     def test_resimulate(self, j_scene, t_scene):
         """Each scan against the reference's eager `render_scan` at the
         same pose and frame.  (The reference's jitted `resimulate` is not
@@ -174,7 +198,7 @@ class TestSim:
         to 0.13 in intensity at one pixel, where the port agrees with the
         eager render to 1e-5.)"""
         jg = j_rays.SensorGrid.from_bounds(H, (-0.42, 0.08))
-        tg = t_rays.SensorGrid.from_bounds(H, (-0.42, 0.08))
+        tg = t_rays.SensorGrid.from_bounds(H, (-0.42, 0.08), device="cpu")
         poses = np.stack([_pose(x) for x in (0.0, 1.5, 3.0, 4.5)])
         out = t_sim.resimulate(
             t_scene, tg, W, torch.tensor(poses),
@@ -189,7 +213,7 @@ class TestSim:
             _close(out["range_image"][f], np.asarray(ref["depth"]) * hit)
 
     def test_rollout_drives_the_renderer(self, t_scene):
-        tg = t_rays.SensorGrid.from_bounds(H, (-0.42, 0.08))
+        tg = t_rays.SensorGrid.from_bounds(H, (-0.42, 0.08), device="cpu")
         cfg = t_tracer.TraceConfig(tile=TTileConfig(**TILE))
 
         def controller(scan, pose, step):

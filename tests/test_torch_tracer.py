@@ -1,5 +1,7 @@
-"""Port tracer held to `lidar_rt_tpu`'s tile-order tracer on the same numpy
-inputs, at the kernel boundary and for whole renders, forward and backward.
+"""Port tracer held to `lidar_rt_tpu`'s tracer on the same numpy inputs, at
+the kernel boundary and for whole renders, forward and backward, in tile
+order and exact (per-ray depth) order, with per-ray min depth and initial
+transmittance, tail passes and dual returns.
 
 The reference for tiled rendering is the jax engine (engine="jax", exact
 top-k).  Bars are the Pallas kernels' CPU parity bars: 2e-4 absolute on
@@ -65,11 +67,11 @@ def _close(t_out, j_out, atol=ATOL):
                                atol=atol, rtol=0)
 
 
-def _tile_case(k, seed, degree=3):
+def _tile_case(k, seed, degree=3, exact=False):
     """Two tiles of 8x128 rays x K candidates with a partly filled last
     tile, random per-ray min depth and initial transmittance, one
     degenerate-plane candidate, as (port TileInputs, per-tile reference
-    arguments)."""
+    arguments in tile or exact order)."""
     rng = np.random.default_rng(seed)
     n, r, t = 2 * k, 1024, 2
     s = _surfels(n, seed)
@@ -103,15 +105,24 @@ def _tile_case(k, seed, degree=3):
         ref_args.append((
             dirs[i], j_geo.SurfelFrames(*(f[idx] for f in frames)),
             s["scales"][idx], s["opacities"][idx], s["sh"][idx], valid[i],
-            f32([0.0, 0.0, 0.0]), degree, False, mind[i], t0[i]))
+            f32([0.0, 0.0, 0.0]), degree, exact, mind[i], t0[i]))
     return inputs, ref_args
 
 
 class TestForwardTilesReference:
-    @pytest.mark.parametrize("k,degree", [(128, 3), (256, 3), (128, 1)])
-    def test_matches_reference_composite(self, k, degree):
-        inputs, ref_args = _tile_case(k, seed=k + degree, degree=degree)
-        chans, accum = cuda_tracer.forward_tiles_reference(*inputs)
+    @pytest.mark.parametrize("k,degree,exact", [
+        pytest.param(128, 3, False, id="128-3"),
+        pytest.param(256, 3, False, id="256-3"),
+        pytest.param(128, 1, False, id="128-1"),
+        pytest.param(128, 3, True, id="128-3-exact"),
+        pytest.param(256, 3, True, id="256-3-exact")])
+    def test_matches_reference_composite(self, k, degree, exact):
+        """The forward twin against the reference's `_composite_tile` in
+        the same order (exact: its stable argsort by depth), 2e-4."""
+        inputs, ref_args = _tile_case(k, seed=k + degree, degree=degree,
+                                      exact=exact)
+        chans, accum = cuda_tracer.forward_tiles_reference(*inputs,
+                                                           exact=exact)
         assert chans.shape == (2, 16, 1024) and accum.shape == (2, k)
         np.testing.assert_array_equal(chans[:, 10:].numpy(), 0.0)
         for i, args in enumerate(ref_args):
@@ -181,17 +192,21 @@ def _grad_close(got, want, name, atol=3e-3):
                                err_msg=name)
 
 
-# (K, seed, opacity factor, upstream on raw T): no ray reaches T_MIN where
-# row 9 gets a gradient (the twin's raw T is the full product, the
-# kernel's stops); the opaque case stops ~30 rays and clamps alphas.
-GRAD_CASES = [(128, 31, 1.0, True), (256, 32, 1.0, True),
-              (256, 256, 3.0, False)]
+# (K, seed, opacity factor, upstream on raw T, exact order): no ray reaches
+# T_MIN where row 9 gets a gradient (the twin's raw T is the full product,
+# the kernel's stops); the opaque case stops ~30 rays and clamps alphas.
+GRAD_CASES = [
+    pytest.param(*case, id="-".join(map(str, case[:4]))
+                 + ("-exact" if case[4] else ""))
+    for case in [(128, 31, 1.0, True, False), (256, 32, 1.0, True, False),
+                 (256, 256, 3.0, False, False), (128, 31, 1.0, True, True),
+                 (256, 256, 3.0, False, True)]]
 
 
-def _grad_case(k, seed, fac):
+def _grad_case(k, seed, fac, exact=False):
     """`_tile_case` with opacities scaled by fac (clamped below 1) in both
     packages' inputs."""
-    inputs, ref_args = _tile_case(k, seed)
+    inputs, ref_args = _tile_case(k, seed, exact=exact)
     inputs = inputs._replace(opac=(inputs.opac * fac).clamp_max(0.999))
     ref_args = [(a[:3] + (np.minimum(a[3] * fac, 0.999).astype(np.float32),)
                  + a[4:]) for a in ref_args]
@@ -199,13 +214,15 @@ def _grad_case(k, seed, fac):
 
 
 class TestBackwardTilesReference:
-    @pytest.mark.parametrize("k,seed,fac,raw_t", GRAD_CASES)
-    def test_matches_jax_grad_of_composite(self, k, seed, fac, raw_t):
+    @pytest.mark.parametrize("k,seed,fac,raw_t,exact", GRAD_CASES)
+    def test_matches_jax_grad_of_composite(self, k, seed, fac, raw_t, exact):
         """The twin's gradients against jax.grad through the reference's
-        `_composite_tile` of a loss over all 10 channel rows."""
-        inputs, ref_args = _grad_case(k, seed, fac)
+        `_composite_tile` (in the same order) of a loss over all 10
+        channel rows."""
+        inputs, ref_args = _grad_case(k, seed, fac, exact)
         diff = _requiring_grad(inputs)
-        chans, _ = cuda_tracer.forward_tiles(cuda_tracer.TileInputs(*diff))
+        chans, _ = cuda_tracer.forward_tiles(cuda_tracer.TileInputs(*diff),
+                                             exact)
         g = _upstream(chans, seed, raw_t)
         (chans * g).sum().backward()
         d_axes, d_plane, d_inv_s, d_opac, d_sh = _grads_of(diff)
@@ -234,27 +251,28 @@ class TestBackwardTilesReference:
             _grad_close(diff[3].grad[i], jt0, "t0")
             assert float(np.abs(np.asarray(jo)).max()) > 0.0
 
-    @pytest.mark.parametrize("k,seed,fac,raw_t", GRAD_CASES)
-    def test_equals_autograd_of_forward_twin(self, k, seed, fac, raw_t):
+    @pytest.mark.parametrize("k,seed,fac,raw_t,exact", GRAD_CASES)
+    def test_equals_autograd_of_forward_twin(self, k, seed, fac, raw_t,
+                                             exact):
         """The closed-form VJP equals torch autograd through
-        `forward_tiles_reference` (1e-5 relative to each field's largest
-        magnitude)."""
-        inputs, _ = _grad_case(k, seed, fac)
+        `forward_tiles_reference` in the same order (1e-5 relative to each
+        field's largest magnitude)."""
+        inputs, _ = _grad_case(k, seed, fac, exact)
         diff = _requiring_grad(inputs)
-        chans, _ = cuda_tracer.forward_tiles_reference(*diff)
+        chans, _ = cuda_tracer.forward_tiles_reference(*diff, exact=exact)
         g = _upstream(chans, seed, raw_t)
         (chans * g).sum().backward()
         got = cuda_tracer.backward_tiles_reference(*inputs, chans.detach(),
-                                                   g)
+                                                   g, exact=exact)
         for name, a, b in zip(GRAD_FIELDS, got, _grads_of(diff)):
             _grad_close(a, b, name, atol=1e-5)
 
 
-def _configs(k, binner="hier", exact=False):
+def _configs(k, binner="hier", exact=False, tail=0):
     j_cfg = j_tracer.TraceConfig(
         tile=j_bin.TileConfig(tile_h=8, tile_w=128, max_per_tile=k,
                               binner=binner),
-        exact_order=exact, tile_batch=2, engine="jax")
+        exact_order=exact, tile_batch=2, engine="jax", tail_passes=tail)
     tile = t_bin.TileConfig(tile_h=8, tile_w=128, max_per_tile=k,
                             binner=binner)
     return j_cfg, tile
@@ -262,7 +280,7 @@ def _configs(k, binner="hier", exact=False):
 
 def _grids():
     return (j_rays.SensorGrid.from_bounds(H, (-0.3, 0.1)),
-            t_rays.SensorGrid.from_bounds(H, (-0.3, 0.1)))
+            t_rays.SensorGrid.from_bounds(H, (-0.3, 0.1), device="cpu"))
 
 
 POSE = np.eye(4, dtype=np.float32)
@@ -292,29 +310,114 @@ class TestTrace:
         assert kernels.forward_launches == 0
 
     def test_torch_engine_exact_order(self):
+        """Exact order on both engines against the jax engine's; on CPU
+        tensors the kernel path runs the exact twins, no kernel."""
         s = _surfels(300, seed=11)
         jg, tg = _grids()
         j_cfg, tile = _configs(128, exact=True)
         ref = j_tracer.trace(_jb(s), jg, W, POSE, BG, 3, j_cfg)
-        cfg = t_tracer.TraceConfig(tile=tile, exact_order=True,
-                                   engine="torch")
-        out = t_tracer.trace(_tb(s), tg, W, torch.tensor(POSE),
-                             torch.tensor(BG), 3, cfg)
-        _close(out.channels, ref.channels)
-        _close(out.accum_weights, ref.accum_weights)
-        with pytest.raises(NotImplementedError, match="exact_order"):
-            t_tracer.trace(_tb(s), tg, W, torch.tensor(POSE),
-                           torch.tensor(BG), 3,
-                           t_tracer.TraceConfig(tile=tile, exact_order=True))
+        kernels.reset_launches()
+        for engine in ("cuda", "torch"):
+            cfg = t_tracer.TraceConfig(tile=tile, exact_order=True,
+                                       engine=engine)
+            out = t_tracer.trace(_tb(s), tg, W, torch.tensor(POSE),
+                                 torch.tensor(BG), 3, cfg)
+            _close(out.channels, ref.channels)
+            _close(out.accum_weights, ref.accum_weights)
+            _close(out.raw_trans, ref.raw_trans)
+        assert kernels.forward_exact_launches == 0
+        tile_order = j_tracer.trace(_jb(s), jg, W, POSE, BG, 3,
+                                    _configs(128)[0])
+        assert np.abs(np.asarray(tile_order.channels)
+                      - np.asarray(ref.channels)).max() > 1e-2
 
-    @pytest.mark.parametrize("k,binner", [(128, "hier"), (256, "topk")])
-    def test_render_frame_gradients_match_jax(self, k, binner):
+    @pytest.mark.parametrize("mode", ["min_depth", "init_trans", "tail",
+                                      "tail-exact"])
+    def test_modes_match_jax_engine(self, mode):
+        """min_depth, init_trans and one tail pass (the last in exact order,
+        with both per-ray images) on a case whose K = 128 budget
+        truncates, both engines against jax `trace`."""
+        s = _surfels(900, seed=13)
+        jg, tg = _grids()
+        exact = mode == "tail-exact"
+        tail = int(mode.startswith("tail"))
+        j_cfg, tile = _configs(128, exact=exact, tail=tail)
+        rng = np.random.default_rng(13)
+        md = f32(rng.uniform(0.2, 12.0, (H, W)))
+        t0 = f32(rng.uniform(0.3, 1.0, (H, W)))
+        kw = {"min_depth": md if mode != "init_trans" else None,
+              "init_trans": t0 if mode != "min_depth" else None}
+        if mode == "tail":
+            kw = {}
+        ref = j_tracer.trace(_jb(s), jg, W, POSE, BG, 3, j_cfg,
+                             **{k: None if v is None else jnp.asarray(v)
+                                for k, v in kw.items()})
+        truncated = cuda_tracer.bin_bundle(_tb(s), tg, W, torch.tensor(POSE),
+                                           tile).truncated
+        assert int((truncated > 0).sum()) > 0
+        for engine in ("cuda", "torch"):
+            cfg = t_tracer.TraceConfig(tile=tile, exact_order=exact,
+                                       engine=engine, tail_passes=tail)
+            out = t_tracer.trace(
+                _tb(s), tg, W, torch.tensor(POSE), torch.tensor(BG), 3, cfg,
+                **{k: None if v is None else torch.tensor(v)
+                   for k, v in kw.items()})
+            _close(out.channels, ref.channels)
+            _close(out.accum_weights, ref.accum_weights)
+            _close(out.raw_trans, ref.raw_trans)
+
+    def test_tail_chain_and_refusals(self):
+        """A tail render takes a precomputed chain (`bin_tail_chain`) and
+        gives what it bins itself; a single assignment or a chain of the
+        wrong length is refused."""
+        s = _surfels(900, seed=14)
+        _, tg = _grids()
+        _, tile = _configs(128)
+        cfg = t_tracer.TraceConfig(tile=tile, tail_passes=1)
+        args = (_tb(s), tg, W, torch.tensor(POSE), torch.tensor(BG), 3, cfg)
+        chain = t_tracer.bin_tail_chain(
+            _tb(s), tg, W, torch.linalg.inv(torch.tensor(POSE)), tile, 1)
+        assert len(chain) == 2 and bool(chain[1].valid.any())
+        got = t_tracer.trace(*args, assignment=chain)
+        want = t_tracer.trace(*args)
+        torch.testing.assert_close(got.channels, want.channels, rtol=0,
+                                   atol=0)
+        with pytest.raises(ValueError, match="sequence"):
+            t_tracer.trace(*args, assignment=chain[0])
+        with pytest.raises(ValueError, match="chain"):
+            t_tracer.trace(*args, assignment=chain[:1])
+
+    @pytest.mark.parametrize("engine", ["cuda", "torch"])
+    def test_render_multi_return_matches_jax(self, engine):
+        s = _surfels(900, seed=15)
+        jg, tg = _grids()
+        j_cfg, tile = _configs(128)
+        refs = j_tracer.render_multi_return(_jb(s), jg, W, POSE, 3, j_cfg)
+        outs = t_tracer.render_multi_return(
+            _tb(s), tg, W, torch.tensor(POSE), 3,
+            t_tracer.TraceConfig(tile=tile, engine=engine))
+        for out, ref in zip(outs, refs):
+            for key in ("depth", "intensity", "raydrop", "accum_weights",
+                        "channels"):
+                _close(out[key], ref[key])
+        # Some rays return twice.
+        assert float(outs[1]["channels"][..., 4].max()) > 0.5
+
+    @pytest.mark.parametrize("k,binner,exact,tail", [
+        pytest.param(128, "hier", False, 0, id="128-hier"),
+        pytest.param(256, "topk", False, 0, id="256-topk"),
+        pytest.param(128, "hier", True, 0, id="128-hier-exact"),
+        pytest.param(128, "hier", False, 1, id="128-hier-tail"),
+        pytest.param(128, "hier", True, 1, id="128-hier-tail-exact")])
+    def test_render_frame_gradients_match_jax(self, k, binner, exact, tail):
         """Gradients w.r.t. every SurfelBundle field through render_frame's
         depth, intensity and ray-drop heads: the kernel path (twins) and
-        the torch engine against jax.grad of the jax engine."""
-        s = _surfels(300, seed=40 + k)
+        the torch engine against jax.grad of the jax engine.  The tail
+        cases truncate (900 surfels, K = 128), so the gradient also runs
+        through the second pass and the carried raw transmittance."""
+        s = _surfels(900 if tail else 300, seed=40 + k)
         jg, tg = _grids()
-        j_cfg, tile = _configs(k, binner)
+        j_cfg, tile = _configs(k, binner, exact, tail)
         rng = np.random.default_rng(k)
         wts = {key: f32(rng.normal(size=(H, W)))
                for key in ("depth", "intensity", "raydrop")}
@@ -329,7 +432,8 @@ class TestTrace:
                            for key, v in s.items()})
             out = t_tracer.render_frame(
                 b, tg, W, torch.tensor(POSE), 3,
-                t_tracer.TraceConfig(tile=tile, tile_batch=3, engine=engine))
+                t_tracer.TraceConfig(tile=tile, tile_batch=3, engine=engine,
+                                     exact_order=exact, tail_passes=tail))
             sum((out[key] * torch.tensor(w)).sum()
                 for key, w in wts.items()).backward()
             for name in s:
@@ -352,6 +456,13 @@ class TestTrace:
     def test_unknown_engine_rejected(self):
         with pytest.raises(ValueError, match="engine"):
             t_tracer.TraceConfig(engine="pallas")
+        with pytest.raises(ValueError, match="tail_passes"):
+            t_tracer.TraceConfig(tail_passes=-1)
+        # The exact kernels take K <= 256; nothing falls back.
+        big = t_bin.TileConfig(max_per_tile=512)
+        with pytest.raises(ValueError, match="exact"):
+            t_tracer.TraceConfig(tile=big, exact_order=True)
+        t_tracer.TraceConfig(tile=big, exact_order=True, engine="torch")
 
 
 @pytest.mark.slow

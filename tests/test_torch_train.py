@@ -450,8 +450,9 @@ def _port_inputs(j_scene, frames):
                              frames.grid.angle_offset)
     t_frames = LiDARFrames.from_numpy(
         grid, frames.sensor2world, frames.range1, frames.intensity1,
-        train_frames=frames.train_frames, eval_frames=frames.eval_frames)
-    return convert.scene_from_numpy(arrays), t_frames
+        device="cpu", train_frames=frames.train_frames,
+        eval_frames=frames.eval_frames)
+    return convert.scene_from_numpy(arrays, device="cpu"), t_frames
 
 
 @pytest.fixture(scope="module")
@@ -500,8 +501,8 @@ def one_step(synthetic_scene):
     j_state, j_metrics = jt.step_fn(jt.state, j_loop.frame_batch(frames, f))
     tt = make_t()
     bins = tt.state.bins
-    bins.index[f] = _t(j_state.bins.index[f, 0])
-    bins.valid[f] = _t(j_state.bins.valid[f, 0])
+    bins.index[f] = _t(j_state.bins.index[f])   # (P, T, K), P = 1
+    bins.valid[f] = _t(j_state.bins.valid[f])
     bins.age[f] = 0                         # fresh: no rebin
     before = {k: v.detach().clone()
               for k, v in tt.state.scene.background.params().items()}
@@ -564,8 +565,8 @@ class TestTrainStep:
             assert not bool(bins.valid[0].any())
         j_index = np.asarray(j_state.bins.index[1, 0])
         j_valid = np.asarray(j_state.bins.valid[1, 0])
-        index = own_state.bins.index[1].numpy()
-        valid = own_state.bins.valid[1].numpy()
+        index = own_state.bins.index[1, 0].numpy()
+        valid = own_state.bins.valid[1, 0].numpy()
         np.testing.assert_array_equal(valid, j_valid)
         assert valid.any()
         for t in range(index.shape[0]):
