@@ -4,7 +4,9 @@
 
 On one CUDA card it:
   1. builds the CUDA forward and backward tracer kernels from
-     `lidar_rt_tpu_torch/csrc` (one nvcc each, started together);
+     `lidar_rt_tpu_torch/csrc` (one nvcc each, started together), prints
+     each device kernel's ptxas registers and spills and its occupancy
+     (resident blocks per SM) at the flagship K;
   2. builds a scene with numpy from --seed: the street soup of `bench.py`
      (131,072 background surfels) plus one 4,096-surfel actor on a 4-frame
      track, loaded with `scene_from_numpy`;
@@ -51,6 +53,7 @@ import argparse
 import collections
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import time
@@ -163,6 +166,26 @@ def scene_arrays(seed: int) -> dict[str, np.ndarray]:
         "tracks.present": np.ones((1, N_FRAMES), bool),
     })
     return arrays
+
+
+def ptxas_report(log: str) -> list[tuple[str, str]]:
+    """[(device kernel, "N registers, S bytes spill stores, L bytes spill
+    loads")] from an `nvcc -Xptxas -v` log; a kernel template's bool
+    argument is named <false>/<true>."""
+    out, kernel, spills = [], None, ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(r"(tracer_[a-z_]+_kernel)(?:ILb([01])E)?", line)
+            kernel = (m.group(1) + {None: "", "0": "<false>",
+                                    "1": "<true>"}[m.group(2)]
+                      if m else line.split("'")[1])
+        elif "spill stores" in line:
+            spills = ", ".join(x.strip() for x in line.split(",")[1:])
+        elif "registers" in line and kernel is not None:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            out.append((kernel, f"{regs} registers, {spills}"))
+            kernel = None
+    return out
 
 
 def _card() -> str:
@@ -386,9 +409,14 @@ def main() -> None:
     print(f"[build] {build_s:.2f} s -> "
           + ", ".join(p.name for p in libs.values()))
     for name, lib in libs.items():
-        for line in lib.with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] {name} ptxas: {line.strip()}")
+        for kernel, report in ptxas_report(
+                lib.with_suffix(".log").read_text()):
+            print(f"[build] {name} ptxas: {kernel}: {report}")
+    k_flagship = tracer.TraceConfig().tile.max_per_tile
+    print(f"[occupancy] K={k_flagship}, resident blocks per SM x threads "
+          "per block: " + ", ".join(
+              f"{kernel} {blocks} x {threads}" for kernel, (blocks, threads)
+              in kernels.occupancy(k_flagship).items()))
 
     # 2. Scene.
     t = time.perf_counter()

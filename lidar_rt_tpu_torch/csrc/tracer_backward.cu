@@ -1,4 +1,4 @@
-// Backward surfel tracer kernel for Hopper (sm_90a): the hand-derived VJP
+// Backward surfel tracer kernels for Hopper (sm_90a): the hand-derived VJP
 // of tracer_forward.cu.
 //
 // Replaces: lidar_rt_tpu/ops/pallas_backward.py::_backward_kernel, the
@@ -38,27 +38,71 @@
 // path; where g_9 != 0 the tests use scenes in which no ray reaches T_MIN,
 // since there the plain twin's row 9 is the full product over every pair.
 //
-// What bounds it on this card: the replay costs what the forward costs
-// (~25 flops and an exp per pair, ~60 more per composited pair); the
-// gradient chain adds ~60 flops per composited pair.  The sums over rays
-// dominate: 63 values per (candidate, ray) pair, where the forward reduces
-// one.  A warp reduces them with a transposing butterfly: at each of five
-// steps every lane trades half of its values with its partner, so 32
-// values cost 31 shuffles in all (instead of 5 each) and lane l ends with
-// the warp's total of value l.  One atomicAdd per lane then lands 32 sums
-// at once, two rounds per (warp, candidate).  A warp skips a candidate
-// where none of its lanes has a nonzero contribution, and a zero sum is not
-// added.  Reducing across the block's warps in shared memory before the
-// atomics, and splitting K across warps for occupancy, are later work.
+// Design.  Per candidate, each of the 63 gradient rows is a sum over the
+// tile's rays of a per-ray feature (SH basis, direction, g_5..g_7, 1) times
+// a per-pair scalar.  tracer_backward_kernel takes these sums for a block
+// of 128 rays, one thread each, staging 128 candidates at a time in shared
+// memory: a warp reduces a candidate's 63 values across its 32 rays with a
+// transposing butterfly (at each of five steps every lane trades half of
+// its values with its partner, so 32 values cost 31 shuffles in all and
+// lane l ends with the warp's total of value l), and one atomicAdd per
+// lane lands 32 sums at once, two rounds per (warp, candidate).
 //
-// Exact mode replays the forward's depth-order walk (tracer_forward.cu)
-// with the same per-hit math; only the sums over rays change, to
-// shared-memory accumulators (tracer_backward_exact_kernel).  It holds 128
-// floats of shared memory per candidate (128 KB at K = 256), so one block
-// of 128 rays runs per SM: it is bound by latency and by shared-memory
-// atomics, up to 63 per composited pair.
+// What bounds it on this card (H100; scripts/torch_backward_variants.py,
+// numbers in PERF.md): the (warp, candidate) steps that hold a composited
+// pair, ~274 K at the training render's inputs of ~1.19 M steps in all;
+// each costs ~550 instructions of replay, chain, butterflies and atomics.
+// The kernel is latency-bound: 3 blocks per SM instead of 6 cost ~20%, and
+// the exact order's sums kernel, which reads its pairs instead of
+// replaying them, takes ~95% of the tile order's time.  What the design
+// does about it:
+//  - a warp first tests 32 candidates at once, one per lane, against a box
+//    around its rays' unit directions (warp_cone, cone_misses: a
+//    conservative bound on the splat coordinates of every direction in
+//    the box), and visits only the candidates the test cannot rule out:
+//    ~68% of the steps are skipped, ~19% of the time.  A skipped pair has
+//    alpha = 0 for every ray of the warp, which the replay would pass over
+//    with no change to T, to the prefix or to the stop (T stays at or
+//    above T_MIN once a ray has passed candidate 0, which is never
+//    skipped), so the gradients are the same;
+//  - registers are held to 80 (launch bound of 6 blocks per SM, the most
+//    its 32 KB of shared memory allows), and the test's box lives in
+//    shared memory;
+//  - blocks take the tiles in reverse order, heavy ground tiles first:
+//    ~5-7% off the tail of the grid (1,344 blocks for 792 resident).
+// Variants that lost (PERF.md): candidate-major staging with a per-block
+// shared-memory accumulator, two rays per thread (140 registers), 16-value
+// butterflies over 64-candidate chunks at 64 registers (spills), a
+// per-group shared-memory accumulator (5 blocks per SM).
+//
+// Exact order runs two kernels.  tracer_backward_exact_kernel replays the
+// forward's depth-order walk (the same nearest_hits passes, so the same
+// hits in the same order and the same stop) with the running prefix of
+// gw * w in that order, and writes each pair's (dL/dalpha, w) to a (T, K,
+// R) float2 buffer, zero where the ray composited nothing (8 bytes per
+// pair: 352 MB at T = 168, K = 256, R = 1024).  It costs what the exact
+// forward costs (the same k-buffer rescans of the staged candidates).
+// tracer_backward_kernel<true> then takes the sums over rays in candidate
+// order, as in tile order, reading each pair instead of replaying it and
+// recomputing its intersection and colour gate from the staged candidate.
+// The first exact design summed during the walk, into 64 rows per
+// candidate of shared memory (128 KB per 128-ray block, so one block of 4
+// warps per SM) with 63 shared-memory atomics per hit on random columns:
+// ~10x slower.
 
 #include "tracer_common.cuh"
+
+// Build-time shape of the kernels.  Builds with -D overrides give the
+// variants timed by scripts/torch_backward_variants.py.
+#ifndef TRACER_BWD_CULL
+#define TRACER_BWD_CULL 1
+#endif
+#ifndef TRACER_BWD_WALK_RAYS
+#define TRACER_BWD_WALK_RAYS 256
+#endif
+#ifndef TRACER_BWD_MIN_BLOCKS
+#define TRACER_BWD_MIN_BLOCKS 6
+#endif
 
 namespace {
 
@@ -66,6 +110,10 @@ using namespace tracer;
 
 constexpr int kGradRows = 64;  // rows of the (T, 64, K) gradient output
 constexpr int kShRow = 16;     // first d_sh row
+constexpr bool kCull = TRACER_BWD_CULL != 0;  // the sums kernel's cone test
+constexpr int kWalkRays = TRACER_BWD_WALK_RAYS;  // rays per exact walk block
+
+static_assert(kWalkRays % 32 == 0, "whole warps");
 
 // One butterfly step: a lane keeps the half of its kHalf * 2 live values
 // selected by its lane bit kHalf and adds its partner's copy of that half.
@@ -100,6 +148,7 @@ __device__ __forceinline__ void add_row(float* __restrict__ grads,
     atomicAdd(&grads[(tile * kGradRows + row) * k + cand], value);
   }
 }
+
 
 // A ray's inputs: its direction, min range and t0, the upstream gradients
 // of its 10 channel rows, gw_total = sum_ch g_ch S_ch over the forward's
@@ -193,18 +242,180 @@ __device__ __forceinline__ PairGrad pair_grad(Rows s_geo, int j,
   return p;
 }
 
-__global__ void __launch_bounds__(kThreads) tracer_backward_kernel(
+// A warp's rays as a box of unit directions around an orthonormal frame
+// (c, e1, e2): every ray's unit direction d has c.d >= c_min, |e1.d| <=
+// a1 and |e2.d| <= a2 (rays past the tile's end left out).  c is the
+// rays' mean direction and e1 points along their spread, so a warp of one
+// sensor row (a short arc) gets a long, thin box.  A warp with no ray
+// gets c_min = -inf, which no test passes.
+struct Cone {
+  float c[3], e1[3], e2[3];
+  float c_min, a1, a2;
+};
+
+__device__ __forceinline__ float warp_all_sum(float v) {
+  for (int off = 16; off > 0; off >>= 1) {
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  }
+  return v;
+}
+
+__device__ __forceinline__ float warp_all_max(float v) {
+  for (int off = 16; off > 0; off >>= 1) {
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  }
+  return v;
+}
+
+__device__ __forceinline__ float dot3(const float (&a)[3], float x, float y,
+                                      float z) {
+  return a[0] * x + a[1] * y + a[2] * z;
+}
+
+__device__ __forceinline__ Cone warp_cone(float dx, float dy, float dz,
+                                          bool has) {
+  const float inv =
+      has ? rsqrtf(fmaxf(dx * dx + dy * dy + dz * dz, 1e-24f)) : 0.0f;
+  const float ux = dx * inv, uy = dy * inv, uz = dz * inv;
+  Cone b;
+  float cx = warp_all_sum(ux), cy = warp_all_sum(uy), cz = warp_all_sum(uz);
+  const float norm2 = cx * cx + cy * cy + cz * cz;
+  if (!(norm2 > 1e-12f)) {
+    b.c_min = -CUDART_INF_F;
+    return b;
+  }
+  const float cinv = rsqrtf(norm2);
+  b.c[0] = cx * cinv;
+  b.c[1] = cy * cinv;
+  b.c[2] = cz * cinv;
+  // e1: the spread from the first ray to the last, made orthogonal to c;
+  // any unit vector orthogonal to c where that vanishes.
+  const int last = 31 - __clz(__ballot_sync(0xffffffffu, has));
+  const int first = __ffs(__ballot_sync(0xffffffffu, has)) - 1;
+  float sx = __shfl_sync(0xffffffffu, ux, last)
+             - __shfl_sync(0xffffffffu, ux, first);
+  float sy = __shfl_sync(0xffffffffu, uy, last)
+             - __shfl_sync(0xffffffffu, uy, first);
+  float sz = __shfl_sync(0xffffffffu, uz, last)
+             - __shfl_sync(0xffffffffu, uz, first);
+  float along = dot3(b.c, sx, sy, sz);
+  sx -= along * b.c[0];
+  sy -= along * b.c[1];
+  sz -= along * b.c[2];
+  float s2 = sx * sx + sy * sy + sz * sz;
+  if (!(s2 > 1e-20f)) {  // c crossed with the axis it is least along
+    const bool use_x = fabsf(b.c[0]) <= fabsf(b.c[1])
+                       && fabsf(b.c[0]) <= fabsf(b.c[2]);
+    const bool use_y = !use_x && fabsf(b.c[1]) <= fabsf(b.c[2]);
+    sx = use_x ? 0.0f : (use_y ? b.c[2] : -b.c[1]);
+    sy = use_x ? -b.c[2] : (use_y ? 0.0f : b.c[0]);
+    sz = use_x ? b.c[1] : (use_y ? -b.c[0] : 0.0f);
+    s2 = sx * sx + sy * sy + sz * sz;
+  }
+  const float sinv = rsqrtf(s2);
+  b.e1[0] = sx * sinv;
+  b.e1[1] = sy * sinv;
+  b.e1[2] = sz * sinv;
+  b.e2[0] = b.c[1] * b.e1[2] - b.c[2] * b.e1[1];
+  b.e2[1] = b.c[2] * b.e1[0] - b.c[0] * b.e1[2];
+  b.e2[2] = b.c[0] * b.e1[1] - b.c[1] * b.e1[0];
+  // The box's extent over the rays, widened for the rounding of the
+  // normalisations and of this frame.
+  const float cd = has ? dot3(b.c, ux, uy, uz) : CUDART_INF_F;
+  const float a1 = has ? fabsf(dot3(b.e1, ux, uy, uz)) : 0.0f;
+  const float a2 = has ? fabsf(dot3(b.e2, ux, uy, uz)) : 0.0f;
+  b.c_min = -warp_all_max(-cd) - 1e-5f;
+  b.a1 = warp_all_max(a1) * 1.001f + 1e-5f;
+  b.a2 = warp_all_max(a2) * 1.001f + 1e-5f;
+  return b;
+}
+
+// True only if no direction of the box passes candidate j's gates, so
+// that every ray of the warp has alpha = 0 there.  In real arithmetic the
+// splat coordinates of a direction d are u = (U.d) / (n.d) and v =
+// (V.d) / (n.d), with U = (a_u n + p w1) / s0 and V = (a_v n + p w2) / s1
+// (intersect(): t = p / (n.d), u = (a_u + t w1.d) / s0), and a pair
+// passes only if opacity * exp(-(u^2 + v^2) / 2) >= ALPHA_MIN, i.e.
+// u^2 + v^2 <= 2 ln(opacity / ALPHA_MIN).  With d = (c.d) c + (e1.d) e1 +
+// (e2.d) e2 and c_min <= c.d <= 1, |U.d| >= c_min |U.c| - a1 |U.e1| -
+// a2 |U.e2| and |n.d| lies within |n.c| +- (a1 |n.e1| + a2 |n.e2|) (and
+// c_min |n.c| - ... from below); where n.d may change sign the test gives
+// up.  The lower bounds are shrunk by a slack far above the rounding of
+// intersect()'s float arithmetic, and the test asks for 5% more than the
+// gate's radius squared.
+template <typename Rows>
+__device__ __forceinline__ bool cone_misses(Rows s_geo, int j,
+                                            const Cone& b) {
+  const float nx = s_geo[kNx][j], ny = s_geo[kNy][j], nz = s_geo[kNz][j];
+  const float w1x = s_geo[kW1x][j], w1y = s_geo[kW1y][j];
+  const float w1z = s_geo[kW1z][j];
+  const float w2x = s_geo[kW2x][j], w2y = s_geo[kW2y][j];
+  const float w2z = s_geo[kW2z][j];
+  const float p = s_geo[kP][j], au = s_geo[kAu][j], av = s_geo[kAv][j];
+  const float is0 = s_geo[kInvS0][j], is1 = s_geo[kInvS1][j];
+  const float opacity = s_geo[kOpac][j];
+  // alpha_raw = opacity * G rounds to at most opacity, as G <= 1.
+  if (opacity < kAlphaMin) return true;
+  const float ux = is0 * (au * nx + p * w1x);
+  const float uy = is0 * (au * ny + p * w1y);
+  const float uz = is0 * (au * nz + p * w1z);
+  const float vx = is1 * (av * nx + p * w2x);
+  const float vy = is1 * (av * ny + p * w2y);
+  const float vz = is1 * (av * nz + p * w2z);
+  const float n_len = sqrtf(nx * nx + ny * ny + nz * nz);
+  const float n_c = fabsf(dot3(b.c, nx, ny, nz));
+  const float n_side = b.a1 * fabsf(dot3(b.e1, nx, ny, nz))
+                       + b.a2 * fabsf(dot3(b.e2, nx, ny, nz));
+  const float qd_lo = b.c_min * n_c - n_side;  // least |n.d| in the box
+  if (!(qd_lo > 0.0f)) return false;
+  const float qd_hi = n_c + n_side;
+  const float amp = (1.0f + n_len / qd_lo) / qd_lo;
+  const float slack_u = 1e-4f * fabsf(is0) * amp
+      * (fabsf(au) * n_len + fabsf(p) * sqrtf(w1x * w1x + w1y * w1y
+                                              + w1z * w1z));
+  const float slack_v = 1e-4f * fabsf(is1) * amp
+      * (fabsf(av) * n_len + fabsf(p) * sqrtf(w2x * w2x + w2y * w2y
+                                              + w2z * w2z));
+  const float u_lo = fmaxf(
+      (b.c_min * fabsf(dot3(b.c, ux, uy, uz))
+       - b.a1 * fabsf(dot3(b.e1, ux, uy, uz))
+       - b.a2 * fabsf(dot3(b.e2, ux, uy, uz))) / qd_hi - slack_u,
+      0.0f);
+  const float v_lo = fmaxf(
+      (b.c_min * fabsf(dot3(b.c, vx, vy, vz))
+       - b.a1 * fabsf(dot3(b.e1, vx, vy, vz))
+       - b.a2 * fabsf(dot3(b.e2, vx, vy, vz))) / qd_hi - slack_v,
+      0.0f);
+  const float r2 = 2.0f * logf(opacity / kAlphaMin);
+  return u_lo * u_lo + v_lo * v_lo > 1.05f * r2 + 0.05f;
+}
+
+// The sums over rays, one thread per ray.  kFromPairs = false: tile
+// order, the walk replayed here.  kFromPairs = true: exact order, each
+// pair's (dL/dalpha, w) read from `pairs` (T, K, R), written by
+// tracer_backward_exact_kernel.  A warp visits only the candidates that
+// its cone of rays may hit (cone_misses, tested 32 candidates at a time,
+// one per lane): the others have alpha = 0 for all its rays, which the
+// replay would pass over without a change, except candidate 0, where a
+// ray whose t0 is already below T_MIN stops.
+template <bool kFromPairs>
+__global__ void __launch_bounds__(kThreads, TRACER_BWD_MIN_BLOCKS)
+    tracer_backward_kernel(
     const int* __restrict__ cnt, const float* __restrict__ dirs,
     const float* __restrict__ mind, const float* __restrict__ t0,
     const float* __restrict__ axes, const float* __restrict__ plane,
     const float* __restrict__ inv_scale, const float* __restrict__ opac,
     const float* __restrict__ sign, const float* __restrict__ sh,
     const float* __restrict__ fwd_chans, const float* __restrict__ g_chans,
-    float* __restrict__ grads, int rays, int k) {
+    const float2* __restrict__ pairs, float* __restrict__ grads, int rays,
+    int k) {
   __shared__ float s_geo[kGeo][kChunk];
   __shared__ float s_sh[kSh][kChunk];
 
-  const long long tile = blockIdx.y;
+  // Tiles run last-first: a scan's tiles go from its top beam down, and
+  // the lower ones, on the ground near the sensor, hold the most hits, so
+  // they start first and the light ones fill the tail of the grid.
+  const long long tile = gridDim.y - 1 - blockIdx.y;
   const int ray = blockIdx.x * kThreads + threadIdx.x;
   const bool has_ray = ray < rays;
   const int lane = threadIdx.x & 31;
@@ -220,6 +431,15 @@ __global__ void __launch_bounds__(kThreads) tracer_backward_kernel(
   }
   float basis[16];
   sh_basis(dx, dy, dz, basis);
+  // Each warp's box, kept in shared memory: it is read once per 32
+  // candidates, and registers are what limits this kernel's occupancy.
+  __shared__ Cone s_cone[kThreads / 32];
+  {
+    const Cone cone = warp_cone(dx, dy, dz, has_ray);
+    if (lane == 0) s_cone[threadIdx.x / 32] = cone;
+    __syncwarp();
+  }
+  const Cone& cone = s_cone[threadIdx.x / 32];
 
   float trans = trans0;
   float prefix = 0.0f;  // running sum of gw * w over composited hits
@@ -227,105 +447,131 @@ __global__ void __launch_bounds__(kThreads) tracer_backward_kernel(
 
   const int count = min(max(cnt[tile], 0), k);
   for (int base = 0; base < count; base += kChunk) {
-    if (!__syncthreads_or(alive)) break;
+    // Barrier before shared memory is overwritten; in tile order the
+    // whole block stops once none of its rays is alive.
+    if (kFromPairs) {
+      __syncthreads();
+    } else if (!__syncthreads_or(alive)) {
+      break;
+    }
     const int n = min(kChunk, count - base);
     stage_chunk(s_geo, s_sh, tile, k, base, n, axes, plane, inv_scale, opac,
                 sign, sh);
     __syncthreads();
-    if (!__any_sync(0xffffffffu, alive)) continue;  // warp-uniform skip
+    if (!kFromPairs && !__any_sync(0xffffffffu, alive)) continue;
 
-    for (int j = 0; j < n; ++j) {
-      // Replay: the same gates, stop and shading as the forward.
-      Hit h = {};
-      float d_alpha = 0.0f, w = 0.0f, x0 = 0.0f, x1 = 0.0f, x2 = 0.0f;
-      if (alive) {
-        h = intersect(s_geo, j, dx, dy, dz, min_t);
-        replay_hit(h, s_geo, s_sh, j, basis, g, gw_total, t_out, g_raw,
-                   trans, prefix, alive, d_alpha, w, x0, x1, x2);
-      }
-      const bool active = d_alpha != 0.0f || w != 0.0f;
-      if (!__any_sync(0xffffffffu, active)) continue;
+    for (int group = 0; group < n; group += 32) {
+      const int mine = group + lane;
+      const bool visit = mine < n && (!kCull || (base == 0 && mine == 0)
+                                      || !cone_misses(s_geo, mine, cone));
+      unsigned todo = __ballot_sync(0xffffffffu, visit);
+      while (todo != 0u) {
+        const int j = group + __ffs(todo) - 1;
+        todo &= todo - 1u;
+        Hit h = {};
+        float d_alpha = 0.0f, w = 0.0f, x0 = 0.0f, x1 = 0.0f, x2 = 0.0f;
+        if (kFromPairs) {
+          if (has_ray) {
+            const float2 pw = pairs[(tile * k + base + j) * rays + ray];
+            d_alpha = pw.x;
+            w = pw.y;
+          }
+          if (d_alpha != 0.0f || w != 0.0f) {
+            h = intersect(s_geo, j, dx, dy, dz, min_t);
+            if (w != 0.0f) {  // the colour gate, as replay_hit decides it
+              float c0, c1, c2;
+              shade(basis, s_sh, j, c0, c1, c2);
+              const float col0 = c0 + 0.5f;
+              x0 = col0 > 0.0f ? g[0] * w : 0.0f;
+              x1 = g[1] * w;
+              x2 = g[2] * w;
+            }
+          }
+        } else if (alive) {
+          // Replay: the same gates, stop and shading as the forward.
+          h = intersect(s_geo, j, dx, dy, dz, min_t);
+          replay_hit(h, s_geo, s_sh, j, basis, g, gw_total, t_out, g_raw,
+                     trans, prefix, alive, d_alpha, w, x0, x1, x2);
+        }
+        const bool active = d_alpha != 0.0f || w != 0.0f;
+        if (!__any_sync(0xffffffffu, active)) continue;
 
-      // The chain for this lane's pair (zeros where it has none).
-      float v[32];
-      PairGrad p = {};
-      if (active) p = pair_grad(s_geo, j, h, d_alpha, w, g[3]);
-      v[0] = dx * p.d_qd + p.sw * g[5];
-      v[1] = dy * p.d_qd + p.sw * g[6];
-      v[2] = dz * p.d_qd + p.sw * g[7];
-      v[3] = dx * p.d_bu;
-      v[4] = dy * p.d_bu;
-      v[5] = dz * p.d_bu;
-      v[6] = dx * p.d_bv;
-      v[7] = dy * p.d_bv;
-      v[8] = dz * p.d_bv;
-      v[9] = p.d_p;
-      v[10] = p.d_au;
-      v[11] = p.d_av;
-      v[12] = p.d_is0;
-      v[13] = p.d_is1;
-      v[14] = p.d_op;
-      v[15] = 0.0f;
+        // The chain for this lane's pair (zeros where it has none).
+        float v[32];
+        PairGrad p = {};
+        if (active) p = pair_grad(s_geo, j, h, d_alpha, w, g[3]);
+        v[0] = dx * p.d_qd + p.sw * g[5];
+        v[1] = dy * p.d_qd + p.sw * g[6];
+        v[2] = dz * p.d_qd + p.sw * g[7];
+        v[3] = dx * p.d_bu;
+        v[4] = dy * p.d_bu;
+        v[5] = dz * p.d_bu;
+        v[6] = dx * p.d_bv;
+        v[7] = dy * p.d_bv;
+        v[8] = dz * p.d_bv;
+        v[9] = p.d_p;
+        v[10] = p.d_au;
+        v[11] = p.d_av;
+        v[12] = p.d_is0;
+        v[13] = p.d_is1;
+        v[14] = p.d_op;
+        v[15] = 0.0f;
 #pragma unroll
-      for (int s = 0; s < 16; ++s) v[kShRow + s] = basis[s] * x0;
-      const int cand = base + j;
-      add_row(grads, tile, lane, k, cand, warp_transpose_sum(v, lane));
+        for (int s = 0; s < 16; ++s) v[kShRow + s] = basis[s] * x0;
+        const int cand = base + j;
+        add_row(grads, tile, lane, k, cand, warp_transpose_sum(v, lane));
 
-      if (!__any_sync(0xffffffffu, w != 0.0f)) continue;
+        if (!__any_sync(0xffffffffu, w != 0.0f)) continue;
 #pragma unroll
-      for (int s = 0; s < 16; ++s) {
-        v[s] = basis[s] * x1;
-        v[16 + s] = basis[s] * x2;
+        for (int s = 0; s < 16; ++s) {
+          v[s] = basis[s] * x1;
+          v[16 + s] = basis[s] * x2;
+        }
+        add_row(grads, tile, 32 + lane, k, cand, warp_transpose_sum(v, lane));
       }
-      add_row(grads, tile, 32 + lane, k, cand, warp_transpose_sum(v, lane));
     }
   }
 }
 
-__device__ __forceinline__ void add_shared(float* at, float value) {
-  if (value != 0.0f) atomicAdd(at, value);
-}
-
-// Exact order: the VJP of tracer_forward_exact_kernel.  The walk replays
-// the forward's depth order (the same nearest_hits passes, so the same
-// hits in the same order and the same stop), with the running prefix of
-// gw * w in that order.  The lanes of a warp stand on different
-// candidates, so each pair's 63 values go to per-block accumulators in
-// shared memory (kGradRows rows of k, shared-memory atomics), flushed with
-// one global atomic per (block, row, candidate).  Dynamic shared memory:
-// kGeo + kSh staged rows and kGradRows accumulator rows, k floats each.
-__global__ void __launch_bounds__(kThreads) tracer_backward_exact_kernel(
+// Exact order, first kernel: the VJP's walk in each ray's depth order.
+// It replays tracer_forward_exact_kernel (the same nearest_hits passes, so
+// the same hits in the same order and the same stop) with the running
+// prefix of gw * w in that order, and writes each pair's (dL/dalpha, w) to
+// pairs[tile][j][ray]: zero for j < count unless the ray composited j or
+// stopped at it.  Dynamic shared memory: the tile's kGeo + kSh staged
+// rows, k floats each.
+__global__ void __launch_bounds__(kWalkRays) tracer_backward_exact_kernel(
     const int* __restrict__ cnt, const float* __restrict__ dirs,
     const float* __restrict__ mind, const float* __restrict__ t0,
     const float* __restrict__ axes, const float* __restrict__ plane,
     const float* __restrict__ inv_scale, const float* __restrict__ opac,
     const float* __restrict__ sign, const float* __restrict__ sh,
     const float* __restrict__ fwd_chans, const float* __restrict__ g_chans,
-    float* __restrict__ grads, int rays, int k) {
+    float2* __restrict__ pairs, int rays, int k) {
   extern __shared__ float smem[];
   const RowView s_geo{smem, k};
   const RowView s_sh{smem + kGeo * k, k};
-  float* s_grad = smem + (kGeo + kSh) * k;
 
   const long long tile = blockIdx.y;
-  const int ray = blockIdx.x * kThreads + threadIdx.x;
+  const int ray = blockIdx.x * kWalkRays + threadIdx.x;
   const bool has_ray = ray < rays;
   const long long ray_at = tile * rays + ray;
   const int count = min(max(cnt[tile], 0), k);
-  stage_all(s_geo, s_sh, tile, k, count, axes, plane, inv_scale, opac, sign,
-            sh);
-  for (int i = threadIdx.x; i < kGradRows * k; i += kThreads) {
-    s_grad[i] = 0.0f;
-  }
+  stage_all<kWalkRays>(s_geo, s_sh, tile, k, count, axes, plane, inv_scale,
+                       opac, sign, sh);
   __syncthreads();
 
   float dx = 0.0f, dy = 0.0f, dz = 0.0f, min_t = 0.0f, trans0 = 0.0f;
   float g[10] = {};
   float gw_total = 0.0f, t_out = 0.0f, g_raw = 0.0f;
+  float2* mine = pairs + tile * k * rays + ray;  // candidate j at j * rays
   if (has_ray) {
     const long long at = tile * kOutRows * rays + ray;
     load_ray(ray_at, rays, dirs, mind, t0, fwd_chans + at, g_chans + at, dx,
              dy, dz, min_t, trans0, g, gw_total, t_out, g_raw);
+    for (int j = 0; j < count; ++j) {
+      mine[static_cast<long long>(j) * rays] = make_float2(0.0f, 0.0f);
+    }
   }
   float basis[16];
   sh_basis(dx, dy, dz, basis);
@@ -348,29 +594,7 @@ __global__ void __launch_bounds__(kThreads) tracer_backward_exact_kernel(
       replay_hit(h, s_geo, s_sh, j, basis, g, gw_total, t_out, g_raw, trans,
                  prefix, alive, d_alpha, w, x0, x1, x2);
       if (d_alpha != 0.0f || w != 0.0f) {
-        const PairGrad p = pair_grad(s_geo, j, h, d_alpha, w, g[3]);
-        float* col = s_grad + j;
-        add_shared(col + 0 * k, dx * p.d_qd + p.sw * g[5]);
-        add_shared(col + 1 * k, dy * p.d_qd + p.sw * g[6]);
-        add_shared(col + 2 * k, dz * p.d_qd + p.sw * g[7]);
-        add_shared(col + 3 * k, dx * p.d_bu);
-        add_shared(col + 4 * k, dy * p.d_bu);
-        add_shared(col + 5 * k, dz * p.d_bu);
-        add_shared(col + 6 * k, dx * p.d_bv);
-        add_shared(col + 7 * k, dy * p.d_bv);
-        add_shared(col + 8 * k, dz * p.d_bv);
-        add_shared(col + 9 * k, p.d_p);
-        add_shared(col + 10 * k, p.d_au);
-        add_shared(col + 11 * k, p.d_av);
-        add_shared(col + 12 * k, p.d_is0);
-        add_shared(col + 13 * k, p.d_is1);
-        add_shared(col + 14 * k, p.d_op);
-#pragma unroll
-        for (int s = 0; s < 16; ++s) {
-          add_shared(col + (kShRow + s) * k, basis[s] * x0);
-          add_shared(col + (kShRow + 16 + s) * k, basis[s] * x1);
-          add_shared(col + (kShRow + 32 + s) * k, basis[s] * x2);
-        }
+        mine[static_cast<long long>(j) * rays] = make_float2(d_alpha, w);
       }
       if (!alive) break;
     }
@@ -378,27 +602,27 @@ __global__ void __launch_bounds__(kThreads) tracer_backward_exact_kernel(
     cur_t = bt[kBuf - 1];
     cur_j = bj[kBuf - 1];
   }
+}
 
-  __syncthreads();
-  float* out = grads + tile * kGradRows * k;
-  for (int i = threadIdx.x; i < kGradRows * k; i += kThreads) {
-    if (s_grad[i] != 0.0f) atomicAdd(&out[i], s_grad[i]);
-  }
+int walk_smem(int k) {
+  return static_cast<int>(sizeof(float)) * (kGeo + kSh) * k;
 }
 
 }  // namespace
 
-// Launches the kernel on `stream` over (tiles, rays, k), in exact order if
-// `exact` is nonzero; returns the first CUDA error of the launch.  grads
-// (tiles, 64, k) must be zero.
+// Launches the kernels on `stream` over (tiles, rays, k), in exact order if
+// `exact` is nonzero; returns the first CUDA error of the launches.  grads
+// (tiles, 64, k) must be zero.  pairs: exact order's (tiles, k, rays)
+// float2 buffer, uninitialised (the walk writes what the sums read);
+// unused in tile order.
 extern "C" int tracer_backward(const void* cnt, const void* dirs,
                                const void* mind, const void* t0,
                                const void* axes, const void* plane,
                                const void* inv_scale, const void* opac,
                                const void* sign, const void* sh,
                                const void* fwd_chans, const void* g_chans,
-                               void* grads, int tiles, int rays, int k,
-                               int exact, void* stream) {
+                               void* pairs, void* grads, int tiles, int rays,
+                               int k, int exact, void* stream) {
   if (tiles == 0 || rays == 0) return static_cast<int>(cudaSuccess);
   const dim3 grid((rays + kThreads - 1) / kThreads, tiles);
   const auto s = static_cast<cudaStream_t>(stream);
@@ -414,21 +638,54 @@ extern "C" int tracer_backward(const void* cnt, const void* dirs,
   const auto shc = static_cast<const float*>(sh);
   const auto fc = static_cast<const float*>(fwd_chans);
   const auto gc = static_cast<const float*>(g_chans);
+  const auto pr = static_cast<float2*>(pairs);
   const auto gr = static_cast<float*>(grads);
   if (exact) {
-    const int smem =
-        static_cast<int>(sizeof(float)) * (kGeo + kSh + kGradRows) * k;
-    const cudaError_t err = cudaFuncSetAttribute(
+    const int smem = walk_smem(k);
+    cudaError_t err = cudaFuncSetAttribute(
         tracer_backward_exact_kernel,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    tracer_backward_exact_kernel<<<grid, kThreads, smem, s>>>(
-        c, d, md, tr, ax, pl, is, op, sg, shc, fc, gc, gr, rays, k);
+    const dim3 walk_grid((rays + kWalkRays - 1) / kWalkRays, tiles);
+    tracer_backward_exact_kernel<<<walk_grid, kWalkRays, smem, s>>>(
+        c, d, md, tr, ax, pl, is, op, sg, shc, fc, gc, pr, rays, k);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    tracer_backward_kernel<true><<<grid, kThreads, 0, s>>>(
+        c, d, md, tr, ax, pl, is, op, sg, shc, fc, gc, pr, gr, rays, k);
   } else {
-    tracer_backward_kernel<<<grid, kThreads, 0, s>>>(
-        c, d, md, tr, ax, pl, is, op, sg, shc, fc, gc, gr, rays, k);
+    tracer_backward_kernel<false><<<grid, kThreads, 0, s>>>(
+        c, d, md, tr, ax, pl, is, op, sg, shc, fc, gc, nullptr, gr, rays, k);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// Resident blocks per SM (out[0]) and threads per block (out[1]) of device
+// kernel `which` at k candidates per tile: 0 the tile-order kernel, 1 the
+// exact walk, 2 the exact sums.  Returns the first CUDA error.
+extern "C" int tracer_backward_occupancy(int which, int k, int* out) {
+  int blocks = 0;
+  cudaError_t err;
+  if (which == 1) {
+    const int smem = walk_smem(k);
+    err = cudaFuncSetAttribute(tracer_backward_exact_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, tracer_backward_exact_kernel, kWalkRays, smem);
+    }
+    out[1] = kWalkRays;
+  } else {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks,
+        which == 0 ? tracer_backward_kernel<false>
+                   : tracer_backward_kernel<true>,
+        kThreads, 0);
+    out[1] = kThreads;
+  }
+  out[0] = blocks;
+  return static_cast<int>(err);
 }
 
 extern "C" const char* tracer_error_string(int code) {

@@ -182,13 +182,15 @@ __device__ __forceinline__ void stage_chunk(
 }
 
 // Exact order: stage all `count` candidates of `tile` at once, into rows
-// of stride k; thread i loads candidates i, i + kThreads, ...
+// of stride k; thread i of a kBlock-thread block loads candidates i,
+// i + kBlock, ...
+template <int kBlock = kThreads>
 __device__ __forceinline__ void stage_all(
     RowView s_geo, RowView s_sh, long long tile, int k, int count,
     const float* __restrict__ axes, const float* __restrict__ plane,
     const float* __restrict__ inv_scale, const float* __restrict__ opac,
     const float* __restrict__ sign, const float* __restrict__ sh) {
-  for (int c = threadIdx.x; c < count; c += kThreads) {
+  for (int c = threadIdx.x; c < count; c += kBlock) {
     for (int f = 0; f < 9; ++f) {
       s_geo[kNx + f][c] = axes[(tile * 9 + f) * k + c];
     }

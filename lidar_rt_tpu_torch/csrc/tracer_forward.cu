@@ -251,6 +251,12 @@ __global__ void __launch_bounds__(kThreads) tracer_forward_exact_kernel(
   }
 }
 
+// Dynamic shared memory of the exact kernel: kGeo + kSh staged rows and one
+// accumulator row, k floats each.
+int exact_smem(int k) {
+  return static_cast<int>(sizeof(float)) * (kGeo + kSh + 1) * k;
+}
+
 }  // namespace
 
 // Launches the kernel on `stream` over (tiles, rays, k), in exact order if
@@ -279,7 +285,7 @@ extern "C" int tracer_forward(const void* cnt, const void* dirs,
   const auto ch = static_cast<float*>(chans);
   const auto ac = static_cast<float*>(accum);
   if (exact) {
-    const int smem = static_cast<int>(sizeof(float)) * (kGeo + kSh + 1) * k;
+    const int smem = exact_smem(k);
     const cudaError_t err = cudaFuncSetAttribute(
         tracer_forward_exact_kernel,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -291,6 +297,30 @@ extern "C" int tracer_forward(const void* cnt, const void* dirs,
         c, d, md, tr, ax, pl, is, op, sg, shc, ch, ac, rays, k);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// Resident blocks per SM (out[0]) and threads per block (out[1]) of device
+// kernel `which` at k candidates per tile: 0 tile order, 1 exact order.
+// Returns the first CUDA error.
+extern "C" int tracer_forward_occupancy(int which, int k, int* out) {
+  int blocks = 0;
+  cudaError_t err;
+  if (which == 1) {
+    const int smem = exact_smem(k);
+    err = cudaFuncSetAttribute(tracer_forward_exact_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, tracer_forward_exact_kernel, kThreads, smem);
+    }
+  } else {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, tracer_forward_kernel, kThreads, 0);
+  }
+  out[0] = blocks;
+  out[1] = kThreads;
+  return static_cast<int>(err);
 }
 
 extern "C" const char* tracer_error_string(int code) {

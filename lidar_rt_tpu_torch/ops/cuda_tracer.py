@@ -344,6 +344,74 @@ def backward_tiles_reference(cnt: Tensor, dirs: Tensor, mind: Tensor,
     return d_axes, d_plane, d_inv_scale, d_opac, d_sh
 
 
+def cone_skips(cnt: Tensor, dirs: Tensor, axes: Tensor, plane: Tensor,
+               inv_scale: Tensor, opac: Tensor, warp: int = 32) -> Tensor:
+    """Plain float32 version of the backward sums kernel's cone test
+    (`warp_cone`, `cone_misses` in csrc/tracer_backward.cu): (T, ceil(R /
+    warp), K), True where the kernel's warp of `warp` consecutive rays
+    skips the candidate, since no direction in the box around its rays'
+    directions can pass the candidate's gates.  Candidates past cnt are
+    False."""
+    t, r, _ = dirs.shape
+    k = axes.shape[-1]
+    nw = -(-r // warp)
+    d = torch.nn.functional.pad(dirs, (0, 0, 0, nw * warp - r))
+    has = (torch.arange(nw * warp, device=dirs.device) < r).view(1, nw, warp)
+    u = d * torch.rsqrt((d * d).sum(-1, keepdim=True).clamp_min(1e-24))
+    u = torch.where(has[..., None], u.view(t, nw, warp, 3), 0.0)
+    c = u.sum(2)
+    c = c * torch.rsqrt((c * c).sum(-1, keepdim=True))        # (T, W, 3)
+    idx = torch.arange(warp, device=dirs.device)
+    last = torch.where(has, idx, -1).amax(-1)                 # (1, W)
+    first = torch.where(has, idx, warp).amin(-1)
+    span = (u[:, torch.arange(nw), last[0]]
+            - u[:, torch.arange(nw), first[0]])               # (T, W, 3)
+    span = span - (span * c).sum(-1, keepdim=True) * c
+    e1 = span * torch.rsqrt((span * span).sum(-1, keepdim=True))
+    e2 = torch.cross(c, e1, dim=-1)
+
+    def extent(e):                                            # (T, W, 1)
+        return torch.where(has, (u * e[:, :, None]).sum(-1).abs(),
+                           0.0).amax(-1, keepdim=True) * 1.001 + 1e-5
+
+    c_min = torch.where(has, (u * c[:, :, None]).sum(-1), float("inf")
+                        ).amin(-1, keepdim=True) - 1e-5
+    a1, a2 = extent(e1), extent(e2)
+
+    n, w1, w2 = axes[:, 0], axes[:, 1], axes[:, 2]             # (T, 3, K)
+    p, au, av = plane[:, 0:1], plane[:, 1:2], plane[:, 2:3]    # (T, 1, K)
+    is0, is1 = inv_scale[:, 0:1], inv_scale[:, 1:2]
+    uvec = is0 * (au * n + p * w1)
+    vvec = is1 * (av * n + p * w2)
+
+    def dot(e, x):                                            # (T, W, K)
+        return torch.einsum("twc,tck->twk", e, x).abs()
+
+    def length(x):                                            # (T, 1, K)
+        return x.norm(dim=1, keepdim=True)
+
+    n_len = length(n)
+    n_c = dot(c, n)
+    n_side = a1 * dot(e1, n) + a2 * dot(e2, n)
+    qd_lo = c_min * n_c - n_side
+    qd_hi = n_c + n_side
+    amp = (1.0 + n_len / qd_lo) / qd_lo
+    slack_u = 1e-4 * is0.abs() * amp * (au.abs() * n_len
+                                        + p.abs() * length(w1))
+    slack_v = 1e-4 * is1.abs() * amp * (av.abs() * n_len
+                                        + p.abs() * length(w2))
+    u_lo = ((c_min * dot(c, uvec) - a1 * dot(e1, uvec) - a2 * dot(e2, uvec))
+            / qd_hi - slack_u).clamp_min(0.0)
+    v_lo = ((c_min * dot(c, vvec) - a1 * dot(e1, vvec) - a2 * dot(e2, vvec))
+            / qd_hi - slack_v).clamp_min(0.0)
+    op = opac[:, None, :]
+    r2 = 2.0 * torch.log(op / geometry.ALPHA_MIN)
+    skip = (qd_lo > 0) & (u_lo * u_lo + v_lo * v_lo > 1.05 * r2 + 0.05)
+    skip = skip | (op < geometry.ALPHA_MIN)
+    in_cnt = torch.arange(k, device=dirs.device) < cnt[:, None, None]
+    return skip & in_cnt
+
+
 class _TracerCore(torch.autograd.Function):
     """The differentiable kernel boundary (counterpart of the reference's
     `_pallas_core` custom_vjp): the forward kernel, and the backward kernel

@@ -25,14 +25,39 @@ import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
-KERNELS = ("tracer_forward", "tracer_backward")
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# Each kernel library's C entry points (`extern "C" int ...` in
+# `csrc/<library>.cu`) and their ctypes argument types, in order: a pointer
+# (c_void_p) for each tensor, output array and the stream, an int for each
+# size, flag and index.  A C signature that disagrees segfaults instead of
+# raising: tests/test_torch_kernels.py holds this table to the sources.
+ENTRY_POINTS = {
+    "tracer_forward": {
+        "tracer_forward": [_P] * 12 + [_I] * 4 + [_P],
+        "tracer_forward_occupancy": [_I, _I, _P],
+    },
+    "tracer_backward": {
+        "tracer_backward": [_P] * 14 + [_I] * 4 + [_P],
+        "tracer_backward_occupancy": [_I, _I, _P],
+    },
+}
+KERNELS = tuple(ENTRY_POINTS)
+# The device kernels of each library, in the index order of its
+# `<library>_occupancy` entry point.
+DEVICE_KERNELS = {
+    "tracer_forward": ("tracer_forward_kernel", "tracer_forward_exact_kernel"),
+    "tracer_backward": ("tracer_backward_kernel",
+                        "tracer_backward_exact_kernel",
+                        "tracer_backward_kernel<true>"),
+}
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 GRAD_ROWS = 64     # rows of the backward kernel's (T, 64, K) output
-# The exact-order kernels stage all K candidates of a tile and keep
-# per-candidate sums in shared memory: at most 64 + 64 floats per candidate
-# in the backward, 128 KB at K = 256 of the 227 KB a block may use.
+# The exact-order kernels stage all K candidates of a tile in shared memory
+# (64 floats each, plus one accumulator row in the forward): 65 KB at
+# K = 256 of the 227 KB a block may use.  The exact backward also holds a
+# (T, K, R) float2 buffer of per-pair (dL/dalpha, w) in device memory.
 EXACT_MAX_K = 256
 
 # Launches of each kernel in each mode: raised by one per launch in
@@ -118,18 +143,42 @@ def build() -> dict[str, Path]:
     return paths
 
 
+def load_library(path: Path, name: str) -> ctypes.CDLL:
+    """Load a built library of kernel `name` with every entry point's
+    argtypes set from ENTRY_POINTS."""
+    lib = ctypes.CDLL(str(path))
+    for entry, argtypes in ENTRY_POINTS[name].items():
+        fn = getattr(lib, entry)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.tracer_error_string.argtypes = [ctypes.c_int]
+    lib.tracer_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def _library(name: str) -> ctypes.CDLL:
     if name not in _libs:
-        lib = ctypes.CDLL(str(build()[name]))
-        n_ptr = 12 if name == "tracer_forward" else 13
-        fn = getattr(lib, name)
-        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 4
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        lib.tracer_error_string.argtypes = [ctypes.c_int]
-        lib.tracer_error_string.restype = ctypes.c_char_p
-        _libs[name] = lib
+        _libs[name] = load_library(build()[name], name)
     return _libs[name]
+
+
+def occupancy(k: int) -> dict[str, tuple[int, int]]:
+    """(resident blocks per SM, threads per block) of every device kernel
+    at K = k candidates per tile, from cudaOccupancyMaxActiveBlocksPer
+    Multiprocessor with each kernel's shared memory, on the current
+    device."""
+    out = {}
+    for name, device_kernels in DEVICE_KERNELS.items():
+        lib = _library(name)
+        for which, kernel in enumerate(device_kernels):
+            res = (ctypes.c_int * 2)()
+            rc = getattr(lib, f"{name}_occupancy")(which, k,
+                                                   ctypes.addressof(res))
+            if rc != 0:
+                raise RuntimeError(f"{kernel} occupancy query failed: "
+                                   + lib.tracer_error_string(rc).decode())
+            out[kernel] = (res[0], res[1])
+    return out
 
 
 def _tile_shapes(cnt, dirs, mind, t0, axes, plane, inv_scale, opac, sign,
@@ -213,7 +262,8 @@ def tracer_backward(cnt, dirs, mind, t0, axes, plane, inv_scale, opac, sign,
                     sh, fwd_chans, g_chans, exact: bool = False
                     ) -> tuple[torch.Tensor, ...]:
     """Launch the backward tracer kernel on the current stream, in the
-    forward's order (tile, or exact per-ray depth order).
+    forward's order (tile, or exact per-ray depth order: a walk kernel,
+    then the sums kernel, sharing a (T, K, R) float2 buffer).
 
     Inputs: the forward's, plus its channels `fwd_chans` and their upstream
     gradients `g_chans`, both (T, 16, R); all contiguous CUDA tensors on
@@ -231,9 +281,12 @@ def tracer_backward(cnt, dirs, mind, t0, axes, plane, inv_scale, opac, sign,
     expected["g_chans"] = (g_chans, (t, 16, r), torch.float32)
     dev = _check("tracer_backward", expected)
     grads = torch.zeros((t, GRAD_ROWS, k), dtype=torch.float32, device=dev)
+    pairs = (torch.empty((t, k, r, 2), dtype=torch.float32, device=dev)
+             if exact else None)
     _launch("tracer_backward", dev,
             [x.data_ptr() for x, _, _ in expected.values()]
-            + [grads.data_ptr()], (t, r, k, int(exact)))
+            + [None if pairs is None else pairs.data_ptr(),
+               grads.data_ptr()], (t, r, k, int(exact)))
     if exact:
         backward_exact_launches += 1
     else:

@@ -15,6 +15,9 @@ cosine > 0.999 per field (the reference's on-device gradient bar) and max
 abs error <= 3e-3 x max |twin| (its CPU gradient bar, scaled).
 """
 
+import ctypes
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -83,6 +86,48 @@ def test_library_is_keyed_by_source(tmp_path, monkeypatch):
     assert {n: kernels.library_path(n) for n in kernels.KERNELS} == paths
     (tmp_path / "tracer_forward.cu").write_text("// one, edited\n")
     assert kernels.library_path("tracer_backward") != paths["tracer_backward"]
+
+
+def _c_signatures(source: str) -> dict[str, list]:
+    """The `extern "C" int tracer_*(...)` entry points of a CUDA source,
+    each parameter as the ctypes type that passes it: c_void_p for a
+    pointer, c_int for an int (None for anything else)."""
+    out = {}
+    for name, params in re.findall(r'extern "C" int (tracer_\w+)\(([^)]*)\)',
+                                   source):
+        types = []
+        for param in params.split(","):
+            param = " ".join(param.split())
+            types.append(ctypes.c_void_p if "*" in param
+                         else ctypes.c_int if re.fullmatch(r"int \w+", param)
+                         else None)
+        out[name] = types
+    return out
+
+
+def test_entry_point_argtypes_match_sources():
+    """Every C entry point of every kernel library takes the pointers and
+    ints, in order, that the loader's argtypes pass: a mismatch would
+    segfault on the card instead of raising, so it fails here."""
+    for name in kernels.KERNELS:
+        found = _c_signatures((kernels.CSRC / f"{name}.cu").read_text())
+        assert found == kernels.ENTRY_POINTS[name], name
+        assert all(None not in types for types in found.values())
+    launcher = kernels.ENTRY_POINTS["tracer_backward"]["tracer_backward"]
+    assert launcher.count(ctypes.c_void_p) == 15     # 14 arrays, the stream
+    assert launcher.count(ctypes.c_int) == 4
+
+
+def test_signature_parser_counts_parameters():
+    source = """
+    extern "C" int tracer_x(const void* a, void* b,
+                            int n, int k, void* stream) {}
+    extern "C" const char* tracer_error_string(int code) {}
+    extern "C" int tracer_y(int which, int* out, float bad) {}
+    """
+    p, i = ctypes.c_void_p, ctypes.c_int
+    assert _c_signatures(source) == {"tracer_x": [p, p, i, i, p],
+                                     "tracer_y": [i, p, None]}
 
 
 def test_exact_kernels_refuse_unsupported_k():
@@ -192,7 +237,11 @@ BWD_CASES = [pytest.param(*c, id="-".join(map(str, c[:4]))
                        (200, 4, 48, 1.0, False), (128, 8, 128, 0.05, False),
                        (256, 8, 128, 0.05, False), (200, 4, 48, 0.05, False),
                        (128, 8, 128, 1.0, True), (256, 8, 128, 1.0, True),
-                       (128, 8, 128, 0.05, True), (256, 8, 128, 0.05, True)]]
+                       (128, 8, 128, 0.05, True), (256, 8, 128, 0.05, True),
+                       # Rays per tile not a multiple of the blocks' ray
+                       # counts (192; 480 = 256 + 224 = 3 x 128 + 96).
+                       (200, 4, 48, 1.0, True), (256, 5, 96, 1.0, False),
+                       (256, 5, 96, 1.0, True)]]
 
 
 @pytest.mark.cuda
@@ -222,6 +271,92 @@ def test_backward_kernel_matches_twin_on_card(cuda_device, k, tile_h,
     for x in got:
         assert bool(x[0].eq(0).all())          # the empty tile
     assert float(got[3].abs().max()) > 0.0
+
+
+def _dense_case(device):
+    """Flagship tile shape (8 x 128 = 1024 rays, K = 256) on 8 tiles, four
+    of them full, with a cluster of large surfels 6 m ahead: each candidate
+    of a full tile is hit by ~100 of its rays, so every sum gathers the
+    partial sums of many warps and of every block of its tile."""
+    rng = np.random.default_rng(1)
+    bundle = _bundle(1500, 5, device)
+    means = rng.normal(scale=1.5, size=(1500, 3)) + np.array([6.0, 0, 0])
+    bundle = bundle._replace(
+        means=torch.tensor(means, dtype=torch.float32, device=device),
+        scales=bundle.scales * 2.0)
+    grid = t_rays.SensorGrid.from_bounds(16, (-0.3, 0.1), device=device)
+    tile = TileConfig(tile_h=8, tile_w=128, max_per_tile=256, binner="hier")
+    inputs, _ = cuda_tracer.tile_inputs(bundle, grid, 512,
+                                        torch.eye(4, device=device), 3, tile)
+    return inputs
+
+
+def test_dense_case_shares_candidates():
+    """The dense card case below is what it claims, checked on the twin."""
+    inputs = _dense_case("cpu")
+    f = cuda_tracer._pairs(*inputs[:8])
+    assert tuple(f.w.shape) == (8, 1024, 256)
+    assert int((inputs.cnt == 256).sum()) >= 4
+    valid = torch.arange(256) < inputs.cnt[:, None]
+    assert float((f.w > 0).sum(1).float()[valid].mean()) > 64.0
+
+
+def _far_small_case():
+    """Small surfels (1-5 cm) 30-60 m away, many seen edge-on: the cone
+    test's slack for rounding matters most where |U| / |n.d| is large."""
+    rng = np.random.default_rng(3)
+    n = 400
+    bundle = _bundle(n, 3, "cpu")
+    dist = rng.uniform(30.0, 60.0, n)
+    az = rng.uniform(-0.3, 0.3, n)
+    means = np.stack([dist * np.cos(az), dist * np.sin(az),
+                      rng.uniform(-8.0, 3.0, n)], 1)
+    bundle = bundle._replace(
+        means=torch.tensor(means, dtype=torch.float32),
+        scales=torch.tensor(rng.uniform(0.01, 0.05, (n, 2)),
+                            dtype=torch.float32))
+    grid = t_rays.SensorGrid.from_bounds(32, (-0.3, 0.1), device="cpu")
+    tile = TileConfig(tile_h=8, tile_w=128, max_per_tile=256, binner="hier")
+    inputs, _ = cuda_tracer.tile_inputs(bundle, grid, 4096, torch.eye(4), 3,
+                                        tile)
+    return inputs
+
+
+@pytest.mark.parametrize("case", ["dense", "random", "ragged", "far_small"])
+def test_cone_test_never_skips_a_hit(case):
+    """The backward kernel's cone test (its plain float32 version) skips a
+    (warp, candidate) only where no ray of the warp passes the gates, so
+    the replay, which would pass over such a pair unchanged, gives the
+    same gradients; and it does skip."""
+    inputs = {"dense": lambda: _dense_case("cpu"),
+              "random": lambda: _case(256, 257, "cpu"),
+              "ragged": lambda: _case(200, 201, "cpu", 4, 48),
+              "far_small": _far_small_case}[case]()
+    skip = cuda_tracer.cone_skips(inputs.cnt, inputs.dirs, inputs.axes,
+                                  inputs.plane, inputs.inv_scale,
+                                  inputs.opac)
+    f = cuda_tracer._pairs(*inputs[:8])
+    t, r, k = f.alpha.shape
+    nw = skip.shape[1]
+    hit = torch.nn.functional.pad(f.alpha > 0, (0, 0, 0, nw * 32 - r))
+    hit = hit.view(t, nw, 32, k).any(2)
+    assert int(hit.sum()) > 0
+    assert not bool((skip & hit).any())
+    assert int(skip.sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exact", [False, True], ids=["tile", "exact"])
+def test_backward_kernel_dense_flagship_tiles_on_card(cuda_device, exact):
+    inputs = _dense_case(cuda_device)
+    with torch.no_grad():
+        chans, _ = kernels.tracer_forward(*inputs, exact=exact)
+        g = _upstream(chans, 11)
+        got = kernels.tracer_backward(*inputs, chans, g, exact=exact)
+        torch.cuda.synchronize()
+        ref = cuda_tracer.backward_tiles_reference(*inputs, chans, g,
+                                                   exact=exact)
+    _assert_grad_bars(got, ref)
 
 
 @pytest.mark.cuda
