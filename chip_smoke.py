@@ -78,8 +78,10 @@ TRAIN_STEPS = 20
 MODE_STEPS = 10        # training steps in each other mode (phase 12)
 
 # The card's published peaks (NVIDIA H100 SXM data sheet, at 700 W):
-# float32 outside the tensor cores, and device memory bandwidth.
+# float32 outside the tensor cores, TF32 on them, and device memory
+# bandwidth.
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
 # Operations the tracer's work needs, counted per (ray, candidate) pair the
 # kernel must evaluate (the intersection and gates: three 3-dots, the
@@ -90,6 +92,9 @@ PEAK_BYTES = 3.35e12
 PAIR_FLOPS = 30
 FWD_HIT_FLOPS = 120
 BWD_HIT_FLOPS = 230
+# Of the backward's, the d_sh sums (48 multiply-adds) run on the tensor
+# cores, each product as three TF32 products (3xTF32).
+BWD_SH_FLOPS = 96
 
 
 def street_soup(n: int, seed: int) -> dict[str, np.ndarray]:
@@ -343,19 +348,22 @@ def bound(inputs, work: tuple[int, int], backward: bool
     """The least ms the card could take for a tracer kernel's work, and
     what bounds it: the larger of its bytes (each input read once, each
     output written once) over the memory rate and its operations (`work`,
-    from `tracer_work`) over the float32 rate."""
+    from `tracer_work`) over the float32 rate, the backward's d_sh sums
+    over the TF32 rate."""
     t, r = inputs.dirs.shape[:2]
     k = inputs.axes.shape[-1]
     pairs, hits = work
     nbytes = 4 * (t + 5 * t * r + 64 * t * k)   # cnt, dirs/mind/t0, candidates
+    tf32_flops = 0
     if backward:
         nbytes += 4 * (2 * 16 * t * r + 64 * t * k)   # channels, grads in/out
-        flops = pairs * PAIR_FLOPS + hits * BWD_HIT_FLOPS
+        flops = pairs * PAIR_FLOPS + hits * (BWD_HIT_FLOPS - BWD_SH_FLOPS)
+        tf32_flops = 3 * hits * BWD_SH_FLOPS
     else:
         nbytes += 4 * (16 * t * r + t * k)            # channels, accum out
         flops = pairs * PAIR_FLOPS + hits * FWD_HIT_FLOPS
     by_bytes = nbytes / PEAK_BYTES * 1e3
-    by_ops = flops / PEAK_F32_FLOPS * 1e3
+    by_ops = (flops / PEAK_F32_FLOPS + tf32_flops / PEAK_TF32_FLOPS) * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
                                                            "operations")
 
@@ -911,6 +919,7 @@ def main() -> None:
                                        args.seed + 2), dev),
             frames, opts, mode_cfg)
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
         kernels.reset_launches()
         step_ms = []
         for _ in range(MODE_STEPS):
@@ -922,6 +931,7 @@ def main() -> None:
         got = (kernels.forward_launches, kernels.backward_launches,
                kernels.forward_exact_launches,
                kernels.backward_exact_launches)
+        mode_peak_mib = torch.cuda.max_memory_allocated(dev) / 2 ** 20
         mode_launches[label] = got
         loss = [h["loss"] for h in trainer.history]
         seen = [h["frame"] for h in trainer.history]
@@ -933,7 +943,8 @@ def main() -> None:
               f"(expected {want_rebins} for frames {seen}); loss "
               f"{[round(x, 5) for x in loss]}; step median "
               f"{statistics.median(step_ms):.3f} ms (min {min(step_ms):.3f},"
-              f" max {max(step_ms):.3f}, host clock)")
+              f" max {max(step_ms):.3f}, host clock); peak allocated "
+              f"{mode_peak_mib:.1f} MiB")
         _check(got == want, f"{label} training launches {got}, want {want}")
         _check(rebins == want_rebins, f"{label}: {rebins} rebins, expected "
                f"{want_rebins}")

@@ -41,39 +41,47 @@
 // Design.  Per candidate, each of the 63 gradient rows is a sum over the
 // tile's rays of a per-ray feature (SH basis, direction, g_5..g_7, 1) times
 // a per-pair scalar.  tracer_backward_kernel takes these sums for a block
-// of 128 rays, one thread each, staging 128 candidates at a time in shared
-// memory: a warp reduces a candidate's 63 values across its 32 rays with a
-// transposing butterfly (at each of five steps every lane trades half of
-// its values with its partner, so 32 values cost 31 shuffles in all and
-// lane l ends with the warp's total of value l), and one atomicAdd per
-// lane lands 32 sums at once, two rounds per (warp, candidate).
+// of 128 rays, one thread each, staging 64 candidates at a time in shared
+// memory, one warp of 32 rays per sum:
+//  - rows 0-14 (the 10 geometric scalars against direction, g_5..g_7 and
+//    1) with a 16-value transposing butterfly in each half-warp (at each
+//    step every lane trades half of its values with its partner, so lane l
+//    ends with its half's total of value l & 15), then one atomicAdd per
+//    lane, two per row;
+//  - the 48 d_sh rows, basis_s x x_ch, as the contraction the TPU kernel
+//    takes (pallas_backward.py dot_rays): the warp writes each composited
+//    candidate's x_ch to shared memory, and every 8 candidates
+//    colour_sums multiplies the (16 x 32) basis of its lanes by the (32 x
+//    24) x's on the tensor cores (mma.sync TF32, split 3xTF32 for float32
+//    accuracy), 36 MMAs in place of 8 x 48 products and 8 x 1.5 butterflies.
 //
-// What bounds it on this card (H100; scripts/torch_backward_variants.py,
-// numbers in PERF.md): the (warp, candidate) steps that hold a composited
-// pair, ~274 K at the training render's inputs of ~1.19 M steps in all;
-// each costs ~550 instructions of replay, chain, butterflies and atomics.
-// The kernel is latency-bound: 3 blocks per SM instead of 6 cost ~20%, and
-// the exact order's sums kernel, which reads its pairs instead of
-// replaying them, takes ~95% of the tile order's time.  What the design
-// does about it:
+// What bounds it on this card (H100; numbers in PERF.md, from
+// chip_smoke.py): the dependent chain of each (warp, candidate) step that
+// holds a composited pair (~274 K of ~1.19 M steps at the training
+// render's inputs): intersection, shading, the transmittance and prefix
+// recurrence, the chain to the 63 values, and their sums.  It is latency-
+// bound: the tensor-core contraction, which takes fewer instructions than
+// the butterflies it replaced, gains only where more candidates are
+// composited, while shortening the chain (one fast division for
+// dL/dalpha, one for dL/dp, where there were five IEEE divisions) gains
+// ~13%, and every register spilled or block per SM lost costs more than an
+// instruction saved.  What the design does about it:
 //  - a warp first tests 32 candidates at once, one per lane, against a box
 //    around its rays' unit directions (warp_cone, cone_misses: a
 //    conservative bound on the splat coordinates of every direction in
 //    the box), and visits only the candidates the test cannot rule out:
-//    ~68% of the steps are skipped, ~19% of the time.  A skipped pair has
-//    alpha = 0 for every ray of the warp, which the replay would pass over
-//    with no change to T, to the prefix or to the stop (T stays at or
-//    above T_MIN once a ray has passed candidate 0, which is never
-//    skipped), so the gradients are the same;
-//  - registers are held to 80 (launch bound of 6 blocks per SM, the most
-//    its 32 KB of shared memory allows), and the test's box lives in
-//    shared memory;
+//    ~68% of the steps are skipped.  A skipped pair has alpha = 0 for
+//    every ray of the warp, which the replay would pass over with no
+//    change to T, to the prefix or to the stop (T stays at or above T_MIN
+//    once a ray has passed candidate 0, which is never skipped), so the
+//    gradients are the same;
+//  - registers are held to 80 (launch bound of 6 blocks per SM, which its
+//    37 KB of shared memory also allows), with the MMA fragments in a
+//    function of their own and the test's box in shared memory;
+//  - the gradient divisions, which decide no gate, use __fdividef (2 ulp);
 //  - blocks take the tiles in reverse order, heavy ground tiles first:
 //    ~5-7% off the tail of the grid (1,344 blocks for 792 resident).
-// Variants that lost (PERF.md): candidate-major staging with a per-block
-// shared-memory accumulator, two rays per thread (140 registers), 16-value
-// butterflies over 64-candidate chunks at 64 registers (spills), a
-// per-group shared-memory accumulator (5 blocks per SM).
+// Variants that lost are in PERF.md.
 //
 // Exact order runs two kernels.  tracer_backward_exact_kernel replays the
 // forward's depth-order walk (the same nearest_hits passes, so the same
@@ -92,33 +100,24 @@
 
 #include "tracer_common.cuh"
 
-// Build-time shape of the kernels.  Builds with -D overrides give the
-// variants timed by scripts/torch_backward_variants.py.
-#ifndef TRACER_BWD_CULL
-#define TRACER_BWD_CULL 1
-#endif
-#ifndef TRACER_BWD_WALK_RAYS
-#define TRACER_BWD_WALK_RAYS 256
-#endif
-#ifndef TRACER_BWD_MIN_BLOCKS
-#define TRACER_BWD_MIN_BLOCKS 6
-#endif
-
 namespace {
 
 using namespace tracer;
 
 constexpr int kGradRows = 64;  // rows of the (T, 64, K) gradient output
 constexpr int kShRow = 16;     // first d_sh row
-constexpr bool kCull = TRACER_BWD_CULL != 0;  // the sums kernel's cone test
-constexpr int kWalkRays = TRACER_BWD_WALK_RAYS;  // rays per exact walk block
+constexpr int kSumChunk = 64;  // candidates the sums kernel stages per round
+constexpr int kWarps = kThreads / 32;
+constexpr int kSlots = 8;      // candidates per colour contraction
+constexpr int kWalkRays = 256;  // rays per exact walk block
 
+static_assert(kSumChunk <= kThreads, "each thread stages one candidate");
 static_assert(kWalkRays % 32 == 0, "whole warps");
 
 // One butterfly step: a lane keeps the half of its kHalf * 2 live values
 // selected by its lane bit kHalf and adds its partner's copy of that half.
 template <int kHalf>
-__device__ __forceinline__ void butterfly_step(float (&v)[32], int lane) {
+__device__ __forceinline__ void butterfly_step(float (&v)[16], int lane) {
   const bool upper = (lane & kHalf) != 0;
 #pragma unroll
   for (int i = 0; i < kHalf; ++i) {
@@ -128,12 +127,11 @@ __device__ __forceinline__ void butterfly_step(float (&v)[32], int lane) {
   }
 }
 
-// Lane l of the warp returns the sum over the warp's lanes of v[l]; v is
-// clobbered.  Every index is a compile-time constant, so v stays in
-// registers.
-__device__ __forceinline__ float warp_transpose_sum(float (&v)[32],
-                                                    int lane) {
-  butterfly_step<16>(v, lane);
+// Lane l of the warp returns the sum of v[l & 15] over the 16 lanes of its
+// half-warp; v is clobbered.  Every index is a compile-time constant, so v
+// stays in registers.
+__device__ __forceinline__ float half_warp_transpose_sum(float (&v)[16],
+                                                         int lane) {
   butterfly_step<8>(v, lane);
   butterfly_step<4>(v, lane);
   butterfly_step<2>(v, lane);
@@ -149,6 +147,86 @@ __device__ __forceinline__ void add_row(float* __restrict__ grads,
   }
 }
 
+// Lane l's word of row r in a warp's shared (rows, 32 lanes) array.  Row r
+// is rotated by 4 r lanes, so that the mma fragment loads of
+// colour_sums, 8 rows by 4 lanes at once, hit 32 different banks.
+__device__ __forceinline__ int lane_word(int r, int l) {
+  return r * 32 + ((l + 4 * r) & 31);
+}
+
+// x as hi + lo for the TF32 tensor cores, which read only the top 19
+// bits of an operand: hi is x with its low 13 mantissa bits cleared and lo
+// = x - hi (exact), so hi + lo, as read, is x to within 2^-20 |x|.  Two
+// instructions, where cvt.rna.tf32.f32 is several.
+__device__ __forceinline__ void split_tf32(float x, unsigned& hi,
+                                           unsigned& lo) {
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// d += a b on the tensor cores: a (16 x 8, row-major), b (8 x 8), d
+// (16 x 8), float accumulation, one warp.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
+                                         const unsigned (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The d_sh rows of up to kSlots candidates at once, as the product the
+// TPU kernel takes over rays: d_sh[ch][s][cand] = sum over the warp's 32
+// lanes of basis_s(lane) x_ch(lane, cand).  s_basis holds the lanes' SH
+// basis (16 rows), s_x their x_ch for each slot (row ch * kSlots + slot),
+// both in lane_word order; lane p's slot_cand is slot p's candidate, and
+// slots [pending, kSlots) are ignored.  Three TF32 products per term
+// (hi hi, hi lo, lo hi: the 3xTF32 split) keep float32's accuracy.  Every
+// lane of the warp calls it.  Not inlined: its fragments would otherwise
+// share the candidate loop's registers and spill the loop's state.
+__device__ __noinline__ void colour_sums(const float* s_basis,
+                                            const float* s_x, int pending,
+                                            int slot_cand,
+                                            float* __restrict__ grads,
+                                            long long tile, int k, int lane) {
+  __syncwarp();
+  const int grp = lane >> 2, tig = lane & 3;
+  float d[3][4] = {};
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {  // lanes [8 q, 8 q + 8)
+    const int l0 = 8 * q + tig, l1 = l0 + 4;
+    unsigned ah[4], al[4];
+    split_tf32(s_basis[lane_word(grp, l0)], ah[0], al[0]);
+    split_tf32(s_basis[lane_word(grp + 8, l0)], ah[1], al[1]);
+    split_tf32(s_basis[lane_word(grp, l1)], ah[2], al[2]);
+    split_tf32(s_basis[lane_word(grp + 8, l1)], ah[3], al[3]);
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) {
+      unsigned bh[2], bl[2];
+      split_tf32(s_x[lane_word(ch * kSlots + grp, l0)], bh[0], bl[0]);
+      split_tf32(s_x[lane_word(ch * kSlots + grp, l1)], bh[1], bl[1]);
+      mma_tf32(d[ch], al, bh);
+      mma_tf32(d[ch], ah, bl);
+      mma_tf32(d[ch], ah, bh);
+    }
+  }
+  // d[ch] = rows (grp, grp + 8) x slots (2 tig, 2 tig + 1).
+  const int p0 = 2 * tig, p1 = p0 + 1;
+  const int c0 = __shfl_sync(0xffffffffu, slot_cand, p0);
+  const int c1 = __shfl_sync(0xffffffffu, slot_cand, p1);
+#pragma unroll
+  for (int ch = 0; ch < 3; ++ch) {
+    const int row = kShRow + 16 * ch + grp;
+    if (p0 < pending) {
+      add_row(grads, tile, row, k, c0, d[ch][0]);
+      add_row(grads, tile, row + 8, k, c0, d[ch][2]);
+    }
+    if (p1 < pending) {
+      add_row(grads, tile, row, k, c1, d[ch][1]);
+      add_row(grads, tile, row + 8, k, c1, d[ch][3]);
+    }
+  }
+  __syncwarp();
+}
 
 // A ray's inputs: its direction, min range and t0, the upstream gradients
 // of its 10 channel rows, gw_total = sum_ch g_ch S_ch over the forward's
@@ -188,7 +266,7 @@ __device__ __forceinline__ void replay_hit(
   const bool grad_gate = h.alpha > 0.0f && h.alpha_raw < kAlphaMax;
   if (next < kTMin) {
     alive = false;  // the stop hit: seen by the raw-T row only
-    if (grad_gate) d_alpha = -g_raw / one_m;
+    if (grad_gate) d_alpha = -__fdividef(g_raw, one_m);
   } else if (h.alpha > 0.0f) {
     w = h.alpha * trans;
     float c0, c1, c2;
@@ -202,8 +280,8 @@ __device__ __forceinline__ void replay_hit(
     prefix += gw * w;
     if (grad_gate) {
       const float suffix = gw_total - prefix;
-      d_alpha = gw * trans - suffix / one_m - g[8] * t_out / one_m
-                - g_raw / one_m;
+      d_alpha = gw * trans
+                - __fdividef(suffix + g[8] * t_out + g_raw, one_m);
     }
     x0 = col0 > 0.0f ? g[0] * w : 0.0f;
     x1 = g[1] * w;
@@ -230,14 +308,14 @@ __device__ __forceinline__ PairGrad pair_grad(Rows s_geo, int j,
   const float d_u = -d_gg * h.u;
   const float d_v = -d_gg * h.v;
   const float d_t = d_u * is0 * h.bu + d_v * is1 * h.bv + g3 * w;
-  p.d_qd = -d_t * h.t / h.qd;
+  p.d_p = __fdividef(d_t, h.qd);  // dL/dp
+  p.d_qd = -p.d_p * h.t;
   p.d_au = d_u * is0;
   p.d_av = d_v * is1;
   p.d_is0 = d_u * (s_geo[kAu][j] + h.t * h.bu);
   p.d_is1 = d_v * (s_geo[kAv][j] + h.t * h.bv);
   p.d_bu = p.d_au * h.t;
   p.d_bv = p.d_av * h.t;
-  p.d_p = d_t / h.qd;  // dL/dp
   p.sw = s_geo[kSign][j] * w;
   return p;
 }
@@ -342,7 +420,8 @@ __device__ __forceinline__ Cone warp_cone(float dx, float dy, float dz,
 // c_min |n.c| - ... from below); where n.d may change sign the test gives
 // up.  The lower bounds are shrunk by a slack far above the rounding of
 // intersect()'s float arithmetic, and the test asks for 5% more than the
-// gate's radius squared.
+// gate's radius squared; so its own divisions and log can be the fast ones
+// (__fdividef, __logf: a few ulp).
 template <typename Rows>
 __device__ __forceinline__ bool cone_misses(Rows s_geo, int j,
                                             const Cone& b) {
@@ -368,8 +447,8 @@ __device__ __forceinline__ bool cone_misses(Rows s_geo, int j,
                        + b.a2 * fabsf(dot3(b.e2, nx, ny, nz));
   const float qd_lo = b.c_min * n_c - n_side;  // least |n.d| in the box
   if (!(qd_lo > 0.0f)) return false;
-  const float qd_hi = n_c + n_side;
-  const float amp = (1.0f + n_len / qd_lo) / qd_lo;
+  const float inv_hi = __fdividef(1.0f, n_c + n_side);
+  const float amp = __fdividef(1.0f + __fdividef(n_len, qd_lo), qd_lo);
   const float slack_u = 1e-4f * fabsf(is0) * amp
       * (fabsf(au) * n_len + fabsf(p) * sqrtf(w1x * w1x + w1y * w1y
                                               + w1z * w1z));
@@ -379,14 +458,14 @@ __device__ __forceinline__ bool cone_misses(Rows s_geo, int j,
   const float u_lo = fmaxf(
       (b.c_min * fabsf(dot3(b.c, ux, uy, uz))
        - b.a1 * fabsf(dot3(b.e1, ux, uy, uz))
-       - b.a2 * fabsf(dot3(b.e2, ux, uy, uz))) / qd_hi - slack_u,
+       - b.a2 * fabsf(dot3(b.e2, ux, uy, uz))) * inv_hi - slack_u,
       0.0f);
   const float v_lo = fmaxf(
       (b.c_min * fabsf(dot3(b.c, vx, vy, vz))
        - b.a1 * fabsf(dot3(b.e1, vx, vy, vz))
-       - b.a2 * fabsf(dot3(b.e2, vx, vy, vz))) / qd_hi - slack_v,
+       - b.a2 * fabsf(dot3(b.e2, vx, vy, vz))) * inv_hi - slack_v,
       0.0f);
-  const float r2 = 2.0f * logf(opacity / kAlphaMin);
+  const float r2 = 2.0f * __logf(__fdividef(opacity, kAlphaMin));
   return u_lo * u_lo + v_lo * v_lo > 1.05f * r2 + 0.05f;
 }
 
@@ -397,10 +476,12 @@ __device__ __forceinline__ bool cone_misses(Rows s_geo, int j,
 // its cone of rays may hit (cone_misses, tested 32 candidates at a time,
 // one per lane): the others have alpha = 0 for all its rays, which the
 // replay would pass over without a change, except candidate 0, where a
-// ray whose t0 is already below T_MIN stops.
+// ray whose t0 is already below T_MIN stops.  Of a visited candidate with
+// a pair in the warp, rows 0-14 are summed at once in each half-warp; the
+// colour terms go to the warp's next slot, and every kSlots candidates
+// colour_sums takes the d_sh rows of all of them.
 template <bool kFromPairs>
-__global__ void __launch_bounds__(kThreads, TRACER_BWD_MIN_BLOCKS)
-    tracer_backward_kernel(
+__global__ void __launch_bounds__(kThreads, 6) tracer_backward_kernel(
     const int* __restrict__ cnt, const float* __restrict__ dirs,
     const float* __restrict__ mind, const float* __restrict__ t0,
     const float* __restrict__ axes, const float* __restrict__ plane,
@@ -409,8 +490,13 @@ __global__ void __launch_bounds__(kThreads, TRACER_BWD_MIN_BLOCKS)
     const float* __restrict__ fwd_chans, const float* __restrict__ g_chans,
     const float2* __restrict__ pairs, float* __restrict__ grads, int rays,
     int k) {
-  __shared__ float s_geo[kGeo][kChunk];
-  __shared__ float s_sh[kSh][kChunk];
+  __shared__ float s_geo[kGeo][kSumChunk];
+  __shared__ float s_sh[kSh][kSumChunk];
+  __shared__ float s_basis_all[kWarps][16 * 32];
+  __shared__ float s_x_all[kWarps][3 * kSlots * 32];
+  // Each warp's box, kept in shared memory: it is read once per 32
+  // candidates, and registers are what limits this kernel's occupancy.
+  __shared__ Cone s_cone[kWarps];
 
   // Tiles run last-first: a scan's tiles go from its top beam down, and
   // the lower ones, on the ground near the sensor, hold the most hits, so
@@ -419,7 +505,10 @@ __global__ void __launch_bounds__(kThreads, TRACER_BWD_MIN_BLOCKS)
   const int ray = blockIdx.x * kThreads + threadIdx.x;
   const bool has_ray = ray < rays;
   const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x / 32;
   const long long ray_at = tile * rays + ray;
+  float* s_basis = s_basis_all[warp];
+  float* s_x = s_x_all[warp];
 
   float dx = 0.0f, dy = 0.0f, dz = 0.0f, min_t = 0.0f, trans0 = 0.0f;
   float g[10] = {};
@@ -431,22 +520,25 @@ __global__ void __launch_bounds__(kThreads, TRACER_BWD_MIN_BLOCKS)
   }
   float basis[16];
   sh_basis(dx, dy, dz, basis);
-  // Each warp's box, kept in shared memory: it is read once per 32
-  // candidates, and registers are what limits this kernel's occupancy.
-  __shared__ Cone s_cone[kThreads / 32];
+#pragma unroll
+  for (int s = 0; s < 16; ++s) s_basis[lane_word(s, lane)] = basis[s];
+#pragma unroll
+  for (int r = 0; r < 3 * kSlots; ++r) s_x[lane_word(r, lane)] = 0.0f;
   {
     const Cone cone = warp_cone(dx, dy, dz, has_ray);
-    if (lane == 0) s_cone[threadIdx.x / 32] = cone;
+    if (lane == 0) s_cone[warp] = cone;
     __syncwarp();
   }
-  const Cone& cone = s_cone[threadIdx.x / 32];
+  const Cone& cone = s_cone[warp];
 
   float trans = trans0;
   float prefix = 0.0f;  // running sum of gw * w over composited hits
   bool alive = has_ray;
+  int pending = 0;      // filled colour slots, the same in every lane
+  int slot_cand = 0;    // lane p < pending: slot p's candidate
 
   const int count = min(max(cnt[tile], 0), k);
-  for (int base = 0; base < count; base += kChunk) {
+  for (int base = 0; base < count; base += kSumChunk) {
     // Barrier before shared memory is overwritten; in tile order the
     // whole block stops once none of its rays is alive.
     if (kFromPairs) {
@@ -454,7 +546,7 @@ __global__ void __launch_bounds__(kThreads, TRACER_BWD_MIN_BLOCKS)
     } else if (!__syncthreads_or(alive)) {
       break;
     }
-    const int n = min(kChunk, count - base);
+    const int n = min(kSumChunk, count - base);
     stage_chunk(s_geo, s_sh, tile, k, base, n, axes, plane, inv_scale, opac,
                 sign, sh);
     __syncthreads();
@@ -462,7 +554,7 @@ __global__ void __launch_bounds__(kThreads, TRACER_BWD_MIN_BLOCKS)
 
     for (int group = 0; group < n; group += 32) {
       const int mine = group + lane;
-      const bool visit = mine < n && (!kCull || (base == 0 && mine == 0)
+      const bool visit = mine < n && ((base == 0 && mine == 0)
                                       || !cone_misses(s_geo, mine, cone));
       unsigned todo = __ballot_sync(0xffffffffu, visit);
       while (todo != 0u) {
@@ -495,41 +587,48 @@ __global__ void __launch_bounds__(kThreads, TRACER_BWD_MIN_BLOCKS)
         }
         const bool active = d_alpha != 0.0f || w != 0.0f;
         if (!__any_sync(0xffffffffu, active)) continue;
-
-        // The chain for this lane's pair (zeros where it has none).
-        float v[32];
-        PairGrad p = {};
-        if (active) p = pair_grad(s_geo, j, h, d_alpha, w, g[3]);
-        v[0] = dx * p.d_qd + p.sw * g[5];
-        v[1] = dy * p.d_qd + p.sw * g[6];
-        v[2] = dz * p.d_qd + p.sw * g[7];
-        v[3] = dx * p.d_bu;
-        v[4] = dy * p.d_bu;
-        v[5] = dz * p.d_bu;
-        v[6] = dx * p.d_bv;
-        v[7] = dy * p.d_bv;
-        v[8] = dz * p.d_bv;
-        v[9] = p.d_p;
-        v[10] = p.d_au;
-        v[11] = p.d_av;
-        v[12] = p.d_is0;
-        v[13] = p.d_is1;
-        v[14] = p.d_op;
-        v[15] = 0.0f;
-#pragma unroll
-        for (int s = 0; s < 16; ++s) v[kShRow + s] = basis[s] * x0;
         const int cand = base + j;
-        add_row(grads, tile, lane, k, cand, warp_transpose_sum(v, lane));
 
-        if (!__any_sync(0xffffffffu, w != 0.0f)) continue;
-#pragma unroll
-        for (int s = 0; s < 16; ++s) {
-          v[s] = basis[s] * x1;
-          v[16 + s] = basis[s] * x2;
+        // Rows 0-14 for this lane's pair (zeros where it has none).
+        {
+          float v[16];
+          PairGrad p = {};
+          if (active) p = pair_grad(s_geo, j, h, d_alpha, w, g[3]);
+          v[0] = dx * p.d_qd + p.sw * g[5];
+          v[1] = dy * p.d_qd + p.sw * g[6];
+          v[2] = dz * p.d_qd + p.sw * g[7];
+          v[3] = dx * p.d_bu;
+          v[4] = dy * p.d_bu;
+          v[5] = dz * p.d_bu;
+          v[6] = dx * p.d_bv;
+          v[7] = dy * p.d_bv;
+          v[8] = dz * p.d_bv;
+          v[9] = p.d_p;
+          v[10] = p.d_au;
+          v[11] = p.d_av;
+          v[12] = p.d_is0;
+          v[13] = p.d_is1;
+          v[14] = p.d_op;
+          v[15] = 0.0f;
+          const float sum = half_warp_transpose_sum(v, lane);
+          if ((lane & 15) < 15) add_row(grads, tile, lane & 15, k, cand, sum);
         }
-        add_row(grads, tile, 32 + lane, k, cand, warp_transpose_sum(v, lane));
+
+        // The colour terms, summed kSlots candidates at a time.
+        if (!__any_sync(0xffffffffu, w != 0.0f)) continue;
+        s_x[lane_word(pending, lane)] = x0;
+        s_x[lane_word(kSlots + pending, lane)] = x1;
+        s_x[lane_word(2 * kSlots + pending, lane)] = x2;
+        if (lane == pending) slot_cand = cand;
+        if (++pending == kSlots) {
+          colour_sums(s_basis, s_x, pending, slot_cand, grads, tile, k, lane);
+          pending = 0;
+        }
       }
     }
+  }
+  if (pending > 0) {
+    colour_sums(s_basis, s_x, pending, slot_cand, grads, tile, k, lane);
   }
 }
 
@@ -569,6 +668,9 @@ __global__ void __launch_bounds__(kWalkRays) tracer_backward_exact_kernel(
     const long long at = tile * kOutRows * rays + ray;
     load_ray(ray_at, rays, dirs, mind, t0, fwd_chans + at, g_chans + at, dx,
              dy, dz, min_t, trans0, g, gw_total, t_out, g_raw);
+    // Zero this ray's pairs here, where the coalesced stores overlap the
+    // walk's arithmetic: a memset of the buffer would be a pass of its own
+    // over the same bytes, slower on the card (PERF.md).
     for (int j = 0; j < count; ++j) {
       mine[static_cast<long long>(j) * rays] = make_float2(0.0f, 0.0f);
     }

@@ -155,10 +155,12 @@ __device__ __forceinline__ void shade(const float basis[16], Rows s_sh,
   }
 }
 
-// Stage candidates [base, base + n) of `tile` into shared memory: thread i
-// loads candidate base + i.  Inputs are (T, rows, K) row-major.
+// Stage candidates [base, base + n) of `tile` into shared memory, rows of
+// kN floats (n <= kN): thread i loads candidate base + i.  Inputs are (T,
+// rows, K) row-major.
+template <int kN>
 __device__ __forceinline__ void stage_chunk(
-    float (*s_geo)[kChunk], float (*s_sh)[kChunk], long long tile, int k,
+    float (*s_geo)[kN], float (*s_sh)[kN], long long tile, int k,
     int base, int n, const float* __restrict__ axes,
     const float* __restrict__ plane, const float* __restrict__ inv_scale,
     const float* __restrict__ opac, const float* __restrict__ sign,

@@ -301,24 +301,25 @@ def test_dense_case_shares_candidates():
     assert float((f.w > 0).sum(1).float()[valid].mean()) > 64.0
 
 
-def _far_small_case():
+def _far_small_case(device="cpu"):
     """Small surfels (1-5 cm) 30-60 m away, many seen edge-on: the cone
     test's slack for rounding matters most where |U| / |n.d| is large."""
     rng = np.random.default_rng(3)
     n = 400
-    bundle = _bundle(n, 3, "cpu")
+    bundle = _bundle(n, 3, device)
     dist = rng.uniform(30.0, 60.0, n)
     az = rng.uniform(-0.3, 0.3, n)
     means = np.stack([dist * np.cos(az), dist * np.sin(az),
                       rng.uniform(-8.0, 3.0, n)], 1)
     bundle = bundle._replace(
-        means=torch.tensor(means, dtype=torch.float32),
+        means=torch.tensor(means, dtype=torch.float32,
+                           device=device),
         scales=torch.tensor(rng.uniform(0.01, 0.05, (n, 2)),
-                            dtype=torch.float32))
-    grid = t_rays.SensorGrid.from_bounds(32, (-0.3, 0.1), device="cpu")
+                            dtype=torch.float32, device=device))
+    grid = t_rays.SensorGrid.from_bounds(32, (-0.3, 0.1), device=device)
     tile = TileConfig(tile_h=8, tile_w=128, max_per_tile=256, binner="hier")
-    inputs, _ = cuda_tracer.tile_inputs(bundle, grid, 4096, torch.eye(4), 3,
-                                        tile)
+    inputs, _ = cuda_tracer.tile_inputs(bundle, grid, 4096,
+                                        torch.eye(4, device=device), 3, tile)
     return inputs
 
 
@@ -343,6 +344,61 @@ def test_cone_test_never_skips_a_hit(case):
     assert int(hit.sum()) > 0
     assert not bool((skip & hit).any())
     assert int(skip.sum()) > 0
+
+
+def _permuted_rays(inputs, seed=0):
+    """The same tiles with each tile's rays in one random order: every sum
+    over a tile's rays is the same, but each warp's 32 rays scatter over
+    the tile, so that the cone test rules out almost nothing."""
+    order = torch.randperm(inputs.mind.shape[1], generator=torch.Generator(
+        ).manual_seed(seed)).to(inputs.dirs.device)
+    return inputs._replace(dirs=inputs.dirs[:, order].contiguous(),
+                           mind=inputs.mind[:, order].contiguous(),
+                           t0=inputs.t0[:, order].contiguous())
+
+
+CULL_CASES = {"dense": _dense_case,
+              "random": lambda device: _case(256, 257, device),
+              "ragged": lambda device: _case(200, 201, device, 4, 48),
+              "far_small": _far_small_case}
+
+
+def _skips(inputs) -> int:
+    return int(cuda_tracer.cone_skips(inputs.cnt, inputs.dirs, inputs.axes,
+                                      inputs.plane, inputs.inv_scale,
+                                      inputs.opac).sum())
+
+
+@pytest.mark.parametrize("case", sorted(CULL_CASES))
+def test_permuted_rays_defeat_the_cone_test(case):
+    """The premise of the card test below, on the cone test's twin."""
+    inputs = CULL_CASES[case]("cpu")
+    assert _skips(_permuted_rays(inputs)) * 10 < _skips(inputs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exact", [False, True], ids=["tile", "exact"])
+@pytest.mark.parametrize("case", ["dense", "random", "far_small"])
+def test_backward_cull_drops_no_pair_on_card(cuda_device, case, exact):
+    """The kernel's own cone test skips no pair.  With an upstream gradient
+    on channel 1 only, d_sh[1][0] of a candidate is b_0 times the sum of
+    its rays' weights, a sum of positive terms; the same tiles with their
+    rays permuted, where the cone test rules out almost nothing, must give
+    every candidate the same sum to float rounding, so a dropped pair would
+    show as its candidate's missing weight."""
+    inputs = CULL_CASES[case](cuda_device)
+    sums = []
+    with torch.no_grad():
+        for x in (inputs, _permuted_rays(inputs)):
+            chans, _ = kernels.tracer_forward(*x, exact=exact)
+            g = torch.zeros_like(chans)
+            g[:, 1] = 1.0
+            sums.append(kernels.tracer_backward(*x, chans, g,
+                                                exact=exact)[4][:, 1, 0])
+        torch.cuda.synchronize()
+    assert int((sums[0] > 0).sum()) > 0
+    assert torch.equal(sums[0] > 0, sums[1] > 0)
+    torch.testing.assert_close(sums[0], sums[1], rtol=1e-5, atol=0)
 
 
 @pytest.mark.cuda
