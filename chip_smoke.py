@@ -30,7 +30,11 @@ On one CUDA card it:
      peak memory and a device profile of one step;
   9. holds the exact-order (per-ray depth order) forward and backward
      kernels to their plain twins on phase 3's tile inputs and at K=128,
-     and times them beside the tile-order kernels;
+     and times them beside the tile-order kernels; then, for both forward
+     kernels, prints the share of (warp, candidate) steps their box test
+     skips at the training and the serving inputs, times each at both,
+     and checks in both orders that the same tiles with their rays
+     permuted (where the test skips almost nothing) give the same bits;
  10. serves in the other modes: an exact-order `render_scan` and 4-pose
      `resimulate`, `render_multi_return` (dual returns) and a
      `render_scan` with one tail pass, each against the torch engine in
@@ -90,6 +94,10 @@ PEAK_BYTES = 3.35e12
 # dL/dw, dL/dalpha, the chain to the candidate's fields and its 63 sums).
 # Ordering a ray's hits by depth is not counted: the bound stays a floor.
 PAIR_FLOPS = 30
+# Per box test of a (32-ray warp, candidate) step: the splat axes U and V,
+# the bounds of |n.d|, |U.d| and |V.d| over the warp's box, their slacks
+# and the gate's radius.
+CONE_FLOPS = 130
 FWD_HIT_FLOPS = 120
 BWD_HIT_FLOPS = 230
 # Of the backward's, the d_sh sums (48 multiply-adds) run on the tensor
@@ -322,50 +330,102 @@ def expected_rebins(frames_seen: list[int], num_frames: int,
     return count
 
 
-def tracer_work(inputs, exact: bool) -> tuple[int, int]:
-    """(pairs the kernel must evaluate, hits it composites) on these tile
-    inputs, from the plain twin's replay: in tile order a ray evaluates its
-    candidates up to the one that stops it; in exact order every candidate
-    (any may be the nearest)."""
+def tracer_work(inputs, exact: bool) -> dict[str, int | float]:
+    """The work of a tracer kernel on these tile inputs, from the plain
+    twin's replay and the kernels' box test (`cone_skips`, its plain twin),
+    in (tile, 32-ray warp, candidate) steps and (ray, candidate) pairs.  A
+    ray reaches its candidates up to the one that stops it in tile order,
+    and every candidate in exact order (any may be the nearest).
+
+    `steps`: every step below cnt; `skipped`: those the box test rules
+    out; `tests`: the steps some ray of the warp reaches, one box test
+    each; `visited`: those of them the test leaves (in tile order
+    candidate 0 always); `composited`: the steps holding a composited
+    pair; `pairs`: the pairs of visited steps that their ray reaches;
+    `all_pairs`: every pair a ray reaches, with no box test; `hits`: the
+    pairs composited; and the visited steps per warp and per 128-ray block
+    (its busiest warp), mean and max."""
     from lidar_rt_tpu_torch.ops import cuda_tracer
+
+    t, r = inputs.dirs.shape[:2]
+    k = inputs.axes.shape[-1]
+    warps = -(-r // 32)
+
+    def by_warp(x):                   # (T, R, K) -> (T, W, 32, K)
+        return torch.nn.functional.pad(x, (0, 0, 0, warps * 32 - r)).view(
+            t, warps, 32, k)
 
     with torch.no_grad():
         f = cuda_tracer._pairs(*inputs[:8], exact=exact)
-        k = inputs.axes.shape[-1]
-        cnt = inputs.cnt.clamp(0, k).to(torch.int64)
+        cnt = inputs.cnt.clamp(0, k)
+        idx = torch.arange(k, device=cnt.device)
+        in_cnt = idx < cnt[:, None]                                  # (T, K)
         if exact:
-            pairs = int(cnt.sum()) * inputs.dirs.shape[1]
+            walk = cnt[:, None].expand(t, r)
         else:
-            in_cnt = torch.arange(k, device=cnt.device) < cnt[:, None]
-            live = (f.live & in_cnt[:, None, :]).sum(-1)        # (T, R)
-            pairs = int(torch.minimum(live + 1, cnt[:, None]).sum())
-        hits = int((f.w > 0).sum())
-    return pairs, hits
+            walk = torch.minimum((f.live & in_cnt[:, None]).sum(-1) + 1,
+                                 cnt[:, None])                       # (T, R)
+        reached = idx < walk[..., None]                           # (T, R, K)
+        tested = by_warp(reached).any(2)                          # (T, W, K)
+        skip = cuda_tracer.cone_skips(inputs.cnt, inputs.dirs, inputs.axes,
+                                      inputs.plane, inputs.inv_scale,
+                                      inputs.opac)
+        visited = tested & (~skip if exact else ~skip | (idx == 0))
+        per_warp = visited.sum(-1).float()                           # (T, W)
+        per_block = torch.nn.functional.pad(
+            per_warp, (0, -warps % 4)).view(t, -1, 4).amax(-1)
+        return {
+            "steps": int(in_cnt.sum()) * warps, "skipped": int(skip.sum()),
+            "tests": int(tested.sum()), "visited": int(visited.sum()),
+            "composited": int(by_warp(f.w > 0).any(2).sum()),
+            "pairs": int((by_warp(reached) & visited[:, :, None]).sum()),
+            "all_pairs": int(reached.sum()), "hits": int((f.w > 0).sum()),
+            "warp_mean": per_warp.mean().item(),
+            "warp_max": per_warp.max().item(),
+            "block_mean": per_block.mean().item(),
+            "block_max": per_block.max().item()}
 
 
-def bound(inputs, work: tuple[int, int], backward: bool
+def bound(inputs, work: dict, backward: bool, culled: bool = True
           ) -> tuple[float, str]:
     """The least ms the card could take for a tracer kernel's work, and
     what bounds it: the larger of its bytes (each input read once, each
-    output written once) over the memory rate and its operations (`work`,
-    from `tracer_work`) over the float32 rate, the backward's d_sh sums
-    over the TF32 rate."""
+    output written once) over the memory rate and its operations (from
+    `tracer_work`) over the float32 rate, the backward's d_sh sums over
+    the TF32 rate.  The operations are the box tests and the pairs they
+    leave (whether or not the kernel culls yet: a floor), or, with
+    `culled` False, every pair a ray reaches and no box test."""
     t, r = inputs.dirs.shape[:2]
     k = inputs.axes.shape[-1]
-    pairs, hits = work
+    hits = work["hits"]
+    flops = (work["pairs"] * PAIR_FLOPS + work["tests"] * CONE_FLOPS
+             if culled else work["all_pairs"] * PAIR_FLOPS)
     nbytes = 4 * (t + 5 * t * r + 64 * t * k)   # cnt, dirs/mind/t0, candidates
     tf32_flops = 0
     if backward:
         nbytes += 4 * (2 * 16 * t * r + 64 * t * k)   # channels, grads in/out
-        flops = pairs * PAIR_FLOPS + hits * (BWD_HIT_FLOPS - BWD_SH_FLOPS)
+        flops += hits * (BWD_HIT_FLOPS - BWD_SH_FLOPS)
         tf32_flops = 3 * hits * BWD_SH_FLOPS
     else:
         nbytes += 4 * (16 * t * r + t * k)            # channels, accum out
-        flops = pairs * PAIR_FLOPS + hits * FWD_HIT_FLOPS
+        flops += hits * FWD_HIT_FLOPS
     by_bytes = nbytes / PEAK_BYTES * 1e3
     by_ops = (flops / PEAK_F32_FLOPS + tf32_flops / PEAK_TF32_FLOPS) * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
                                                            "operations")
+
+
+def permuted_rays(inputs, seed: int = 0):
+    """The same tiles with each tile's rays in one random order, and that
+    order (ray i of a permuted tile is ray order[i]): each ray's channels
+    and each sum over a tile's rays are the same, but each warp's 32 rays
+    scatter over the tile, so that the kernels' box test rules out almost
+    nothing."""
+    order = torch.randperm(inputs.mind.shape[1], generator=torch.Generator(
+        ).manual_seed(seed)).to(inputs.dirs.device)
+    return inputs._replace(dirs=inputs.dirs[:, order].contiguous(),
+                           mind=inputs.mind[:, order].contiguous(),
+                           t0=inputs.t0[:, order].contiguous()), order
 
 
 def render_grads(scene, grid, s2w, degree, heads, exact: bool):
@@ -800,11 +860,61 @@ def main() -> None:
             *inputs, chans_k, g_chans), 10)
     exact_work = tracer_work(inputs, exact=True)
     print(f"[exact-times] {card}: T={t_total} R={rays_per_tile} K={k}, "
-          f"{exact_work[0]} pairs, {exact_work[1]} hits composited: forward "
+          f"{exact_work['all_pairs']} pairs, {exact_work['hits']} hits "
+          f"composited: forward "
           f"exact kernel {fx_ms:.3f} ms vs twin {fx_plain_ms:.3f} ms (tile "
           f"order {ft_ms:.3f} ms), backward exact kernel {bx_ms:.3f} ms vs "
           f"twin {bx_plain_ms:.3f} ms (tile order {bt_ms:.3f} ms); CUDA "
           f"events")
+
+    # The forward kernels' cull: the (warp, candidate) steps their box test
+    # skips, their times at the training and the serving inputs, and the
+    # same bits from the same tiles with their rays permuted.
+    fwd_times = {}
+    works = {("serving", True): exact_work}
+    for label, case in (("training", t_inputs), ("serving", inputs)):
+        for exact in (False, True):
+            if (label, exact) not in works:
+                works[label, exact] = tracer_work(case, exact)
+        st, sx = works[label, False], works[label, True]
+        print(f"[cull] {label} inputs: {st['steps']} (tile, warp, candidate)"
+              f" steps, {st['skipped']} skipped by the box test "
+              f"({st['skipped'] / st['steps']:.3f}); tile order visits "
+              f"{st['visited']} (those its warps reach and the test leaves),"
+              f" {st['composited']} of them holding a composited pair, per "
+              f"warp mean {st['warp_mean']:.1f}, max {st['warp_max']:.0f}, "
+              f"per 128-ray block (its busiest warp) mean "
+              f"{st['block_mean']:.1f}, max {st['block_max']:.0f}; exact "
+              f"order lists {sx['visited']}, {sx['composited']} of them "
+              f"holding a composited pair")
+        for exact in (False, True):
+            with torch.no_grad():
+                fwd_times[label, exact] = _event_ms(
+                    lambda: kernels.tracer_forward(*case, exact=exact), 20)
+    print(f"[forward-times] {card}: tile order "
+          f"{fwd_times['training', False]:.3f} ms at the training inputs, "
+          f"{fwd_times['serving', False]:.3f} ms serving; exact order "
+          f"{fwd_times['training', True]:.3f} ms training, "
+          f"{fwd_times['serving', True]:.3f} ms serving (CUDA events, 20 "
+          f"launches each)")
+    permuted, order = permuted_rays(inputs, args.seed)
+    for label, exact in (("tile order", False), ("exact order", True)):
+        with torch.no_grad():
+            ch, acc = kernels.tracer_forward(*inputs, exact=exact)
+            ch_p, acc_p = kernels.tracer_forward(*permuted, exact=exact)
+            torch.cuda.synchronize()
+        unpermuted = torch.empty_like(ch_p)
+        unpermuted[:, :, order] = ch_p
+        same = torch.equal(ch, unpermuted)
+        acc_rel = ((acc - acc_p).abs()
+                   / acc.abs().clamp_min(1e-30)).max().item()
+        print(f"[cull] {label}, rays permuted: channels "
+              f"{'bit-identical' if same else 'DIFFER'}, accum max rel "
+              f"diff {acc_rel:.3e} (bar 1e-05)")
+        _check(same, f"{label} channels with the rays permuted")
+        _check(bool(torch.allclose(acc_p, acc, rtol=1e-5, atol=0.0)),
+               f"{label} accum with the rays permuted")
+    del permuted, ch, acc, ch_p, acc_p, unpermuted
 
     # 10. Serving in the other modes, each against the torch engine in the
     # same mode, with each mode's launches counted.
@@ -966,31 +1076,35 @@ def main() -> None:
     fwd_x_paths = {"serve_exact": serve_exact,
                    "train_exact": mode_launches["exact"][2]}
     bwd_x_paths = {"train_exact": mode_launches["exact"][3]}
-    train_work = tracer_work(t_inputs, exact=False)
+    train_work = works["training", False]
+    kernel_work = {"tracer_forward": (t_inputs, train_work, False),
+                   "tracer_backward": (t_inputs, train_work, True),
+                   "tracer_forward_exact": (inputs, exact_work, False),
+                   "tracer_backward_exact": (inputs, exact_work, True)}
     entries = [
         ("tracer_forward", "lidar_rt_tpu_torch/csrc/tracer_forward.cu",
          "lidar_rt_tpu/ops/pallas_tracer.py:120", fwd_paths, kern_err,
-         fwd_ms, fwd_plain_ms, bound(t_inputs, train_work, False)),
+         fwd_ms, fwd_plain_ms),
         ("tracer_backward", "lidar_rt_tpu_torch/csrc/tracer_backward.cu",
          "lidar_rt_tpu/ops/pallas_backward.py:52", bwd_paths, bwd_abs,
-         bwd_ms, bwd_plain_ms, bound(t_inputs, train_work, True)),
+         bwd_ms, bwd_plain_ms),
         ("tracer_forward_exact", "lidar_rt_tpu_torch/csrc/tracer_forward.cu",
          "lidar_rt_tpu/ops/pallas_sort.py:30 (in pallas_tracer.py:120)",
-         fwd_x_paths, exact_fwd_err, fx_ms, fx_plain_ms,
-         bound(inputs, exact_work, False)),
+         fwd_x_paths, exact_fwd_err, fx_ms, fx_plain_ms),
         ("tracer_backward_exact",
          "lidar_rt_tpu_torch/csrc/tracer_backward.cu",
          "lidar_rt_tpu/ops/pallas_sort.py:30 (in pallas_backward.py:52)",
-         bwd_x_paths, exact_bwd_err, bx_ms, bx_plain_ms,
-         bound(inputs, exact_work, True)),
+         bwd_x_paths, exact_bwd_err, bx_ms, bx_plain_ms),
     ]
-    works = {"tracer_forward": train_work, "tracer_backward": train_work,
-             "tracer_forward_exact": exact_work,
-             "tracer_backward_exact": exact_work}
+    entries = [e + (bound(*kernel_work[e[0]]),) for e in entries]
     for name, _src, _rep, paths, _err, ms, _plain, (b_ms, b_by) in entries:
+        case, work, backward = kernel_work[name]
         print(f"[bound] {card}: {name} {ms:.3f} ms against a bound of "
-              f"{b_ms:.4f} ms ({b_by}; {works[name][0]} pairs evaluated, "
-              f"{works[name][1]} hits composited); launches {paths}")
+              f"{b_ms:.4f} ms ({b_by}; {work['tests']} box tests, "
+              f"{work['pairs']} pairs they leave, {work['hits']} hits "
+              f"composited; with no box test, {work['all_pairs']} pairs: "
+              f"{bound(case, work, backward, culled=False)[0]:.4f} ms); "
+              f"launches {paths}")
         _check(all(n > 0 for n in paths.values()),
                f"{name} launched on every path it serves: {paths}")
     print(json.dumps({"kernels": [{

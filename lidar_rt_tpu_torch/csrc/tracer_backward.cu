@@ -67,9 +67,10 @@
 // ~13%, and every register spilled or block per SM lost costs more than an
 // instruction saved.  What the design does about it:
 //  - a warp first tests 32 candidates at once, one per lane, against a box
-//    around its rays' unit directions (warp_cone, cone_misses: a
-//    conservative bound on the splat coordinates of every direction in
-//    the box), and visits only the candidates the test cannot rule out:
+//    around its rays' unit directions (warp_cone, cone_misses in
+//    tracer_common.cuh, shared with the forward kernels: a conservative
+//    bound on the splat coordinates of every direction in the box), and
+//    visits only the candidates the test cannot rule out:
 //    ~68% of the steps are skipped.  A skipped pair has alpha = 0 for
 //    every ray of the warp, which the replay would pass over with no
 //    change to T, to the prefix or to the stop (T stays at or above T_MIN
@@ -320,155 +321,6 @@ __device__ __forceinline__ PairGrad pair_grad(Rows s_geo, int j,
   return p;
 }
 
-// A warp's rays as a box of unit directions around an orthonormal frame
-// (c, e1, e2): every ray's unit direction d has c.d >= c_min, |e1.d| <=
-// a1 and |e2.d| <= a2 (rays past the tile's end left out).  c is the
-// rays' mean direction and e1 points along their spread, so a warp of one
-// sensor row (a short arc) gets a long, thin box.  A warp with no ray
-// gets c_min = -inf, which no test passes.
-struct Cone {
-  float c[3], e1[3], e2[3];
-  float c_min, a1, a2;
-};
-
-__device__ __forceinline__ float warp_all_sum(float v) {
-  for (int off = 16; off > 0; off >>= 1) {
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  }
-  return v;
-}
-
-__device__ __forceinline__ float warp_all_max(float v) {
-  for (int off = 16; off > 0; off >>= 1) {
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  }
-  return v;
-}
-
-__device__ __forceinline__ float dot3(const float (&a)[3], float x, float y,
-                                      float z) {
-  return a[0] * x + a[1] * y + a[2] * z;
-}
-
-__device__ __forceinline__ Cone warp_cone(float dx, float dy, float dz,
-                                          bool has) {
-  const float inv =
-      has ? rsqrtf(fmaxf(dx * dx + dy * dy + dz * dz, 1e-24f)) : 0.0f;
-  const float ux = dx * inv, uy = dy * inv, uz = dz * inv;
-  Cone b;
-  float cx = warp_all_sum(ux), cy = warp_all_sum(uy), cz = warp_all_sum(uz);
-  const float norm2 = cx * cx + cy * cy + cz * cz;
-  if (!(norm2 > 1e-12f)) {
-    b.c_min = -CUDART_INF_F;
-    return b;
-  }
-  const float cinv = rsqrtf(norm2);
-  b.c[0] = cx * cinv;
-  b.c[1] = cy * cinv;
-  b.c[2] = cz * cinv;
-  // e1: the spread from the first ray to the last, made orthogonal to c;
-  // any unit vector orthogonal to c where that vanishes.
-  const int last = 31 - __clz(__ballot_sync(0xffffffffu, has));
-  const int first = __ffs(__ballot_sync(0xffffffffu, has)) - 1;
-  float sx = __shfl_sync(0xffffffffu, ux, last)
-             - __shfl_sync(0xffffffffu, ux, first);
-  float sy = __shfl_sync(0xffffffffu, uy, last)
-             - __shfl_sync(0xffffffffu, uy, first);
-  float sz = __shfl_sync(0xffffffffu, uz, last)
-             - __shfl_sync(0xffffffffu, uz, first);
-  float along = dot3(b.c, sx, sy, sz);
-  sx -= along * b.c[0];
-  sy -= along * b.c[1];
-  sz -= along * b.c[2];
-  float s2 = sx * sx + sy * sy + sz * sz;
-  if (!(s2 > 1e-20f)) {  // c crossed with the axis it is least along
-    const bool use_x = fabsf(b.c[0]) <= fabsf(b.c[1])
-                       && fabsf(b.c[0]) <= fabsf(b.c[2]);
-    const bool use_y = !use_x && fabsf(b.c[1]) <= fabsf(b.c[2]);
-    sx = use_x ? 0.0f : (use_y ? b.c[2] : -b.c[1]);
-    sy = use_x ? -b.c[2] : (use_y ? 0.0f : b.c[0]);
-    sz = use_x ? b.c[1] : (use_y ? -b.c[0] : 0.0f);
-    s2 = sx * sx + sy * sy + sz * sz;
-  }
-  const float sinv = rsqrtf(s2);
-  b.e1[0] = sx * sinv;
-  b.e1[1] = sy * sinv;
-  b.e1[2] = sz * sinv;
-  b.e2[0] = b.c[1] * b.e1[2] - b.c[2] * b.e1[1];
-  b.e2[1] = b.c[2] * b.e1[0] - b.c[0] * b.e1[2];
-  b.e2[2] = b.c[0] * b.e1[1] - b.c[1] * b.e1[0];
-  // The box's extent over the rays, widened for the rounding of the
-  // normalisations and of this frame.
-  const float cd = has ? dot3(b.c, ux, uy, uz) : CUDART_INF_F;
-  const float a1 = has ? fabsf(dot3(b.e1, ux, uy, uz)) : 0.0f;
-  const float a2 = has ? fabsf(dot3(b.e2, ux, uy, uz)) : 0.0f;
-  b.c_min = -warp_all_max(-cd) - 1e-5f;
-  b.a1 = warp_all_max(a1) * 1.001f + 1e-5f;
-  b.a2 = warp_all_max(a2) * 1.001f + 1e-5f;
-  return b;
-}
-
-// True only if no direction of the box passes candidate j's gates, so
-// that every ray of the warp has alpha = 0 there.  In real arithmetic the
-// splat coordinates of a direction d are u = (U.d) / (n.d) and v =
-// (V.d) / (n.d), with U = (a_u n + p w1) / s0 and V = (a_v n + p w2) / s1
-// (intersect(): t = p / (n.d), u = (a_u + t w1.d) / s0), and a pair
-// passes only if opacity * exp(-(u^2 + v^2) / 2) >= ALPHA_MIN, i.e.
-// u^2 + v^2 <= 2 ln(opacity / ALPHA_MIN).  With d = (c.d) c + (e1.d) e1 +
-// (e2.d) e2 and c_min <= c.d <= 1, |U.d| >= c_min |U.c| - a1 |U.e1| -
-// a2 |U.e2| and |n.d| lies within |n.c| +- (a1 |n.e1| + a2 |n.e2|) (and
-// c_min |n.c| - ... from below); where n.d may change sign the test gives
-// up.  The lower bounds are shrunk by a slack far above the rounding of
-// intersect()'s float arithmetic, and the test asks for 5% more than the
-// gate's radius squared; so its own divisions and log can be the fast ones
-// (__fdividef, __logf: a few ulp).
-template <typename Rows>
-__device__ __forceinline__ bool cone_misses(Rows s_geo, int j,
-                                            const Cone& b) {
-  const float nx = s_geo[kNx][j], ny = s_geo[kNy][j], nz = s_geo[kNz][j];
-  const float w1x = s_geo[kW1x][j], w1y = s_geo[kW1y][j];
-  const float w1z = s_geo[kW1z][j];
-  const float w2x = s_geo[kW2x][j], w2y = s_geo[kW2y][j];
-  const float w2z = s_geo[kW2z][j];
-  const float p = s_geo[kP][j], au = s_geo[kAu][j], av = s_geo[kAv][j];
-  const float is0 = s_geo[kInvS0][j], is1 = s_geo[kInvS1][j];
-  const float opacity = s_geo[kOpac][j];
-  // alpha_raw = opacity * G rounds to at most opacity, as G <= 1.
-  if (opacity < kAlphaMin) return true;
-  const float ux = is0 * (au * nx + p * w1x);
-  const float uy = is0 * (au * ny + p * w1y);
-  const float uz = is0 * (au * nz + p * w1z);
-  const float vx = is1 * (av * nx + p * w2x);
-  const float vy = is1 * (av * ny + p * w2y);
-  const float vz = is1 * (av * nz + p * w2z);
-  const float n_len = sqrtf(nx * nx + ny * ny + nz * nz);
-  const float n_c = fabsf(dot3(b.c, nx, ny, nz));
-  const float n_side = b.a1 * fabsf(dot3(b.e1, nx, ny, nz))
-                       + b.a2 * fabsf(dot3(b.e2, nx, ny, nz));
-  const float qd_lo = b.c_min * n_c - n_side;  // least |n.d| in the box
-  if (!(qd_lo > 0.0f)) return false;
-  const float inv_hi = __fdividef(1.0f, n_c + n_side);
-  const float amp = __fdividef(1.0f + __fdividef(n_len, qd_lo), qd_lo);
-  const float slack_u = 1e-4f * fabsf(is0) * amp
-      * (fabsf(au) * n_len + fabsf(p) * sqrtf(w1x * w1x + w1y * w1y
-                                              + w1z * w1z));
-  const float slack_v = 1e-4f * fabsf(is1) * amp
-      * (fabsf(av) * n_len + fabsf(p) * sqrtf(w2x * w2x + w2y * w2y
-                                              + w2z * w2z));
-  const float u_lo = fmaxf(
-      (b.c_min * fabsf(dot3(b.c, ux, uy, uz))
-       - b.a1 * fabsf(dot3(b.e1, ux, uy, uz))
-       - b.a2 * fabsf(dot3(b.e2, ux, uy, uz))) * inv_hi - slack_u,
-      0.0f);
-  const float v_lo = fmaxf(
-      (b.c_min * fabsf(dot3(b.c, vx, vy, vz))
-       - b.a1 * fabsf(dot3(b.e1, vx, vy, vz))
-       - b.a2 * fabsf(dot3(b.e2, vx, vy, vz))) * inv_hi - slack_v,
-      0.0f);
-  const float r2 = 2.0f * __logf(__fdividef(opacity, kAlphaMin));
-  return u_lo * u_lo + v_lo * v_lo > 1.05f * r2 + 0.05f;
-}
-
 // The sums over rays, one thread per ray.  kFromPairs = false: tile
 // order, the walk replayed here.  kFromPairs = true: exact order, each
 // pair's (dL/dalpha, w) read from `pairs` (T, K, R), written by
@@ -633,8 +485,10 @@ __global__ void __launch_bounds__(kThreads, 6) tracer_backward_kernel(
 }
 
 // Exact order, first kernel: the VJP's walk in each ray's depth order.
-// It replays tracer_forward_exact_kernel (the same nearest_hits passes, so
-// the same hits in the same order and the same stop) with the running
+// It replays tracer_forward_exact_kernel (the same nearest_hits passes,
+// here over every staged candidate where the forward scans only its
+// warp's box-test survivors: the same hits in the same order and the same
+// stop) with the running
 // prefix of gw * w in that order, and writes each pair's (dL/dalpha, w) to
 // pairs[tile][j][ray]: zero for j < count unless the ray composited j or
 // stopped at it.  Dynamic shared memory: the tile's kGeo + kSh staged
@@ -686,7 +540,8 @@ __global__ void __launch_bounds__(kWalkRays) tracer_backward_exact_kernel(
   while (alive) {
     float bt[kBuf];
     int bj[kBuf];
-    nearest_hits(s_geo, count, dx, dy, dz, min_t, cur_t, cur_j, bt, bj);
+    nearest_hits(RowStage{s_geo}, AllCands{}, count, dx, dy, dz, min_t,
+                 cur_t, cur_j, bt, bj);
 #pragma unroll
     for (int b = 0; b < kBuf; ++b) {
       if (!(bt[b] < CUDART_INF_F)) break;

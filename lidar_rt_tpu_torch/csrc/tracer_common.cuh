@@ -1,8 +1,9 @@
 // Shared by the forward and backward surfel tracer kernels for Hopper
 // (tracer_forward.cu, tracer_backward.cu): the gate constants, the SH
 // basis, the ray/surfel intersection with every gate, the transmittance
-// update, the per-hit shading, candidate staging, and the exact mode's
-// depth-order walk (`nearest_hits`).
+// update, the per-hit shading, candidate staging, the per-warp box test
+// that rules out candidates no ray of a warp can hit (`warp_cone`,
+// `cone_misses`), and the exact mode's depth-order walk (`nearest_hits`).
 //
 // The backward kernel replays the forward's hit sequence, so each gate it
 // decides (ok, the ALPHA_MAX clamp, the T_MIN stop, the channel-0 clamp)
@@ -12,7 +13,10 @@
 // __fsub_rn, __fmaf_rn), so the compiler cannot contract it differently
 // in the two translation units.  t = p / (n.d) amplifies rounding at
 // grazing incidence: the same explicit forms keep the kernels within
-// rounding of the plain PyTorch twins.
+// rounding of the plain PyTorch twins.  The intersection, the box test
+// and the shading read a candidate through an accessor (RowCand and RowSh
+// for staged rows of scalars, the forward's QuadCand for candidates staged
+// whole): the values, and so every gate and bit, are the same either way.
 
 #pragma once
 
@@ -22,13 +26,10 @@
 namespace tracer {
 
 constexpr int kThreads = 128;  // rays per block, one thread each
-constexpr int kChunk = 128;    // candidates staged per round (== kThreads)
 constexpr int kGeo = 16;       // n(3) w1(3) w2(3) p a_u a_v 1/s0 1/s1 opac sign
 constexpr int kSh = 48;        // 3 channels x 16 SH coefficients
 constexpr int kOutRows = 16;   // channel rows of the forward output (10 used)
 constexpr int kBuf = 16;       // hits a ray gathers per pass in exact order
-
-static_assert(kThreads == kChunk, "each thread stages one candidate");
 
 // Gates, as lidar_rt_tpu/ops/geometry.py:38-42.
 constexpr float kAlphaMax = 0.99f;
@@ -70,13 +71,6 @@ __device__ __forceinline__ float dot3_rn(float dx, float dy, float dz,
                    __fmul_rn(dz, az));
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int off = 16; off > 0; off >>= 1) {
-    v += __shfl_down_sync(0xffffffffu, v, off);
-  }
-  return v;
-}
-
 // One candidate's geometry, staged in shared memory as rows of s_geo.
 enum GeoRow {
   kNx = 0, kNy, kNz, kW1x, kW1y, kW1z, kW2x, kW2y, kW2z,
@@ -105,31 +99,72 @@ struct Hit {
   float u, v, g;    // splat coordinates and G = exp(-(u^2 + v^2) / 2)
 };
 
-// The intersection and gates of lidar_rt_tpu/ops/geometry.py, for
-// candidate j of the staged rows s_geo (kGeo rows).
+// One candidate's staged geometry as the intersection and the box test
+// read it: normal() = n, p(), and back() = (w1, a_u), (w2, a_v), (1/s0,
+// 1/s1, opacity, sign).  RowCand reads candidate j of staged rows (kGeo
+// rows, row-major); a kernel that stages candidates whole reads each
+// group of four with one 16-byte load.
+struct GeoBack {
+  float4 w1, w2, m;
+};
+
 template <typename Rows>
-__device__ __forceinline__ Hit intersect(Rows s_geo, int j, float dx,
-                                         float dy, float dz, float min_t) {
+struct RowCand {
+  Rows rows;
+  int j;
+  __device__ __forceinline__ float3 normal() const {
+    return make_float3(rows[kNx][j], rows[kNy][j], rows[kNz][j]);
+  }
+  __device__ __forceinline__ float p() const { return rows[kP][j]; }
+  __device__ __forceinline__ GeoBack back() const {
+    return {make_float4(rows[kW1x][j], rows[kW1y][j], rows[kW1z][j],
+                        rows[kAu][j]),
+            make_float4(rows[kW2x][j], rows[kW2y][j], rows[kW2z][j],
+                        rows[kAv][j]),
+            make_float4(rows[kInvS0][j], rows[kInvS1][j], rows[kOpac][j],
+                        rows[kSign][j])};
+  }
+};
+
+// Candidate j of staged rows, as a stage hands candidates to nearest_hits.
+struct RowStage {
+  RowView geo;
+  __device__ __forceinline__ RowCand<RowView> operator()(int j) const {
+    return {geo, j};
+  }
+};
+
+// The intersection and gates of lidar_rt_tpu/ops/geometry.py for one
+// candidate (back() only where t >= min_t).
+template <typename Cand>
+__device__ __forceinline__ Hit intersect_cand(const Cand& cand, float dx,
+                                              float dy, float dz,
+                                              float min_t) {
   Hit h = {};
-  h.qd = dot3_rn(dx, dy, dz, s_geo[kNx][j], s_geo[kNy][j], s_geo[kNz][j]);
+  const float3 n = cand.normal();
+  h.qd = dot3_rn(dx, dy, dz, n.x, n.y, n.z);
   if (fabsf(h.qd) > kDenomEps) {
-    h.t = s_geo[kP][j] / h.qd;
+    h.t = cand.p() / h.qd;
     if (h.t >= min_t) {
-      h.bu = dot3_rn(dx, dy, dz, s_geo[kW1x][j], s_geo[kW1y][j],
-                     s_geo[kW1z][j]);
-      h.bv = dot3_rn(dx, dy, dz, s_geo[kW2x][j], s_geo[kW2y][j],
-                     s_geo[kW2z][j]);
-      h.u = __fmul_rn(__fadd_rn(s_geo[kAu][j], __fmul_rn(h.t, h.bu)),
-                      s_geo[kInvS0][j]);
-      h.v = __fmul_rn(__fadd_rn(s_geo[kAv][j], __fmul_rn(h.t, h.bv)),
-                      s_geo[kInvS1][j]);
+      const GeoBack b = cand.back();
+      h.bu = dot3_rn(dx, dy, dz, b.w1.x, b.w1.y, b.w1.z);
+      h.bv = dot3_rn(dx, dy, dz, b.w2.x, b.w2.y, b.w2.z);
+      h.u = __fmul_rn(__fadd_rn(b.w1.w, __fmul_rn(h.t, h.bu)), b.m.x);
+      h.v = __fmul_rn(__fadd_rn(b.w2.w, __fmul_rn(h.t, h.bv)), b.m.y);
       h.g = expf(__fmul_rn(-0.5f, __fadd_rn(__fmul_rn(h.u, h.u),
                                             __fmul_rn(h.v, h.v))));
-      h.alpha_raw = fminf(kAlphaMax, __fmul_rn(s_geo[kOpac][j], h.g));
+      h.alpha_raw = fminf(kAlphaMax, __fmul_rn(b.m.z, h.g));
       if (h.alpha_raw >= kAlphaMin) h.alpha = h.alpha_raw;
     }
   }
   return h;
+}
+
+// The same for candidate j of the staged rows s_geo (kGeo rows).
+template <typename Rows>
+__device__ __forceinline__ Hit intersect(Rows s_geo, int j, float dx,
+                                         float dy, float dz, float min_t) {
+  return intersect_cand(RowCand<Rows>{s_geo, j}, dx, dy, dz, min_t);
 }
 
 // Transmittance after a hit: T * (1 - alpha).  A ray stops at the first
@@ -138,21 +173,54 @@ __device__ __forceinline__ float next_trans(float trans, float alpha) {
   return __fmul_rn(trans, __fsub_rn(1.0f, alpha));
 }
 
-// Per-hit SH values c_ch = basis . sh[ch] of candidate j (before the +0.5
-// shift), from the staged rows s_sh (kSh rows).
-template <typename Rows>
-__device__ __forceinline__ void shade(const float basis[16], Rows s_sh,
-                                      int j, float& c0, float& c1,
-                                      float& c2) {
+// Per-hit SH values c_ch = basis . sh[ch] of a candidate (before the +0.5
+// shift).  cand.sh4(q) reads group q of its 48 SH values, channel-major,
+// four coefficients to a group: RowSh from staged rows, the forward's
+// QuadCand from a candidate staged whole.  Every multiply-add is rounded
+// explicitly, in the same order for both.
+template <typename Cand>
+__device__ __forceinline__ void shade_cand(const float basis[16],
+                                           const Cand& cand, float& c0,
+                                           float& c1, float& c2) {
   c0 = 0.0f;
   c1 = 0.0f;
   c2 = 0.0f;
 #pragma unroll
-  for (int s = 0; s < 16; ++s) {
-    c0 = __fmaf_rn(basis[s], s_sh[s][j], c0);
-    c1 = __fmaf_rn(basis[s], s_sh[16 + s][j], c1);
-    c2 = __fmaf_rn(basis[s], s_sh[32 + s][j], c2);
+  for (int g = 0; g < 4; ++g) {
+    const float4 a = cand.sh4(g), b = cand.sh4(4 + g), d = cand.sh4(8 + g);
+    const float* bs = basis + 4 * g;
+    c0 = __fmaf_rn(bs[0], a.x, c0);
+    c1 = __fmaf_rn(bs[0], b.x, c1);
+    c2 = __fmaf_rn(bs[0], d.x, c2);
+    c0 = __fmaf_rn(bs[1], a.y, c0);
+    c1 = __fmaf_rn(bs[1], b.y, c1);
+    c2 = __fmaf_rn(bs[1], d.y, c2);
+    c0 = __fmaf_rn(bs[2], a.z, c0);
+    c1 = __fmaf_rn(bs[2], b.z, c1);
+    c2 = __fmaf_rn(bs[2], d.z, c2);
+    c0 = __fmaf_rn(bs[3], a.w, c0);
+    c1 = __fmaf_rn(bs[3], b.w, c1);
+    c2 = __fmaf_rn(bs[3], d.w, c2);
   }
+}
+
+// The SH values of candidate j of staged rows s_sh (kSh rows).
+template <typename Rows>
+struct RowSh {
+  Rows rows;
+  int j;
+  __device__ __forceinline__ float4 sh4(int q) const {
+    return make_float4(rows[4 * q][j], rows[4 * q + 1][j],
+                       rows[4 * q + 2][j], rows[4 * q + 3][j]);
+  }
+};
+
+// The same for candidate j of the staged rows s_sh.
+template <typename Rows>
+__device__ __forceinline__ void shade(const float basis[16], Rows s_sh,
+                                      int j, float& c0, float& c1,
+                                      float& c2) {
+  shade_cand(basis, RowSh<Rows>{s_sh, j}, c0, c1, c2);
 }
 
 // Stage candidates [base, base + n) of `tile` into shared memory, rows of
@@ -210,34 +278,206 @@ __device__ __forceinline__ void stage_all(
   }
 }
 
+// A warp's rays as a box of unit directions around an orthonormal frame
+// (c, e1, e2): every ray's unit direction d has c.d >= c_min, |e1.d| <=
+// a1 and |e2.d| <= a2 (rays past the tile's end left out).  c is the
+// rays' mean direction and e1 points along their spread, so a warp of one
+// sensor row (a short arc) gets a long, thin box.  A warp with no ray
+// gets c_min = -inf, which no test passes.
+struct Cone {
+  float c[3], e1[3], e2[3];
+  float c_min, a1, a2;
+};
+
+__device__ __forceinline__ float warp_all_sum(float v) {
+  for (int off = 16; off > 0; off >>= 1) {
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  }
+  return v;
+}
+
+__device__ __forceinline__ float warp_all_max(float v) {
+  for (int off = 16; off > 0; off >>= 1) {
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  }
+  return v;
+}
+
+__device__ __forceinline__ float dot3(const float (&a)[3], float x, float y,
+                                      float z) {
+  return a[0] * x + a[1] * y + a[2] * z;
+}
+
+__device__ __forceinline__ Cone warp_cone(float dx, float dy, float dz,
+                                          bool has) {
+  const float inv =
+      has ? rsqrtf(fmaxf(dx * dx + dy * dy + dz * dz, 1e-24f)) : 0.0f;
+  const float ux = dx * inv, uy = dy * inv, uz = dz * inv;
+  Cone b;
+  float cx = warp_all_sum(ux), cy = warp_all_sum(uy), cz = warp_all_sum(uz);
+  const float norm2 = cx * cx + cy * cy + cz * cz;
+  if (!(norm2 > 1e-12f)) {
+    b.c_min = -CUDART_INF_F;
+    return b;
+  }
+  const float cinv = rsqrtf(norm2);
+  b.c[0] = cx * cinv;
+  b.c[1] = cy * cinv;
+  b.c[2] = cz * cinv;
+  // e1: the spread from the first ray to the last, made orthogonal to c;
+  // any unit vector orthogonal to c where that vanishes.
+  const int last = 31 - __clz(__ballot_sync(0xffffffffu, has));
+  const int first = __ffs(__ballot_sync(0xffffffffu, has)) - 1;
+  float sx = __shfl_sync(0xffffffffu, ux, last)
+             - __shfl_sync(0xffffffffu, ux, first);
+  float sy = __shfl_sync(0xffffffffu, uy, last)
+             - __shfl_sync(0xffffffffu, uy, first);
+  float sz = __shfl_sync(0xffffffffu, uz, last)
+             - __shfl_sync(0xffffffffu, uz, first);
+  float along = dot3(b.c, sx, sy, sz);
+  sx -= along * b.c[0];
+  sy -= along * b.c[1];
+  sz -= along * b.c[2];
+  float s2 = sx * sx + sy * sy + sz * sz;
+  if (!(s2 > 1e-20f)) {  // c crossed with the axis it is least along
+    const bool use_x = fabsf(b.c[0]) <= fabsf(b.c[1])
+                       && fabsf(b.c[0]) <= fabsf(b.c[2]);
+    const bool use_y = !use_x && fabsf(b.c[1]) <= fabsf(b.c[2]);
+    sx = use_x ? 0.0f : (use_y ? b.c[2] : -b.c[1]);
+    sy = use_x ? -b.c[2] : (use_y ? 0.0f : b.c[0]);
+    sz = use_x ? b.c[1] : (use_y ? -b.c[0] : 0.0f);
+    s2 = sx * sx + sy * sy + sz * sz;
+  }
+  const float sinv = rsqrtf(s2);
+  b.e1[0] = sx * sinv;
+  b.e1[1] = sy * sinv;
+  b.e1[2] = sz * sinv;
+  b.e2[0] = b.c[1] * b.e1[2] - b.c[2] * b.e1[1];
+  b.e2[1] = b.c[2] * b.e1[0] - b.c[0] * b.e1[2];
+  b.e2[2] = b.c[0] * b.e1[1] - b.c[1] * b.e1[0];
+  // The box's extent over the rays, widened for the rounding of the
+  // normalisations and of this frame.
+  const float cd = has ? dot3(b.c, ux, uy, uz) : CUDART_INF_F;
+  const float a1 = has ? fabsf(dot3(b.e1, ux, uy, uz)) : 0.0f;
+  const float a2 = has ? fabsf(dot3(b.e2, ux, uy, uz)) : 0.0f;
+  b.c_min = -warp_all_max(-cd) - 1e-5f;
+  b.a1 = warp_all_max(a1) * 1.001f + 1e-5f;
+  b.a2 = warp_all_max(a2) * 1.001f + 1e-5f;
+  return b;
+}
+
+// True only if no direction of the box passes the candidate's gates, so
+// that every ray of the warp has alpha = 0 there.  In real arithmetic the
+// splat coordinates of a direction d are u = (U.d) / (n.d) and v =
+// (V.d) / (n.d), with U = (a_u n + p w1) / s0 and V = (a_v n + p w2) / s1
+// (intersect(): t = p / (n.d), u = (a_u + t w1.d) / s0), and a pair
+// passes only if opacity * exp(-(u^2 + v^2) / 2) >= ALPHA_MIN, i.e.
+// u^2 + v^2 <= 2 ln(opacity / ALPHA_MIN).  With d = (c.d) c + (e1.d) e1 +
+// (e2.d) e2 and c_min <= c.d <= 1, |U.d| >= c_min |U.c| - a1 |U.e1| -
+// a2 |U.e2| and |n.d| lies within |n.c| +- (a1 |n.e1| + a2 |n.e2|) (and
+// c_min |n.c| - ... from below); where n.d may change sign the test gives
+// up.  The lower bounds are shrunk by a slack far above the rounding of
+// intersect()'s float arithmetic, and the test asks for 5% more than the
+// gate's radius squared; so its own divisions and log can be the fast ones
+// (__fdividef, __logf: a few ulp).
+template <typename Cand>
+__device__ __forceinline__ bool cone_misses_cand(const Cand& cand,
+                                                 const Cone& b) {
+  const float3 n = cand.normal();
+  const GeoBack g = cand.back();
+  const float nx = n.x, ny = n.y, nz = n.z, p = cand.p();
+  const float w1x = g.w1.x, w1y = g.w1.y, w1z = g.w1.z, au = g.w1.w;
+  const float w2x = g.w2.x, w2y = g.w2.y, w2z = g.w2.z, av = g.w2.w;
+  const float is0 = g.m.x, is1 = g.m.y, opacity = g.m.z;
+  // alpha_raw = opacity * G rounds to at most opacity, as G <= 1.
+  if (opacity < kAlphaMin) return true;
+  const float ux = is0 * (au * nx + p * w1x);
+  const float uy = is0 * (au * ny + p * w1y);
+  const float uz = is0 * (au * nz + p * w1z);
+  const float vx = is1 * (av * nx + p * w2x);
+  const float vy = is1 * (av * ny + p * w2y);
+  const float vz = is1 * (av * nz + p * w2z);
+  const float n_len = sqrtf(nx * nx + ny * ny + nz * nz);
+  const float n_c = fabsf(dot3(b.c, nx, ny, nz));
+  const float n_side = b.a1 * fabsf(dot3(b.e1, nx, ny, nz))
+                       + b.a2 * fabsf(dot3(b.e2, nx, ny, nz));
+  const float qd_lo = b.c_min * n_c - n_side;  // least |n.d| in the box
+  if (!(qd_lo > 0.0f)) return false;
+  const float inv_hi = __fdividef(1.0f, n_c + n_side);
+  const float amp = __fdividef(1.0f + __fdividef(n_len, qd_lo), qd_lo);
+  const float slack_u = 1e-4f * fabsf(is0) * amp
+      * (fabsf(au) * n_len + fabsf(p) * sqrtf(w1x * w1x + w1y * w1y
+                                              + w1z * w1z));
+  const float slack_v = 1e-4f * fabsf(is1) * amp
+      * (fabsf(av) * n_len + fabsf(p) * sqrtf(w2x * w2x + w2y * w2y
+                                              + w2z * w2z));
+  const float u_lo = fmaxf(
+      (b.c_min * fabsf(dot3(b.c, ux, uy, uz))
+       - b.a1 * fabsf(dot3(b.e1, ux, uy, uz))
+       - b.a2 * fabsf(dot3(b.e2, ux, uy, uz))) * inv_hi - slack_u,
+      0.0f);
+  const float v_lo = fmaxf(
+      (b.c_min * fabsf(dot3(b.c, vx, vy, vz))
+       - b.a1 * fabsf(dot3(b.e1, vx, vy, vz))
+       - b.a2 * fabsf(dot3(b.e2, vx, vy, vz))) * inv_hi - slack_v,
+      0.0f);
+  const float r2 = 2.0f * __logf(__fdividef(opacity, kAlphaMin));
+  return u_lo * u_lo + v_lo * v_lo > 1.05f * r2 + 0.05f;
+}
+
+template <typename Rows>
+__device__ __forceinline__ bool cone_misses(Rows s_geo, int j,
+                                            const Cone& b) {
+  return cone_misses_cand(RowCand<Rows>{s_geo, j}, b);
+}
+
+// The candidates a depth-order walk scans, in ascending index order:
+// every staged candidate (AllCands), or a warp's list of those its box
+// test does not rule out (CandList).
+struct AllCands {
+  __device__ __forceinline__ int operator[](int i) const { return i; }
+};
+
+struct CandList {
+  const unsigned short* index;
+  __device__ __forceinline__ int operator[](int i) const { return index[i]; }
+};
+
 // One pass of the exact mode's depth-order walk (the reference's k-buffer,
 // forward.cu:312-356): fill (bt, bj) with this ray's kBuf nearest
 // gate-passing hits strictly after the cursor (cur_t, cur_j) in (t,
 // candidate index) order, ascending; empty slots hold t = +inf.  A full
 // buffer may leave hits for the next pass, which starts after its last
-// entry.  Candidates are scanned in index order, so a hit whose t ties a
-// buffered one goes after it, as a stable sort puts it.  The range is
-// computed as intersect() computes it, so the key is the hit's exact t;
-// hits outside (cursor, last entry) skip the rest of the intersection.
+// entry.  The n candidates of `cands` are scanned in ascending index
+// order, so a hit whose t ties a buffered one goes after it, as a stable
+// sort puts it; a candidate left out of `cands` must have alpha = 0 for
+// this ray, since it could never enter the buffer.  `stage(j)` reads
+// candidate j (RowStage, or a stage of whole candidates).  The range is
+// computed as intersect_cand() computes it, so the key is the hit's exact
+// t; hits outside (cursor, last entry) skip the rest of the intersection.
 // The buffer's indices are compile-time constants: it stays in registers.
+// Its size sets only how many passes a ray takes, not its hits.
+template <typename Stage, typename Cands>
 __device__ __forceinline__ void nearest_hits(
-    RowView s_geo, int count, float dx, float dy, float dz, float min_t,
-    float cur_t, int cur_j, float (&bt)[kBuf], int (&bj)[kBuf]) {
+    Stage stage, Cands cands, int n, float dx, float dy, float dz,
+    float min_t, float cur_t, int cur_j, float (&bt)[kBuf], int (&bj)[kBuf]) {
 #pragma unroll
   for (int b = 0; b < kBuf; ++b) {
     bt[b] = CUDART_INF_F;
     bj[b] = 0;
   }
-  for (int j = 0; j < count; ++j) {
-    const float qd = dot3_rn(dx, dy, dz, s_geo[kNx][j], s_geo[kNy][j],
-                             s_geo[kNz][j]);
+  for (int i = 0; i < n; ++i) {
+    const int j = cands[i];
+    const auto cand = stage(j);
+    const float3 nv = cand.normal();
+    const float qd = dot3_rn(dx, dy, dz, nv.x, nv.y, nv.z);
     if (!(fabsf(qd) > kDenomEps)) continue;
-    const float t = s_geo[kP][j] / qd;
+    const float t = cand.p() / qd;
     if (!(t >= min_t) || t < cur_t || (t == cur_t && j <= cur_j) ||
         !(t < bt[kBuf - 1])) {
       continue;
     }
-    if (!(intersect(s_geo, j, dx, dy, dz, min_t).alpha > 0.0f)) continue;
+    if (!(intersect_cand(cand, dx, dy, dz, min_t).alpha > 0.0f)) continue;
     float kt = t;
     int kj = j;
 #pragma unroll

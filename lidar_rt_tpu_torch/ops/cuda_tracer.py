@@ -346,12 +346,15 @@ def backward_tiles_reference(cnt: Tensor, dirs: Tensor, mind: Tensor,
 
 def cone_skips(cnt: Tensor, dirs: Tensor, axes: Tensor, plane: Tensor,
                inv_scale: Tensor, opac: Tensor, warp: int = 32) -> Tensor:
-    """Plain float32 version of the backward sums kernel's cone test
-    (`warp_cone`, `cone_misses` in csrc/tracer_backward.cu): (T, ceil(R /
-    warp), K), True where the kernel's warp of `warp` consecutive rays
-    skips the candidate, since no direction in the box around its rays'
-    directions can pass the candidate's gates.  Candidates past cnt are
-    False."""
+    """Plain float32 version of the kernels' box test (`warp_cone`,
+    `cone_misses` in csrc/tracer_common.cuh, which both forward kernels and
+    the backward sums kernel run): (T, ceil(R / warp), K), True where a
+    kernel's warp of `warp` consecutive rays skips the candidate, since no
+    direction in the box around its rays' directions can pass the
+    candidate's gates.  Candidates past cnt are False.  The tile-order
+    kernels still visit candidate 0 (where a ray whose t0 is below T_MIN
+    stops); the exact forward leaves every True pair off its warp's
+    list."""
     t, r, _ = dirs.shape
     k = axes.shape[-1]
     nw = -(-r // warp)

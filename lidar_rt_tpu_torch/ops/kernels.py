@@ -55,9 +55,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 GRAD_ROWS = 64     # rows of the backward kernel's (T, 64, K) output
 # The exact-order kernels stage all K candidates of a tile in shared memory
-# (64 floats each, plus one accumulator row in the forward): 65 KB at
-# K = 256 of the 227 KB a block may use.  The exact backward also holds a
-# (T, K, R) float2 buffer of per-pair (dL/dalpha, w) in device memory.
+# (64 floats each; the forward adds one accumulator row and each of its 8
+# warps' list of K 16-bit candidate indices): 69 KB at K = 256 of the
+# 227 KB a block may use.  The exact backward also holds a (T, K, R)
+# float2 buffer of per-pair (dL/dalpha, w) in device memory.
 EXACT_MAX_K = 256
 
 # Launches of each kernel in each mode: raised by one per launch in

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import permuted_rays
 from lidar_rt_tpu_torch.core import rays as t_rays
 from lidar_rt_tpu_torch.ops import cuda_tracer, geometry, kernels
 from lidar_rt_tpu_torch.ops import tracer as t_tracer
@@ -323,16 +324,41 @@ def _far_small_case(device="cpu"):
     return inputs
 
 
-@pytest.mark.parametrize("case", ["dense", "random", "ragged", "far_small"])
+def _second_pass_case(device="cpu"):
+    """The dense case as a second return or a tail pass sees it: each ray
+    that returned starts 1 m past its first return's depth, and every ray
+    starts from the first pass's raw transmittance (below 1 for most rays,
+    below T_MIN for some)."""
+    inputs = _dense_case(device)
+    chans, _ = cuda_tracer.forward_tiles_reference(*inputs)
+    acc_w = chans[:, 4]
+    depth = chans[:, 3] / acc_w.clamp_min(1e-6)
+    return inputs._replace(
+        mind=torch.where(acc_w > 0.5, depth + 1.0,
+                         torch.full_like(depth, geometry.DEPTH_MIN)),
+        t0=chans[:, 9].contiguous())
+
+
+def test_second_pass_case_is_what_it_claims():
+    inputs = _second_pass_case()
+    assert float(inputs.mind.max()) > 2.0
+    assert float((inputs.t0 < 1.0).float().mean()) > 0.5
+    assert float(inputs.t0.min()) < geometry.T_MIN
+
+
+@pytest.mark.parametrize("case", ["dense", "random", "ragged", "far_small",
+                                  "second_pass"])
 def test_cone_test_never_skips_a_hit(case):
-    """The backward kernel's cone test (its plain float32 version) skips a
-    (warp, candidate) only where no ray of the warp passes the gates, so
-    the replay, which would pass over such a pair unchanged, gives the
-    same gradients; and it does skip."""
+    """The kernels' cone test (its plain float32 version) skips a (warp,
+    candidate) only where no ray of the warp passes the gates, so a walk
+    that would pass over such a pair unchanged gives the same result; and
+    it does skip.  Per-ray min depths and initial transmittances below 1
+    (second returns, tail passes) included."""
     inputs = {"dense": lambda: _dense_case("cpu"),
               "random": lambda: _case(256, 257, "cpu"),
               "ragged": lambda: _case(200, 201, "cpu", 4, 48),
-              "far_small": _far_small_case}[case]()
+              "far_small": _far_small_case,
+              "second_pass": _second_pass_case}[case]()
     skip = cuda_tracer.cone_skips(inputs.cnt, inputs.dirs, inputs.axes,
                                   inputs.plane, inputs.inv_scale,
                                   inputs.opac)
@@ -346,15 +372,48 @@ def test_cone_test_never_skips_a_hit(case):
     assert int(skip.sum()) > 0
 
 
-def _permuted_rays(inputs, seed=0):
-    """The same tiles with each tile's rays in one random order: every sum
-    over a tile's rays is the same, but each warp's 32 rays scatter over
-    the tile, so that the cone test rules out almost nothing."""
-    order = torch.randperm(inputs.mind.shape[1], generator=torch.Generator(
-        ).manual_seed(seed)).to(inputs.dirs.device)
-    return inputs._replace(dirs=inputs.dirs[:, order].contiguous(),
-                           mind=inputs.mind[:, order].contiguous(),
-                           t0=inputs.t0[:, order].contiguous())
+@pytest.mark.parametrize("exact", [False, True], ids=["tile", "exact"])
+def _tile_per_warp(inputs):
+    """The same tiles with each 32-ray warp made a tile of its own that
+    holds its tile's candidates: tile w of the result is warp w % (R / 32)
+    of tile w // (R / 32), and each ray sees the same candidates."""
+    t, r = inputs.dirs.shape[:2]
+    assert r % 32 == 0
+    nw = r // 32
+
+    def split(x):
+        return x.reshape(t * nw, 32, *x.shape[2:])
+
+    def share(x):
+        return x.repeat_interleave(nw, dim=0)
+
+    return cuda_tracer.TileInputs(share(inputs.cnt), split(inputs.dirs),
+                                  split(inputs.mind), split(inputs.t0),
+                                  *(share(x) for x in inputs[4:]))
+
+
+@pytest.mark.parametrize("exact", [False, True], ids=["tile", "exact"])
+@pytest.mark.parametrize("case", ["dense", "second_pass"])
+def test_twin_is_unchanged_by_the_cull(case, exact):
+    """The forward twin with every pair that the cone test skips forced to
+    alpha = 0, as the culled kernels pass it over, gives the same bits in
+    both orders: with each warp a tile of its own, a skipped candidate of
+    a warp gets opacity 0 there.  The dense case holds exact range ties,
+    so the exact order's (t, index) tie order is exercised."""
+    inputs = {"dense": _dense_case, "second_pass": _second_pass_case}[
+        case]("cpu")
+    skip = cuda_tracer.cone_skips(inputs.cnt, inputs.dirs, inputs.axes,
+                                  inputs.plane, inputs.inv_scale,
+                                  inputs.opac)
+    assert int(skip.sum()) > 0
+    warps = _tile_per_warp(inputs)
+    culled = warps._replace(opac=torch.where(skip.flatten(0, 1), 0.0,
+                                             warps.opac))
+    want = cuda_tracer.forward_tiles_reference(*warps, exact=exact)
+    got = cuda_tracer.forward_tiles_reference(*culled, exact=exact)
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1], want[1])
+    assert float(want[0][:, 4].max()) > 0.0
 
 
 CULL_CASES = {"dense": _dense_case,
@@ -373,7 +432,7 @@ def _skips(inputs) -> int:
 def test_permuted_rays_defeat_the_cone_test(case):
     """The premise of the card test below, on the cone test's twin."""
     inputs = CULL_CASES[case]("cpu")
-    assert _skips(_permuted_rays(inputs)) * 10 < _skips(inputs)
+    assert _skips(permuted_rays(inputs)[0]) * 10 < _skips(inputs)
 
 
 @pytest.mark.cuda
@@ -389,7 +448,7 @@ def test_backward_cull_drops_no_pair_on_card(cuda_device, case, exact):
     inputs = CULL_CASES[case](cuda_device)
     sums = []
     with torch.no_grad():
-        for x in (inputs, _permuted_rays(inputs)):
+        for x in (inputs, permuted_rays(inputs)[0]):
             chans, _ = kernels.tracer_forward(*x, exact=exact)
             g = torch.zeros_like(chans)
             g[:, 1] = 1.0
@@ -399,6 +458,27 @@ def test_backward_cull_drops_no_pair_on_card(cuda_device, case, exact):
     assert int((sums[0] > 0).sum()) > 0
     assert torch.equal(sums[0] > 0, sums[1] > 0)
     torch.testing.assert_close(sums[0], sums[1], rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exact", [False, True], ids=["tile", "exact"])
+@pytest.mark.parametrize("case", ["dense", "random", "far_small"])
+def test_forward_cull_drops_no_pair_on_card(cuda_device, case, exact):
+    """The forward kernels' own cull drops no pair: on the same tiles with
+    their rays permuted, where the cone test rules out almost nothing, each
+    ray's channels are the same bits, and each candidate's accum the same
+    sum over rays to float rounding (atomics in another order)."""
+    inputs = CULL_CASES[case](cuda_device)
+    permuted, order = permuted_rays(inputs)
+    with torch.no_grad():
+        chans, accum = kernels.tracer_forward(*inputs, exact=exact)
+        chans_p, accum_p = kernels.tracer_forward(*permuted, exact=exact)
+        torch.cuda.synchronize()
+    unpermuted = torch.empty_like(chans_p)
+    unpermuted[:, :, order] = chans_p
+    assert float(chans[:, 4].max()) > 0.5
+    assert torch.equal(chans, unpermuted)
+    torch.testing.assert_close(accum, accum_p, rtol=1e-5, atol=0)
 
 
 @pytest.mark.cuda
