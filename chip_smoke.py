@@ -42,7 +42,19 @@ On one CUDA card it:
  11. holds the exact-order render gradients to torch autograd through the
      torch engine;
  12. trains 10 steps in exact order and 10 with one tail pass, counting
-     launches per mode and rebins.
+     launches per mode and rebins;
+ 13. the data path: renders the rehearsal's Waymo segment (50 frames,
+     64 x 2650, two returns, 3 moving vehicles) and KITTI-360 sequence (40
+     frames, 66 x 1030, one car) on the card with the port's `synthetic`,
+     writes them in their wire formats with its `writers`, loads them with
+     its loaders (Waymo through the native ingest, held to the Python
+     parser on two frames to the bit), assembles both scenes on the card
+     with the rehearsal's options, holds the tile-order forward and
+     backward kernels to their twins on a render of the assembled Waymo
+     scene at K=512 and K=256, and trains the Waymo scene 20 steps and the
+     KITTI-360 scene 10 with the rehearsal's tracer settings (K=512 warm-up,
+     K=256 after, one tail pass), the warm-up cut short so that both
+     budgets and the switch run.
 
 Every failed check raises.  Without a CUDA device it exits non-zero before
 any phase.  The last two lines of standard output are the kernel table
@@ -449,6 +461,393 @@ def render_grads(scene, grid, s2w, degree, heads, exact: bool):
         out_grads[engine] = [getattr(leaf, f).grad for f in fields]
     torch.cuda.synchronize()
     return _grad_errors(out_grads["cuda"], out_grads["torch"], fields)
+
+
+# The rehearsal datasets of scripts/e2e_rehearsal.py (`gen_waymo`,
+# `gen_kitti`), their numbers kept here so that this script stands apart
+# from the JAX package: a Waymo segment of 50 frames at 64 x 2650 with two
+# returns, a street scene and 3 moving vehicles, and a KITTI-360 sequence
+# of 40 frames at 66 x 1030 with one moving car.
+WAYMO_H, WAYMO_W, WAYMO_FRAMES = 64, 2650, 50
+KITTI_FRAMES = 40
+DATA_TRAIN_STEPS = 20      # Waymo rehearsal steps (phase 13)
+DATA_WARMUP_UNTIL = 10     # of the rehearsal's 2000, so both budgets run
+KITTI_TRAIN_STEPS = 10
+KITTI_WARMUP_UNTIL = 5
+
+
+def _waymo_scene(synthetic):
+    box = synthetic.Box
+    walls = [
+        box(np.array([25.0, -9.0, 2.5]), np.array([50.0, 1.5, 5.0]),
+            yaw=0.05, albedo=0.7),
+        box(np.array([20.0, 8.5, 2.0]), np.array([40.0, 1.5, 4.0]),
+            yaw=-0.03, albedo=0.65),
+        box(np.array([-30.0, -12.0, 3.0]), np.array([25.0, 2.0, 6.0]),
+            yaw=0.3, albedo=0.6),
+        box(np.array([-22.0, 14.0, 2.5]), np.array([30.0, 2.0, 5.0]),
+            yaw=-0.2, albedo=0.75),
+        box(np.array([55.0, 3.0, 4.0]), np.array([3.0, 18.0, 8.0]),
+            albedo=0.8),
+        box(np.array([-5.0, 35.0, 3.0]), np.array([20.0, 3.0, 6.0]),
+            yaw=1.2, albedo=0.55),
+        box(np.array([8.0, -30.0, 2.0]), np.array([14.0, 2.5, 4.0]),
+            yaw=-0.9, albedo=0.6),
+        box(np.array([3.0, 18.0, 0.8]), np.array([1.0, 1.0, 1.6]),
+            albedo=0.9),
+    ]
+    actors = [
+        box(np.array([12.0, -3.5, 0.85]), np.array([4.6, 1.9, 1.7]),
+            yaw=0.0, albedo=0.9),
+        box(np.array([30.0, 3.2, 0.9]), np.array([4.2, 1.8, 1.8]),
+            yaw=3.1, albedo=0.85),
+        box(np.array([-18.0, 2.8, 1.1]), np.array([8.5, 2.4, 2.2]),
+            yaw=0.1, albedo=0.8),
+    ]
+    velocities = [np.array([0.9, 0.02, 0.0]), np.array([-0.7, 0.0, 0.0]),
+                  np.array([0.5, -0.01, 0.0])]
+    return synthetic.SyntheticScene(
+        walls=walls, ground_albedo=0.45, actor=actors[0],
+        actor_velocity=velocities[0], extra_actors=actors[1:],
+        extra_velocities=velocities[1:], max_range=75.0)
+
+
+def gen_waymo(base: str, dev, frames: int, h: int, w: int
+              ) -> dict[str, np.ndarray]:
+    """Render the Waymo rehearsal segment on the card and write it as a
+    TFRecord under `base`; returns the rendered images."""
+    from lidar_rt_tpu_torch.core import rays as rays_lib
+    from lidar_rt_tpu_torch.data import synthetic, writers
+
+    scene = _waymo_scene(synthetic)
+    beams = np.linspace(-0.31, 0.04, h)
+    yaw_e = 0.05
+    extrinsic = np.eye(4)
+    extrinsic[:2, :2] = [[np.cos(yaw_e), -np.sin(yaw_e)],
+                         [np.sin(yaw_e), np.cos(yaw_e)]]
+    extrinsic[2, 3] = 2.1
+    grid = rays_lib.SensorGrid.from_beams(
+        np.asarray(beams, np.float32), pixel_offset=0.5, angle_offset=yaw_e,
+        device=dev)
+    ego2world = np.tile(np.eye(4), (frames, 1, 1))
+    for f in range(frames):
+        ego2world[f, :3, 3] = [f * 0.55, 0.02 * f, 0.0]
+    images = np.zeros((4, frames, h, w), np.float32)
+    labels = []
+    for f in range(frames):
+        out = synthetic.render_frame_gt_dual(scene, grid, w,
+                                             ego2world[f] @ extrinsic, f)
+        for i, img in enumerate(out):
+            images[i, f] = img.cpu().numpy()
+        inv_e = np.linalg.inv(ego2world[f])
+        labels.append([(f"veh_{a}", inv_e[:3, :3] @ center + inv_e[:3, 3],
+                        box.size[[0, 1, 2]], box.yaw)
+                       for a, (box, center) in enumerate(
+                           scene.moving_boxes(f))])
+    r1, i1, r2, i2 = images
+    writers.write_waymo_segment(
+        base, ego2world=ego2world, extrinsic=extrinsic,
+        beam_inclinations=beams, range1=r1, intensity1=i1, range2=r2,
+        intensity2=i2, labels_per_frame=labels)
+    return {"range1": r1, "intensity1": i1, "range2": r2, "intensity2": i2}
+
+
+def gen_kitti(base: str, dev, frames: int) -> dict[str, np.ndarray]:
+    """Render the KITTI-360 rehearsal sequence on the card and write it as
+    a bin/pose/XML tree under `base`; returns the rendered images."""
+    from lidar_rt_tpu_torch.core import rays as rays_lib
+    from lidar_rt_tpu_torch.data import kitti, synthetic, writers
+
+    box = synthetic.Box
+    walls = [
+        box(np.array([20.0, -7.0, 2.0]), np.array([45.0, 1.2, 4.0]),
+            yaw=0.02, albedo=0.7),
+        box(np.array([15.0, 7.5, 1.8]), np.array([35.0, 1.4, 3.6]),
+            yaw=-0.04, albedo=0.6),
+        box(np.array([-20.0, -10.0, 2.5]), np.array([18.0, 2.0, 5.0]),
+            yaw=0.4, albedo=0.65),
+        box(np.array([45.0, 0.0, 3.0]), np.array([2.5, 14.0, 6.0]),
+            albedo=0.75),
+        box(np.array([-2.0, 20.0, 1.5]), np.array([10.0, 2.0, 3.0]),
+            yaw=1.0, albedo=0.55),
+    ]
+    actor = box(np.array([10.0, -2.5, 0.8]), np.array([4.3, 1.8, 1.6]),
+                yaw=0.05, albedo=0.9)
+    scene = synthetic.SyntheticScene(
+        walls=walls, ground_albedo=0.4, actor=actor,
+        actor_velocity=np.array([0.6, 0.0, 0.0]), max_range=79.0)
+    grid = rays_lib.SensorGrid.from_bounds(
+        kitti.H, (kitti.INC_BOTTOM, kitti.INC_TOP), pixel_offset=0.0,
+        angle_offset=0.0, device=dev)
+    poses = np.tile(np.eye(4), (frames, 1, 1))
+    for f in range(frames):
+        poses[f, :3, 3] = [f * 0.5, 0.0, 1.73]
+    r1 = np.zeros((frames, kitti.H, kitti.W), np.float32)
+    i1 = np.zeros_like(r1)
+    boxes = {}
+    for f in range(frames):
+        r, i = synthetic.render_frame_gt(scene, grid, kitti.W, poses[f], f)
+        r1[f], i1[f] = r.cpu().numpy(), i.cpu().numpy()
+        t = np.eye(4)
+        t[:3, :3] = actor.rotation() @ np.diag(actor.size)
+        t[:3, 3] = actor.center + f * scene.actor_velocity
+        boxes[f] = t
+    writers.write_kitti360_sequence(base, seq="0000", sensor2world=poses,
+                                    range1=r1, intensity1=i1,
+                                    boxes=[("11", boxes)])
+    return {"range1": r1, "intensity1": i1}
+
+
+def _timed(fn):
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def _train_budgets(trainer, steps: int, what: str, card: str):
+    """Run `steps` single steps with the tile-order kernels' launches
+    counted from 0, and print them per budget: {K: (steps, forward
+    launches, backward launches, host ms per step)}.  Checks every loss
+    and parameter finite."""
+    from lidar_rt_tpu_torch.ops import kernels
+
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    rows = []
+    for _ in range(steps):
+        fwd, bwd = kernels.forward_launches, kernels.backward_launches
+        _, s = _timed(lambda: trainer.run(1, log_every=1))
+        rows.append((trainer.step_cfg.tile.max_per_tile,
+                     kernels.forward_launches - fwd,
+                     kernels.backward_launches - bwd, s * 1e3))
+    _check((kernels.forward_exact_launches,
+            kernels.backward_exact_launches) == (0, 0),
+           f"{what}: exact-order launches in tile-order training")
+    loss = [h["loss"] for h in trainer.history]
+    _check(len(loss) == steps and all(np.isfinite(loss)),
+           f"{what}: training losses finite")
+    for part in ("background", "actors"):
+        asset = getattr(trainer.state.scene, part)
+        if asset is not None:
+            for name, v in asset.params().items():
+                _check(bool(torch.isfinite(v).all()),
+                       f"{what}: {part}.{name} finite")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    by_k = {}
+    for k, fwd, bwd, ms in rows:
+        n, f, b, times = by_k.get(k, (0, 0, 0, []))
+        by_k[k] = (n + 1, f + fwd, b + bwd, times + [ms])
+    print(f"[data-train] {card}: {what}, {steps} steps, "
+          f"{trainer.state.bins.rebins} rebins; "
+          + "; ".join(f"K={k}: {n} steps, {f} forward and {b} backward "
+                      f"launches, median {statistics.median(t):.3f} ms per "
+                      f"step (min {min(t):.3f}, max {max(t):.3f}, host "
+                      f"clock)" for k, (n, f, b, t) in by_k.items())
+          + f"; peak allocated {peak:.1f} MiB; loss "
+          f"{[round(x, 5) for x in loss]}")
+    return by_k
+
+
+def data_phase(seed: int, card: str, dev, gen) -> dict:
+    """Phase 13: the data path from files on disk to a trained scene.
+    Returns the kernels' launches on its training paths and their errors
+    on the assembled scene's tile inputs."""
+    import os
+    import tempfile
+
+    from lidar_rt_tpu_torch import native
+    from lidar_rt_tpu_torch.data import build, kitti, waymo
+    from lidar_rt_tpu_torch.ops import cuda_tracer, kernels
+    from lidar_rt_tpu_torch.scene import compose
+    from lidar_rt_tpu_torch.train import loop, options
+
+    names = ("d_axes", "d_plane", "d_inv_scale", "d_opac", "d_sh")
+    out = {"fwd_err": 0.0, "bwd_err": 0.0, "fwd_paths": {},
+           "bwd_paths": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        w_dir, k_dir = os.path.join(tmp, "waymo"), os.path.join(tmp, "kitti")
+        w_imgs, gen_w_s = _timed(lambda: gen_waymo(
+            w_dir, dev, WAYMO_FRAMES, WAYMO_H, WAYMO_W))
+        k_imgs, gen_k_s = _timed(lambda: gen_kitti(k_dir, dev,
+                                                   KITTI_FRAMES))
+        record = next(p for p in os.listdir(w_dir)
+                      if p.endswith(".tfrecord"))
+        size_mb = os.path.getsize(os.path.join(w_dir, record)) / 1e6
+        print(f"[data-gen] Waymo segment {WAYMO_FRAMES} x {WAYMO_H}x"
+              f"{WAYMO_W}, 2 returns, 3 vehicles: {gen_w_s:.2f} s "
+              f"({size_mb:.1f} MB); KITTI-360 {KITTI_FRAMES} x 66x1030, 1 "
+              f"car: {gen_k_s:.2f} s")
+
+        opts_w = options.rehearsal_options("waymo")
+        opts_k = options.rehearsal_options("kitti")
+        opts_w.frame_length = [0, WAYMO_FRAMES - 1]
+        opts_k.frame_length = [0, KITTI_FRAMES - 1]
+        (frames_w, tracks_w), load_w_s = _timed(lambda: waymo.load(
+            w_dir, opts_w, use_native=True, device=dev))
+        (frames_k, tracks_k), load_k_s = _timed(lambda: kitti.load(
+            k_dir, opts_k, device=dev))
+
+        # The native decode against the Python parser, first and last
+        # frame, to the bit.
+        path = os.path.join(w_dir, record)
+        buf = open(path, "rb").read()
+        offs, lens = native.tfrecord_index(buf)
+        _check(len(offs) == WAYMO_FRAMES, f"{len(offs)} records")
+        py_records = list(waymo.pw.tfrecord_iter(path))
+        for i in (0, WAYMO_FRAMES - 1):
+            rec = buf[offs[i]:offs[i] + lens[i]]
+            _check(rec == py_records[i], f"record {i} framing")
+            fd = native.waymo_decode_frame(rec)
+            parsed = waymo._FrameParse(rec)
+            r1, r2 = parsed.top_range_images()
+            extr, beams, _ = parsed.top_calibration()
+            _check(np.array_equal(fd.r1, r1) and np.array_equal(fd.r2, r2)
+                   and np.array_equal(fd.pose.astype(np.float32),
+                                      parsed.pose())
+                   and np.array_equal(fd.extrinsic.astype(np.float32), extr)
+                   and np.array_equal(fd.beams, np.asarray(beams))
+                   and [b[0] for b in parsed.labels()] == fd.box_ids,
+                   f"native decode vs Python parser, frame {i}")
+        # The loaded images are the rendered ones (-1 re-coded to 0).
+        for key, img in w_imgs.items():
+            _check(np.array_equal(getattr(frames_w, key).cpu().numpy(), img),
+                   f"loaded Waymo {key} equals the rendered images")
+        k_r = frames_k.range1.cpu().numpy()
+        both = (k_r > 0) & (k_imgs["range1"] > 0)
+        k_agree = float((np.abs(k_r - k_imgs["range1"])[both] < 0.01).mean())
+        k_hits = float((k_r > 0).mean() / (k_imgs["range1"] > 0).mean())
+        print(f"[data-load] {card}: Waymo {load_w_s:.2f} s (native ingest "
+              f"and npz cache, {len(tracks_w)} tracks); KITTI-360 "
+              f"{load_k_s:.2f} s ({len(tracks_k)} tracks); native decode "
+              f"bit-identical to the Python parser on frames 0 and "
+              f"{WAYMO_FRAMES - 1}; KITTI re-rasterized ranges within 1 cm "
+              f"of the rendered ones on {k_agree:.4f} of shared hits, hit "
+              f"ratio {k_hits:.4f}")
+        _check(len(tracks_w) == 3 and len(tracks_k) == 1, "tracks loaded")
+        _check(k_agree > 0.95 and k_hits > 0.95,
+               "KITTI-360 loader re-rasterizes the rendered images")
+
+    # Assembly, and its normals alone, each beside the card.
+    def normals_alone(frames):
+        for f in range(frames.num_frames):
+            pts, _ = frames.inverse_projection(f)
+            build._estimate_normals_padded(pts, frames.sensor_center(f))
+
+    scenes = {}
+    for label, frames, tracks, opts in (
+            ("Waymo", frames_w, tracks_w, opts_w),
+            ("KITTI-360", frames_k, tracks_k, opts_k)):
+        _, normals_s = _timed(lambda: normals_alone(frames))
+        scene, asm_s = _timed(lambda: build.assemble_scene(
+            frames, tracks, opts,
+            torch.Generator(device=dev).manual_seed(seed)))
+        scenes[label] = scene
+        n_pts = sum(int((frames.range1[f] > 0).sum()) + (
+            0 if frames.range2 is None else int((frames.range2[f] > 0).sum()))
+            for f in range(frames.num_frames))
+        print(f"[data-assembly] {card}: {label}: {n_pts} points -> "
+              f"{int(scene.background.num_alive)} background surfels "
+              f"(capacity {scene.background.capacity}), {scene.num_actors} "
+              f"actors x {scene.actors.capacity} slots "
+              f"({[int(a) for a in scene.actors.alive.sum(1)]} alive); "
+              f"assembly {asm_s:.2f} s, of which normals (timed alone) "
+              f"{normals_s:.2f} s")
+        for asset in (scene.background, scene.actors):
+            for name, v in asset.params().items():
+                _check(bool(torch.isfinite(v).all()),
+                       f"{label} assembled {name} finite")
+        _check(scene.num_actors == len(tracks), f"{label}: every moving "
+               f"vehicle became an actor")
+
+    # The tile-order kernels against their twins on the tile inputs of one
+    # render of the assembled Waymo scene, at both budgets.
+    scene = scenes["Waymo"]
+    cfg, warm_cfg, _ = options.trace_configs(opts_w)
+    f0 = frames_w.train_frames[0]
+    for budget in (warm_cfg, cfg):
+        k = budget.tile.max_per_tile
+        with torch.no_grad():
+            bundle, _ = compose(scene, f0)
+            inputs, asg = cuda_tracer.tile_inputs(
+                bundle, frames_w.grid, frames_w.width, frames_w.pose(f0),
+                scene.background.active_sh_degree, budget.tile)
+            chans_k, acc_k = kernels.tracer_forward(*inputs)
+            chans_p, acc_p = cuda_tracer.forward_tiles_reference(*inputs)
+            g = torch.randn(chans_k.shape, generator=gen, device=dev)
+            g[:, 9:] = 0.0     # raw T: never read by the training loss
+            grads_k = kernels.tracer_backward(*inputs, chans_k, g)
+            grads_p = cuda_tracer.backward_tiles_reference(*inputs, chans_k,
+                                                           g)
+            torch.cuda.synchronize()
+        err = (chans_k - chans_p).abs().max().item()
+        acc_err, acc_ok = _accum_err(acc_k, acc_p)
+        g_err = _grad_errors(grads_k, grads_p, names)
+        g_abs = max((a - b).abs().max().item()
+                    for a, b in zip(grads_k, grads_p))
+        with torch.no_grad():
+            fwd_ms = _event_ms(lambda: kernels.tracer_forward(*inputs), 10)
+            bwd_ms = _event_ms(lambda: kernels.tracer_backward(
+                *inputs, chans_k, g), 10)
+        print(f"[data-kernel] assembled Waymo scene, frame {f0}, "
+              f"T={inputs.dirs.shape[0]} R={inputs.dirs.shape[1]} K={k}: "
+              f"{inputs.cnt.float().mean().item():.1f} candidates/tile, "
+              f"{int((asg.truncated > 0).sum())} tiles truncated; forward "
+              f"channels max abs err {err:.3e} (bar {CHAN_ATOL}), accum "
+              f"{acc_err:.3e}; backward {_fmt_grads(g_err)}; kernels "
+              f"{fwd_ms:.3f} / {bwd_ms:.3f} ms forward / backward (CUDA "
+              f"events, {card})")
+        _check(bool(torch.isfinite(chans_k).all()), "data kernel finite")
+        _check(err <= CHAN_ATOL, f"forward kernel vs twin at K={k}")
+        _check(acc_ok, f"forward accum vs twin at K={k}")
+        _check_grads(g_err, f"backward kernel vs twin at K={k}")
+        out["fwd_err"] = max(out["fwd_err"], err)
+        out["bwd_err"] = max(out["bwd_err"], g_abs)
+        del inputs, chans_k, chans_p, grads_k, grads_p, g
+
+    # Training with the rehearsal's tracer settings: both budgets and the
+    # switch between them.
+    for label, frames, opts, steps, until in (
+            ("Waymo", frames_w, opts_w, DATA_TRAIN_STEPS, DATA_WARMUP_UNTIL),
+            ("KITTI-360", frames_k, opts_k, KITTI_TRAIN_STEPS,
+             KITTI_WARMUP_UNTIL)):
+        cfg, warm_cfg, rehearsal_until = options.trace_configs(opts)
+        print(f"[data-train] reduction: {label} warmup_until {until} in "
+              f"place of the rehearsal's {rehearsal_until}, {steps} steps "
+              f"in place of {opts.opt.iterations}")
+        trainer = loop.Trainer(scenes.pop(label), frames, opts, cfg,
+                               warmup_cfg=warm_cfg, warmup_until=until)
+        by_k = _train_budgets(trainer, steps,
+                                    f"{label} rehearsal at {frames.height}x"
+                                    f"{frames.width}", card)
+        passes = cfg.tail_passes + 1
+        want = {warm_cfg.tile.max_per_tile: until,
+                cfg.tile.max_per_tile: steps - until}
+        _check({k: v[0] for k, v in by_k.items()} == want,
+               f"{label}: steps per budget {by_k}, want {want}")
+        for k, (n, fwd, bwd, _) in by_k.items():
+            _check(fwd == bwd == passes * n,
+                   f"{label} K={k}: {fwd} forward / {bwd} backward launches "
+                   f"for {n} steps of {passes} passes")
+        path = f"train_rehearsal_{label.split('-')[0].lower()}"
+        out["fwd_paths"][path] = sum(v[1] for v in by_k.values())
+        out["bwd_paths"][path] = sum(v[2] for v in by_k.values())
+        prof = _device_profile(trainer.step, 3)
+        if prof is None:
+            print(f"[data-profile] {card}: the trace holds no device "
+                  "events; device busy time not measured")
+        else:
+            busy, idle, top, per_step = prof
+            print(f"[data-profile] {card}: {label} rehearsal step at "
+                  f"K={trainer.step_cfg.tile.max_per_tile}: device busy "
+                  f"{busy:.3f} ms, idle share of the device span "
+                  f"{idle:.3f} (upper bound), {per_step} device kernels "
+                  f"per step")
+            for name, ms in top:
+                print(f"[data-profile]   {ms:8.3f} ms  {name[:100]}")
+        del trainer
+    return out
 
 
 def main() -> None:
@@ -1069,10 +1468,16 @@ def main() -> None:
                f"{label}: the loss falls over the run")
         del trainer
 
+    # 13. The data path: files on disk to an assembled, trained scene.
+    data = data_phase(args.seed, card, dev, gen)
+    kern_err = max(kern_err, data["fwd_err"])
+    bwd_abs = max(bwd_abs, data["bwd_err"])
+
     fwd_paths = {"serve": launches, "train": train_fwd,
                  "serve_multi_return": multi, "serve_tail": serve_tail,
-                 "train_tail": mode_launches["tail"][0]}
-    bwd_paths = {"train": train_bwd, "train_tail": mode_launches["tail"][1]}
+                 "train_tail": mode_launches["tail"][0], **data["fwd_paths"]}
+    bwd_paths = {"train": train_bwd, "train_tail": mode_launches["tail"][1],
+                 **data["bwd_paths"]}
     fwd_x_paths = {"serve_exact": serve_exact,
                    "train_exact": mode_launches["exact"][2]}
     bwd_x_paths = {"train_exact": mode_launches["exact"][3]}

@@ -7,7 +7,8 @@ CUDA C++ kernels for Hopper (`csrc/tracer_forward.cu`,
 `csrc/tracer_backward.cu`, built and bound by `ops/kernels.py`), each with
 a plain PyTorch twin that CPU tensors take (`ops/cuda_tracer.py`).
 
-This package never imports jax; `lidar_rt_tpu` stays the reference that the
-tests hold it to.  It may import the framework-free modules of
-`lidar_rt_tpu` (whose package `__init__` is a docstring only).
+This package never imports jax, nor any module of `lidar_rt_tpu`, not even
+one free of jax (it keeps its own copies: `data/proto_wire.py`, `native/`,
+`data/writers.py`); `lidar_rt_tpu` stays the reference that the tests hold
+it to.
 """

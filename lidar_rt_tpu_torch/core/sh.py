@@ -64,3 +64,8 @@ def evaluate(sh: Tensor, dirs: Tensor, active_degree: int) -> Tensor:
     +0.5 shift (the compositor clamps only the intensity channel)."""
     b = basis(dirs, active_degree)
     return (b[..., :, None] * sh).sum(-2) + 0.5
+
+
+def rgb_to_sh(rgb: Tensor) -> Tensor:
+    """Channel value -> DC SH coefficient."""
+    return (rgb - 0.5) / C0

@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 Tensor = torch.Tensor
@@ -26,3 +27,19 @@ def invert_se3(m: Tensor) -> Tensor:
     r_t = m[..., :3, :3].transpose(-1, -2)
     t = m[..., :3, 3]
     return se3(r_t, -(r_t * t[..., None, :]).sum(-1))
+
+
+def forward_fill_poses(present: np.ndarray, translations: np.ndarray,
+                       rotations: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Fill missing per-frame actor poses (numpy, host side) with the
+    nearest earlier observed frame, or before the first observation with
+    the first.  present: (F,) bool; arrays are (F, ...)."""
+    t = translations.copy()
+    r = rotations.copy()
+    seen = np.flatnonzero(present)
+    if seen.size == 0:
+        return t, r
+    src = np.maximum.accumulate(np.where(present, np.arange(len(present)),
+                                         -1))
+    src[src < 0] = seen[0]
+    return t[src], r[src]

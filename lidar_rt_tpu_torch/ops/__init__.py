@@ -8,4 +8,6 @@
 - cuda_tracer:  host side of the kernel path and its plain twin
 - kernels:      build, bindings and launch counters of the CUDA kernels
 - ssim, chamfer: the training losses' windowed SSIM and Chamfer distance
+- knn:          Morton-window nearest neighbours and PCA normals (scene
+                initialization)
 """

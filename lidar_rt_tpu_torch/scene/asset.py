@@ -8,8 +8,10 @@ Raw (pre-activation) parameters and their activations:
     rotation = normalize(quat)         (wxyz)
     sh       = concat(f_dc, f_rest)    per-channel SH coefficients
 
-Arrays are padded to a fixed capacity with an `alive` mask; actors are
-stacked into one asset with a leading actor axis.  Training keeps the
+Arrays are padded to a fixed capacity with an `alive` mask; dead slots
+hold neutral values (identity rotation, opacity logit -30).  Actors are
+stacked into one asset with a leading actor axis.  `from_points` seeds an
+asset from a point cloud at scene assembly.  Training keeps the
 capacity fixed, so the optimizer's parameters are the asset's own tensors,
 updated in place (`train/optim.py`, `train/density.py`).
 """
@@ -22,6 +24,8 @@ from dataclasses import dataclass
 import torch
 
 from lidar_rt_tpu_torch.core import quaternions as quat_lib
+from lidar_rt_tpu_torch.core import sh as sh_lib
+from lidar_rt_tpu_torch.ops import knn as knn_lib
 
 Tensor = torch.Tensor
 
@@ -107,3 +111,56 @@ class GaussianAsset:
     def with_params(self, p: dict[str, Tensor]) -> "GaussianAsset":
         return dataclasses.replace(
             self, **{f: p[group] for group, f in PARAM_FIELDS.items()})
+
+
+def dead_asset(capacity: int, max_sh_degree: int = 3, extent: float = 200.0,
+               device: str | torch.device = "cuda") -> GaussianAsset:
+    """An all-padding asset with neutral parameter values on `device`."""
+    quat = torch.zeros((capacity, 4), device=device)
+    quat[:, 0] = 1.0
+    return GaussianAsset(
+        xyz=torch.zeros((capacity, 3), device=device),
+        f_dc=torch.zeros((capacity, 1, 3), device=device),
+        f_rest=torch.zeros((capacity, 15, 3), device=device),
+        log_scale=torch.full((capacity, 2), DEAD_LOG_SCALE, device=device),
+        quat=quat,
+        opacity_logit=torch.full((capacity,), DEAD_OPACITY_LOGIT,
+                                 device=device),
+        alive=torch.zeros((capacity,), dtype=torch.bool, device=device),
+        active_sh_degree=0, max_sh_degree=max_sh_degree, extent=extent)
+
+
+def from_points(points: Tensor, color: Tensor, generator: torch.Generator,
+                capacity: int, normals: Tensor | None = None,
+                max_sh_degree: int = 3, extent: float = 200.0,
+                init_opacity: float = 0.1) -> GaussianAsset:
+    """An asset seeded from a point cloud (N, 3) with colors (N, 3), on
+    the points' device; the slots past N are dead.
+
+      * DC SH = rgb_to_sh(color), the rest 0;
+      * both log-scales = log sqrt(mean squared distance to the 3 Morton
+        nearest neighbours, clamped at 1e-7);
+      * rotations: aligned to the normals with a random in-plane spin, or
+        uniform in [0, 1)^4 without normals, drawn from `generator`;
+      * opacity = inverse_sigmoid(init_opacity).
+    """
+    n = points.shape[0]
+    if n > capacity:
+        raise ValueError(f"{n} points > capacity {capacity}")
+    dev = points.device
+    points = points.float()
+    d2 = knn_lib.mean_sq_dist_to_3nn(points).clamp_min(1e-7)
+    log_scale = torch.log(torch.sqrt(d2))[:, None].expand(n, 2)
+    if normals is not None:
+        rots = quat_lib.random_with_fixed_normal(generator, normals.float())
+    else:
+        rots = torch.rand((n, 4), generator=generator, device=dev)
+    out = dead_asset(capacity, max_sh_degree, extent, dev)
+    out.xyz[:n] = points
+    out.f_dc[:n] = sh_lib.rgb_to_sh(color.float())[:, None, :]
+    out.log_scale[:n] = log_scale
+    out.quat[:n] = rots
+    out.opacity_logit[:n] = inverse_sigmoid(
+        torch.tensor(init_opacity, dtype=torch.float32, device=dev))
+    out.alive[:n] = True
+    return out

@@ -8,7 +8,8 @@
     means, and visibility from the accumulated weights;
   * `Trainer` owns the schedule: shuffled frame sampling, SH degree
     warm-up, densify/prune and opacity-reset events, per-actor densify,
-    rebin-cache invalidation, and per-iteration `history`.
+    rebin-cache invalidation, the two-phase candidate budget, and
+    per-iteration `history`.
 
 The scene's capacity never changes, so the optimizers' parameters are the
 scene's own tensors, updated in place by Adam and by density control.
@@ -271,11 +272,20 @@ class Trainer:
     `args.opt.position_lr_init`, ...; `train.options` holds the values of
     configs/base.yaml + configs/exp.yaml).  Frames are drawn from a
     shuffled stack seeded like the reference's trainer, so both packages
-    visit frames in the same order."""
+    visit frames in the same order.
+
+    warmup_cfg/warmup_until: the two-phase candidate budget.  Early
+    footprints (initial scales, before pruning) overlap more surfels per
+    tile than the steady-state K, and truncating them slows convergence,
+    so steps 1..warmup_until render with `warmup_cfg` (a larger K), and
+    every later step with `trace_cfg`.  warmup_until defaults to
+    densify_until_iter; the bin cache is rebuilt at the switch."""
 
     def __init__(self, scene: Scene, frames: LiDARFrames, args,
                  trace_cfg: tracer_lib.TraceConfig | None = None,
-                 seed: int | None = None):
+                 seed: int | None = None,
+                 warmup_cfg: tracer_lib.TraceConfig | None = None,
+                 warmup_until: int | None = None):
         self.frames = frames
         self.args = args
         self.trace_cfg = trace_cfg or tracer_lib.TraceConfig()
@@ -284,14 +294,17 @@ class Trainer:
         np.random.seed(seed)
         self.rebin_every = int(args.opt.rebin_interval)
         self.state = init_train_state(scene, args.opt, seed)
-        self.step_fn = make_train_step(frames, args, self.trace_cfg,
-                                       self.rebin_every)
-        tiles_y, tiles_x = self.trace_cfg.tile.num_tiles(frames.height,
-                                                         frames.width)
-        self.state.bins = BinCache.stale(
-            frames.num_frames, tiles_y * tiles_x,
-            self.trace_cfg.tile.max_per_tile,
-            self.trace_cfg.tail_passes + 1, frames.range1.device)
+        self._main_step = make_train_step(frames, args, self.trace_cfg,
+                                          self.rebin_every)
+        self.warmup_until = 0
+        if warmup_cfg is not None:
+            self.warmup_until = (int(args.opt.densify_until_iter)
+                                 if warmup_until is None else warmup_until)
+        self.step_cfg = warmup_cfg if self.warmup_until else self.trace_cfg
+        self.step_fn = (make_train_step(frames, args, warmup_cfg,
+                                        self.rebin_every)
+                        if self.warmup_until else self._main_step)
+        self.state.bins = self._fresh_bins(self.step_cfg)
         self._frame_stack: list[int] = []
         self.iteration = 0
         self.history: list[dict] = []
@@ -307,6 +320,18 @@ class Trainer:
             random.shuffle(self._frame_stack)
         return self._frame_stack.pop()
 
+    def _fresh_bins(self, cfg: tracer_lib.TraceConfig) -> BinCache:
+        """An all-stale bin cache shaped for `cfg`'s tiles and K; the
+        rebin count carries over."""
+        tiles_y, tiles_x = cfg.tile.num_tiles(self.frames.height,
+                                              self.frames.width)
+        bins = BinCache.stale(self.frames.num_frames, tiles_y * tiles_x,
+                              cfg.tile.max_per_tile, cfg.tail_passes + 1,
+                              self.frames.range1.device)
+        if self.state.bins is not None:
+            bins.rebins = self.state.bins.rebins
+        return bins
+
     def _invalidate_bins(self) -> None:
         """Mark every cached assignment stale (the surfel set changed)."""
         self.state.bins.age = [STALE_AGE] * len(self.state.bins.age)
@@ -318,6 +343,11 @@ class Trainer:
         it = self.iteration
         if it % int(opt_cfg.sh_increase_interval) == 0:
             self.state.scene = self.state.scene.one_up_sh_degree()
+        if self.warmup_until and it > self.warmup_until:
+            # The steady-state budget: new cache shape, every frame stale.
+            self.step_fn, self.step_cfg = self._main_step, self.trace_cfg
+            self.warmup_until = 0
+            self.state.bins = self._fresh_bins(self.trace_cfg)
         f = self._next_frame()
         self.state, metrics = self.step_fn(self.state,
                                            frame_batch(self.frames, f))

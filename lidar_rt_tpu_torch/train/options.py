@@ -1,15 +1,22 @@
-"""The trainer's options as a plain namespace: the values of
-configs/base.yaml + configs/exp.yaml, read by attribute like the
+"""The options of the data path and the trainer as a plain namespace: the
+values of configs/base.yaml + configs/exp.yaml, and of the rehearsal's
+configs/rehearsal/{exp,waymo,kitti}.yaml, read by attribute like the
 reference's config (`args.seed`, `args.opt.position_lr_init`, ...).
 
 The reference reads those files with `lidar_rt_tpu.config`, which needs
-`yaml`; the port's training path does not, so the values stand here (a
-test holds them equal to the files).
+`yaml`; the port does not, so the values stand here (tests hold them equal
+to the files).  `trace_configs` turns a `tracer` block into the trainer's
+candidate-budget schedule.
 """
 
 from __future__ import annotations
 
+import copy
+import dataclasses
 from types import SimpleNamespace
+
+from lidar_rt_tpu_torch.ops import tracer as tracer_lib
+from lidar_rt_tpu_torch.ops.binning import TileConfig
 
 OPT = {
     "iterations": 30_000,
@@ -46,11 +53,92 @@ OPT = {
 }
 
 
+MODEL = {
+    "voxel_size": 0.15,
+    "bkgd_extent_factor": 3,
+    "object_extent_factor": 4,
+    "obj_pt_num": 10_000,
+    "dimension": 2,
+    "sh_degree": 3,
+}
+
+TRACER = {
+    "tile_h": 8,
+    "tile_w": 128,
+    "max_per_tile": 256,
+    "binner": "hier",
+    "approx_topk": True,
+    "coarse_factor": 8,
+    "exact_order": False,
+    "fast_math": True,
+    "tail_passes": 0,
+}
+
+# configs/rehearsal/exp.yaml over configs/exp.yaml (the model, opt and
+# tracer keys it sets), and each rehearsal data config's own keys with its
+# base's (configs/waymo/waymo_base.yaml, configs/kitti360/kitti_base.yaml).
+REHEARSAL_EXP = {
+    "model": {"voxel_size": 0.35, "obj_pt_num": 4000},
+    "opt": {"iterations": 4000, "position_lr_max_steps": 4000,
+            "densify_from_iter": 300, "densify_until_iter": 4000,
+            "opacity_reset_interval": 1000, "rebin_interval": 10},
+    "tracer": {"warmup_max_per_tile": 512, "warmup_until": 2000,
+               "tail_passes": 1},
+}
+REHEARSAL_DATA = {
+    "waymo": {"data_type": "Waymo", "dataset": "waymo",
+              "source_dir": "/tmp/e2e_data/waymo", "frame_length": [0, 49],
+              "eval_frames": [10, 20, 30, 40], "scene_id": "we1",
+              "dynamic": True},
+    "kitti": {"data_type": "KITTI", "dataset": "kitti360",
+              "source_dir": "/tmp/e2e_data/kitti360",
+              "frame_length": [0, 39], "eval_frames": [8, 18, 28, 38],
+              "scene_id": "ke1", "dynamic": True},
+}
+
+
 def experiment_options(seed: int = 1, **opt_overrides) -> SimpleNamespace:
-    """configs/base.yaml + configs/exp.yaml's seed and `opt` section, with
-    `opt` keys overridden by keyword."""
+    """configs/base.yaml + configs/exp.yaml's seed, `model` and `opt`
+    sections, with `opt` keys overridden by keyword."""
     unknown = set(opt_overrides) - set(OPT)
     if unknown:
         raise KeyError(f"unknown opt keys {sorted(unknown)}")
-    return SimpleNamespace(seed=seed,
+    return SimpleNamespace(seed=seed, model=SimpleNamespace(**MODEL),
                            opt=SimpleNamespace(**{**OPT, **opt_overrides}))
+
+
+def rehearsal_options(dataset: str) -> SimpleNamespace:
+    """configs/rehearsal/exp.yaml with configs/rehearsal/<dataset>.yaml
+    ("waymo" or "kitti"), their parents' values included: what the
+    loaders, the assembly and the trainer read, and the `tracer` block."""
+    if dataset not in REHEARSAL_DATA:
+        raise KeyError(f"unknown rehearsal dataset {dataset!r}")
+    ns = experiment_options(**REHEARSAL_EXP["opt"])
+    ns.model = SimpleNamespace(**{**MODEL, **REHEARSAL_EXP["model"]})
+    ns.tracer = SimpleNamespace(**{**TRACER, **REHEARSAL_EXP["tracer"]})
+    for key, value in copy.deepcopy(REHEARSAL_DATA[dataset]).items():
+        setattr(ns, key, value)
+    return ns
+
+
+def trace_configs(args) -> tuple[tracer_lib.TraceConfig,
+                                 tracer_lib.TraceConfig | None, int | None]:
+    """(trace_cfg, warmup_cfg, warmup_until) from `args.tracer`: the
+    trainer's steady-state config and its larger warm-up budget, which
+    differs only in max_per_tile (None without `warmup_max_per_tile`).
+    `approx_topk` and `fast_math` are TPU precision options: the port
+    always selects with exact top-k and composites in float32."""
+    t = vars(args.tracer)
+    tile = TileConfig(
+        tile_h=int(t["tile_h"]), tile_w=int(t["tile_w"]),
+        max_per_tile=int(t["max_per_tile"]), binner=str(t["binner"]),
+        coarse_factor=int(t["coarse_factor"]))
+    cfg = tracer_lib.TraceConfig(tile=tile,
+                                 exact_order=bool(t["exact_order"]),
+                                 tail_passes=int(t["tail_passes"]))
+    warmup_cfg = None
+    if "warmup_max_per_tile" in t:
+        warmup_cfg = dataclasses.replace(cfg, tile=dataclasses.replace(
+            tile, max_per_tile=int(t["warmup_max_per_tile"])))
+    until = t.get("warmup_until")
+    return cfg, warmup_cfg, None if until is None else int(until)

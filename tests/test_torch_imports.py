@@ -34,9 +34,21 @@ def test_port_imports_no_jax():
         "import lidar_rt_tpu_torch.train.loop\n"
         "import lidar_rt_tpu_torch.train.options\n"
         "import lidar_rt_tpu_torch.data.frames\n"
+        "import lidar_rt_tpu_torch.data.build\n"
+        "import lidar_rt_tpu_torch.data.kitti\n"
+        "import lidar_rt_tpu_torch.data.proto_wire\n"
+        "import lidar_rt_tpu_torch.data.synthetic\n"
+        "import lidar_rt_tpu_torch.data.waymo\n"
+        "import lidar_rt_tpu_torch.data.writers\n"
+        "import lidar_rt_tpu_torch.native\n"
+        "import lidar_rt_tpu_torch.ops.knn\n"
+        "import lidar_rt_tpu_torch.scene.asset\n"
+        "import lidar_rt_tpu_torch.scene.tracks\n"
         "from lidar_rt_tpu_torch.ops.tracer import (bin_tail_chain,\n"
         "                                           render_multi_return)\n"
         "from lidar_rt_tpu_torch.ops.kernels import check_exact_k\n"
+        "from lidar_rt_tpu_torch.native import available\n"
+        "assert available()\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m in ('jax', 'yaml', 'lidar_rt_tpu')\n"
         "             or m.startswith(('jax.', 'jaxlib', 'lidar_rt_tpu.')))\n"

@@ -51,12 +51,13 @@ def _bundle(n, seed, device):
 def _case(k, seed, device, tile_h=8, tile_w=128):
     """One small render's tile inputs, with random per-ray min depth and
     initial transmittance in place of the defaults, an empty first tile
-    and a short second one."""
+    and a short second one.  Past K = 256, 2K surfels, so that tiles hold
+    more candidates than the smaller budgets take."""
     grid = t_rays.SensorGrid.from_bounds(16, (-0.3, 0.1), device=device)
     pose = torch.eye(4, device=device)
     tile = TileConfig(tile_h=tile_h, tile_w=tile_w, max_per_tile=k,
                       binner="hier")
-    bundle = _bundle(300, seed, device)
+    bundle = _bundle(300 if k <= 256 else 2 * k, seed, device)
     inputs, _ = cuda_tracer.tile_inputs(bundle, grid, 256, pose, 3, tile)
     g = torch.Generator().manual_seed(seed)
     shape = inputs.mind.shape
@@ -214,6 +215,7 @@ def _launches(exact):
 FWD_CASES = [pytest.param(*c, id="-".join(map(str, c[:3]))
                           + ("-exact" if c[3] else ""))
              for c in [(128, 8, 128, False), (256, 8, 128, False),
+                       (512, 8, 128, False),
                        (200, 4, 48, False), (128, 8, 128, True),
                        (256, 8, 128, True), (200, 4, 48, True)]]
 
@@ -237,6 +239,8 @@ BWD_CASES = [pytest.param(*c, id="-".join(map(str, c[:4]))
              for c in [(128, 8, 128, 1.0, False), (256, 8, 128, 1.0, False),
                        (200, 4, 48, 1.0, False), (128, 8, 128, 0.05, False),
                        (256, 8, 128, 0.05, False), (200, 4, 48, 0.05, False),
+                       # The rehearsal's warm-up budget.
+                       (512, 8, 128, 1.0, False), (512, 8, 128, 0.05, False),
                        (128, 8, 128, 1.0, True), (256, 8, 128, 1.0, True),
                        (128, 8, 128, 0.05, True), (256, 8, 128, 0.05, True),
                        # Rays per tile not a multiple of the blocks' ray
@@ -551,3 +555,32 @@ def test_render_on_card_matches_torch_engine(cuda_device, exact, tail):
     assert _launches(not exact)[0] == 0
     _assert_bars(outs[0].channels, outs[0].accum_weights,
                  outs[1].channels, outs[1].accum_weights)
+
+
+@pytest.mark.cuda
+def test_padded_normals_on_card(cuda_device):
+    """The assembly's padded PCA normals on the card, for a frame larger
+    than one batch of the eigensolver (`knn.EIGH_BATCH`): the same
+    neighbour covariances as on the CPU, each normal a unit vector facing
+    the sensor and orthogonal to its neighbourhood's principal axis."""
+    from lidar_rt_tpu_torch.data import build
+    from lidar_rt_tpu_torch.ops import knn
+
+    rng = np.random.default_rng(0)
+    pts = rng.uniform(-50, 50, (40_000, 3)).astype(np.float32)
+    pts[:, 2] *= 0.05
+    center = torch.tensor([0.0, 0.0, 2.0])
+    got = build._estimate_normals_padded(torch.tensor(pts, device=cuda_device),
+                                         center.to(cuda_device)).cpu()
+    padded = torch.cat([torch.tensor(pts), 1e7 + torch.arange(
+        25_536, dtype=torch.float32)[:, None].expand(-1, 3)])
+    cov = knn.neighbour_covariance(padded, k=6)[:40_000].double()
+    cov_card = knn.neighbour_covariance(padded.to(cuda_device),
+                                        k=6)[:40_000].cpu().double()
+    scale = cov.abs().amax((1, 2), keepdim=True)
+    assert bool(((cov_card - cov).abs() <= 1e-5 * scale + 1e-30).all())
+    principal = torch.linalg.eigh(cov)[1][:, :, 2].float()
+    torch.testing.assert_close(torch.linalg.vector_norm(got, dim=1),
+                               torch.ones(40_000), rtol=0, atol=1e-5)
+    assert bool(((center - torch.tensor(pts)) * got).sum(1).ge(0).all())
+    assert float((got * principal).sum(1).abs().max()) < 1e-3
