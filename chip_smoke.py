@@ -54,7 +54,17 @@ On one CUDA card it:
      scene at K=512 and K=256, and trains the Waymo scene 20 steps and the
      KITTI-360 scene 10 with the rehearsal's tracer settings (K=512 warm-up,
      K=256 after, one tail pass), the warm-up cut short so that both
-     budgets and the switch run.
+     budgets and the switch run;
+ 14. the CLI on phase 13's Waymo segment, in phase 13's directory:
+     `python -m lidar_rt_tpu_torch.cli` `train` (20 of the rehearsal's
+     4,000 iterations, a held-out PSNR every 10, warm-up budget to 10,
+     2 refine epochs in batches of 16), `train --resume --iterations 25`,
+     then `eval -t test -e -i -p` with the refined U-Net; checks the
+     artifacts, that every metric is finite (LPIPS reads unavailable),
+     that the saved checkpoint renders an eval frame's channels
+     bit-identically to the trainer, and the U-Net and the LPIPS network
+     (seeded weights) on the card against the CPU; prints each CLI
+     stage's seconds, ms per eval frame and peak memory.
 
 Every failed check raises.  Without a CUDA device it exits non-zero before
 any phase.  The last two lines of standard output are the kernel table
@@ -69,9 +79,11 @@ import argparse
 import collections
 import dataclasses
 import json
+import os
 import re
 import statistics
 import subprocess
+import tempfile
 import time
 
 import numpy as np
@@ -650,13 +662,10 @@ def _train_budgets(trainer, steps: int, what: str, card: str):
     return by_k
 
 
-def data_phase(seed: int, card: str, dev, gen) -> dict:
-    """Phase 13: the data path from files on disk to a trained scene.
-    Returns the kernels' launches on its training paths and their errors
-    on the assembled scene's tile inputs."""
-    import os
-    import tempfile
-
+def data_phase(seed: int, card: str, dev, gen, tmp: str) -> dict:
+    """Phase 13: the data path from files on disk (written under `tmp`)
+    to a trained scene.  Returns the kernels' launches on its training
+    paths and their errors on the assembled scene's tile inputs."""
     from lidar_rt_tpu_torch import native
     from lidar_rt_tpu_torch.data import build, kitti, waymo
     from lidar_rt_tpu_torch.ops import cuda_tracer, kernels
@@ -666,68 +675,67 @@ def data_phase(seed: int, card: str, dev, gen) -> dict:
     names = ("d_axes", "d_plane", "d_inv_scale", "d_opac", "d_sh")
     out = {"fwd_err": 0.0, "bwd_err": 0.0, "fwd_paths": {},
            "bwd_paths": {}}
-    with tempfile.TemporaryDirectory() as tmp:
-        w_dir, k_dir = os.path.join(tmp, "waymo"), os.path.join(tmp, "kitti")
-        w_imgs, gen_w_s = _timed(lambda: gen_waymo(
-            w_dir, dev, WAYMO_FRAMES, WAYMO_H, WAYMO_W))
-        k_imgs, gen_k_s = _timed(lambda: gen_kitti(k_dir, dev,
-                                                   KITTI_FRAMES))
-        record = next(p for p in os.listdir(w_dir)
-                      if p.endswith(".tfrecord"))
-        size_mb = os.path.getsize(os.path.join(w_dir, record)) / 1e6
-        print(f"[data-gen] Waymo segment {WAYMO_FRAMES} x {WAYMO_H}x"
-              f"{WAYMO_W}, 2 returns, 3 vehicles: {gen_w_s:.2f} s "
-              f"({size_mb:.1f} MB); KITTI-360 {KITTI_FRAMES} x 66x1030, 1 "
-              f"car: {gen_k_s:.2f} s")
+    w_dir, k_dir = os.path.join(tmp, "waymo"), os.path.join(tmp, "kitti")
+    w_imgs, gen_w_s = _timed(lambda: gen_waymo(
+        w_dir, dev, WAYMO_FRAMES, WAYMO_H, WAYMO_W))
+    k_imgs, gen_k_s = _timed(lambda: gen_kitti(k_dir, dev,
+                                               KITTI_FRAMES))
+    record = next(p for p in os.listdir(w_dir)
+                  if p.endswith(".tfrecord"))
+    size_mb = os.path.getsize(os.path.join(w_dir, record)) / 1e6
+    print(f"[data-gen] Waymo segment {WAYMO_FRAMES} x {WAYMO_H}x"
+          f"{WAYMO_W}, 2 returns, 3 vehicles: {gen_w_s:.2f} s "
+          f"({size_mb:.1f} MB); KITTI-360 {KITTI_FRAMES} x 66x1030, 1 "
+          f"car: {gen_k_s:.2f} s")
 
-        opts_w = options.rehearsal_options("waymo")
-        opts_k = options.rehearsal_options("kitti")
-        opts_w.frame_length = [0, WAYMO_FRAMES - 1]
-        opts_k.frame_length = [0, KITTI_FRAMES - 1]
-        (frames_w, tracks_w), load_w_s = _timed(lambda: waymo.load(
-            w_dir, opts_w, use_native=True, device=dev))
-        (frames_k, tracks_k), load_k_s = _timed(lambda: kitti.load(
-            k_dir, opts_k, device=dev))
+    opts_w = options.rehearsal_options("waymo")
+    opts_k = options.rehearsal_options("kitti")
+    opts_w.frame_length = [0, WAYMO_FRAMES - 1]
+    opts_k.frame_length = [0, KITTI_FRAMES - 1]
+    (frames_w, tracks_w), load_w_s = _timed(lambda: waymo.load(
+        w_dir, opts_w, use_native=True, device=dev))
+    (frames_k, tracks_k), load_k_s = _timed(lambda: kitti.load(
+        k_dir, opts_k, device=dev))
 
-        # The native decode against the Python parser, first and last
-        # frame, to the bit.
-        path = os.path.join(w_dir, record)
-        buf = open(path, "rb").read()
-        offs, lens = native.tfrecord_index(buf)
-        _check(len(offs) == WAYMO_FRAMES, f"{len(offs)} records")
-        py_records = list(waymo.pw.tfrecord_iter(path))
-        for i in (0, WAYMO_FRAMES - 1):
-            rec = buf[offs[i]:offs[i] + lens[i]]
-            _check(rec == py_records[i], f"record {i} framing")
-            fd = native.waymo_decode_frame(rec)
-            parsed = waymo._FrameParse(rec)
-            r1, r2 = parsed.top_range_images()
-            extr, beams, _ = parsed.top_calibration()
-            _check(np.array_equal(fd.r1, r1) and np.array_equal(fd.r2, r2)
-                   and np.array_equal(fd.pose.astype(np.float32),
-                                      parsed.pose())
-                   and np.array_equal(fd.extrinsic.astype(np.float32), extr)
-                   and np.array_equal(fd.beams, np.asarray(beams))
-                   and [b[0] for b in parsed.labels()] == fd.box_ids,
-                   f"native decode vs Python parser, frame {i}")
-        # The loaded images are the rendered ones (-1 re-coded to 0).
-        for key, img in w_imgs.items():
-            _check(np.array_equal(getattr(frames_w, key).cpu().numpy(), img),
-                   f"loaded Waymo {key} equals the rendered images")
-        k_r = frames_k.range1.cpu().numpy()
-        both = (k_r > 0) & (k_imgs["range1"] > 0)
-        k_agree = float((np.abs(k_r - k_imgs["range1"])[both] < 0.01).mean())
-        k_hits = float((k_r > 0).mean() / (k_imgs["range1"] > 0).mean())
-        print(f"[data-load] {card}: Waymo {load_w_s:.2f} s (native ingest "
-              f"and npz cache, {len(tracks_w)} tracks); KITTI-360 "
-              f"{load_k_s:.2f} s ({len(tracks_k)} tracks); native decode "
-              f"bit-identical to the Python parser on frames 0 and "
-              f"{WAYMO_FRAMES - 1}; KITTI re-rasterized ranges within 1 cm "
-              f"of the rendered ones on {k_agree:.4f} of shared hits, hit "
-              f"ratio {k_hits:.4f}")
-        _check(len(tracks_w) == 3 and len(tracks_k) == 1, "tracks loaded")
-        _check(k_agree > 0.95 and k_hits > 0.95,
-               "KITTI-360 loader re-rasterizes the rendered images")
+    # The native decode against the Python parser, first and last
+    # frame, to the bit.
+    path = os.path.join(w_dir, record)
+    buf = open(path, "rb").read()
+    offs, lens = native.tfrecord_index(buf)
+    _check(len(offs) == WAYMO_FRAMES, f"{len(offs)} records")
+    py_records = list(waymo.pw.tfrecord_iter(path))
+    for i in (0, WAYMO_FRAMES - 1):
+        rec = buf[offs[i]:offs[i] + lens[i]]
+        _check(rec == py_records[i], f"record {i} framing")
+        fd = native.waymo_decode_frame(rec)
+        parsed = waymo._FrameParse(rec)
+        r1, r2 = parsed.top_range_images()
+        extr, beams, _ = parsed.top_calibration()
+        _check(np.array_equal(fd.r1, r1) and np.array_equal(fd.r2, r2)
+               and np.array_equal(fd.pose.astype(np.float32),
+                                  parsed.pose())
+               and np.array_equal(fd.extrinsic.astype(np.float32), extr)
+               and np.array_equal(fd.beams, np.asarray(beams))
+               and [b[0] for b in parsed.labels()] == fd.box_ids,
+               f"native decode vs Python parser, frame {i}")
+    # The loaded images are the rendered ones (-1 re-coded to 0).
+    for key, img in w_imgs.items():
+        _check(np.array_equal(getattr(frames_w, key).cpu().numpy(), img),
+               f"loaded Waymo {key} equals the rendered images")
+    k_r = frames_k.range1.cpu().numpy()
+    both = (k_r > 0) & (k_imgs["range1"] > 0)
+    k_agree = float((np.abs(k_r - k_imgs["range1"])[both] < 0.01).mean())
+    k_hits = float((k_r > 0).mean() / (k_imgs["range1"] > 0).mean())
+    print(f"[data-load] {card}: Waymo {load_w_s:.2f} s (native ingest "
+          f"and npz cache, {len(tracks_w)} tracks); KITTI-360 "
+          f"{load_k_s:.2f} s ({len(tracks_k)} tracks); native decode "
+          f"bit-identical to the Python parser on frames 0 and "
+          f"{WAYMO_FRAMES - 1}; KITTI re-rasterized ranges within 1 cm "
+          f"of the rendered ones on {k_agree:.4f} of shared hits, hit "
+          f"ratio {k_hits:.4f}")
+    _check(len(tracks_w) == 3 and len(tracks_k) == 1, "tracks loaded")
+    _check(k_agree > 0.95 and k_hits > 0.95,
+           "KITTI-360 loader re-rasterizes the rendered images")
 
     # Assembly, and its normals alone, each beside the card.
     def normals_alone(frames):
@@ -848,6 +856,186 @@ def data_phase(seed: int, card: str, dev, gen) -> dict:
                 print(f"[data-profile]   {ms:8.3f} ms  {name[:100]}")
         del trainer
     return out
+
+
+CLI_ITERATIONS, CLI_RESUMED = 20, 25     # of the rehearsal's 4,000
+CLI_TESTING, CLI_WARMUP_UNTIL = 10, 10   # of its 1,000 and 2,000
+CLI_EPOCHS, CLI_BATCH = 2, 16            # of its 40 refine epochs; 46 train
+# frames in batches of 16 leave a trailing batch of 14.
+
+
+def cli_phase(tmp: str, card: str, dev) -> dict:
+    """Phase 14: the port's CLI on phase 13's Waymo segment under `tmp`:
+    `train`, `train --resume`, `eval` with the refined U-Net, in this
+    process, with the rehearsal's configs under a child config that cuts
+    the depth.  Returns the tracer kernels' launches per CLI command."""
+    from lidar_rt_tpu_torch import cli
+    from lidar_rt_tpu_torch.eval import lpips
+    from lidar_rt_tpu_torch.models import unet
+    from lidar_rt_tpu_torch.ops import kernels
+    from lidar_rt_tpu_torch.ops import tracer as tracer_lib
+    from lidar_rt_tpu_torch.scene import compose
+    from lidar_rt_tpu_torch.train import refine
+    from lidar_rt_tpu_torch.utils import checkpoint
+
+    data_cfg = "configs/rehearsal/waymo.yaml"
+    exp_cfg = os.path.join(tmp, "cli_exp.yaml")
+    with open(exp_cfg, "w") as f:
+        f.write(f"""# The rehearsal's experiment, its depth cut.
+parent_config: configs/rehearsal/exp.yaml
+model_dir: "{tmp}/output"
+source_dir: "{tmp}/waymo"
+testing_iterations: {CLI_TESTING}
+saving_iterations: [{CLI_ITERATIONS}]
+opt:
+  iterations: {CLI_ITERATIONS}
+tracer:
+  warmup_until: {CLI_WARMUP_UNTIL}
+refine:
+  epochs: {CLI_EPOCHS}
+  batch_size: {CLI_BATCH}
+""")
+    mdir = os.path.join(tmp, "output", "rehearsal", "exp", "scene_we1")
+    log_path = os.path.join(mdir, "logs", "log.json")
+    print(f"[cli] reduction: configs/rehearsal/exp.yaml + waymo.yaml with "
+          f"{CLI_ITERATIONS} iterations (then a resume to {CLI_RESUMED}) "
+          f"of 4000, testing every {CLI_TESTING} of 1000, warmup_until "
+          f"{CLI_WARMUP_UNTIL} of 2000, refine {CLI_EPOCHS} epochs of 40 in "
+          f"batches of {CLI_BATCH}")
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launches()
+    runs = {}
+    for label, extra in (("train", []), ("resume", [
+            "--resume", "--iterations", str(CLI_RESUMED)])):
+        trainer, wall = _timed(lambda: cli.main(
+            ["train", "-dc", data_cfg, "-ec", exp_cfg, *extra]))
+        with open(log_path) as f:
+            log = json.load(f)
+        runs[label] = (trainer, log)
+        secs = ", ".join(f"{k} {v:.2f}" for k, v in log["seconds"].items())
+        psnr = [round(e["eval_psnr"], 3) for e in log["eval_history"]]
+        print(f"[cli-{label}] {card}: {wall:.2f} s; stages (s, host clock "
+              f"to a synchronize): {secs}; {len(log['history'])} history "
+              f"entries, held-out PSNR {psnr}, "
+              f"{trainer.state.bins.rebins} rebins, "
+              f"{int(trainer.state.scene.background.num_alive)} surfels")
+    train_launches = (kernels.forward_launches, kernels.backward_launches,
+                      kernels.forward_exact_launches,
+                      kernels.backward_exact_launches)
+    trainer, log = runs["resume"]
+    _check([h["iteration"] for h in log["history"]]
+           == list(range(1, CLI_RESUMED + 1)),
+           "log.json holds every iteration of both runs")
+    _check(all(np.isfinite(h["loss"]) for h in log["history"]),
+           "CLI training losses finite")
+    models = os.path.join(mdir, "models")
+    names = sorted(os.listdir(models))
+    _check(any(n.endswith("_good.npz") for n in names)
+           and "unet.npz" in names, f"checkpoints {names}")
+    _check(sorted(os.listdir(os.path.join(mdir, "visuals")))
+           == [f"it_{i:06d}.png" for i in (10, 20, 25)], "visuals")
+
+    kernels.reset_launches()
+    _, eval_wall = _timed(lambda: cli.main(
+        ["eval", "-dc", data_cfg, "-ec", exp_cfg, "-t", "test", "-e", "-i",
+         "-p"]))
+    eval_launches = (kernels.forward_launches, kernels.backward_launches,
+                     kernels.forward_exact_launches,
+                     kernels.backward_exact_launches)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+    metrics_dir = os.path.join(mdir, "metrics")
+    with open(os.path.join(metrics_dir, "results_all.json")) as f:
+        saved = json.load(f)
+    frames = trainer.frames
+    test_ids = list(frames.eval_frames)
+    images = set(os.listdir(os.path.join(metrics_dir, "images")))
+    _check(images == {f"{kind}_{f:04d}.{ext}" for f in test_ids
+                      for kind, ext in (("frame", "png"), ("gt", "ply"),
+                                        ("pred", "ply"))}
+           and os.path.exists(os.path.join(metrics_dir, "depth_anim.png")),
+           f"eval artifacts {sorted(images)}")
+    _check("depth_return2" in saved["mean"], "second-return metrics")
+    for where, table in [("mean", saved["mean"])] + [
+            (f"frame {f}", t) for f, t in saved["per_frame"].items()]:
+        for group, row in table.items():
+            for k, v in row.items():
+                ok = (v == "unavailable(no-weights)" if where == "mean"
+                      else np.isnan(v)) if "lpips" in k else np.isfinite(v)
+                _check(bool(ok), f"results_all.json {where} {group}/{k} = "
+                       f"{v}")
+    mean = saved["mean"]
+    print(f"[cli-eval] {card}: {eval_wall:.2f} s for {len(test_ids)} test "
+          f"frames with artifacts; metric pass "
+          f"{1e3 * saved['eval_seconds'] / len(test_ids):.1f} ms per frame "
+          f"(render, U-Net, second return, metrics; host clock); depth "
+          f"RMSE {mean['depth']['rmse']:.4f} MedAE "
+          f"{mean['depth']['medae']:.4f}, intensity PSNR "
+          f"{mean['intensity']['psnr']:.4f}, raydrop F1 "
+          f"{mean['raydrop']['f1']:.4f}, Chamfer "
+          f"{mean['points']['chamfer_dist']:.4f}, F-score "
+          f"{mean['points']['fscore']:.4f}, return-2 MedAE "
+          f"{mean['depth_return2']['medae']:.4f}; peak allocated over "
+          f"phase 14 {peak:.1f} MiB")
+
+    # The saved checkpoint renders an eval frame as the trainer that saved
+    # it does, to the bit.
+    f0 = test_ids[0]
+    ckpt = next(os.path.join(models, n) for n in names
+                if n.startswith(f"ckpt_it_{CLI_RESUMED}"))
+    scene, _ = checkpoint.load_scene(ckpt, dev)
+    with torch.no_grad():
+        bundle, _ = compose(scene, f0)
+        reloaded = tracer_lib.render_frame(
+            bundle, frames.grid, frames.width, frames.pose(f0),
+            scene.background.active_sh_degree, trainer.trace_cfg,
+            bool(trainer.args.opt.use_rayhit))
+    live = trainer.render_eval(f0)
+    # Channels to the bit (each ray's composite runs in one thread);
+    # accum is a sum over rays taken with atomics in no fixed order.
+    acc_err, acc_ok = _accum_err(reloaded["accum_weights"],
+                                 live["accum_weights"])
+    _check(torch.equal(reloaded["channels"], live["channels"]) and acc_ok,
+           f"{ckpt} renders frame {f0} bit-identically (accum "
+           f"{acc_err:.3e})")
+
+    # The U-Net and the LPIPS network on the card against the CPU.
+    weights, umeta = checkpoint.load(os.path.join(models, "unet.npz"))
+    x, _ = refine.collect_inputs(trainer.render_eval, frames, [f0], True)
+    outs = []
+    for where in ("cpu", dev):
+        net = unet.make_unet(int(umeta["in_ch"]), where)
+        net.load_state_dict({k: torch.as_tensor(v)
+                             for k, v in weights.items()})
+        xw = x[0].to(where)
+        outs.append(refine.apply_unet(net, *xw[:3], xw[3:6].permute(1, 2, 0),
+                                      xw[6:].permute(1, 2, 0)).cpu())
+    unet_err = (outs[1] - outs[0]).abs().max().item()
+    gen = torch.Generator().manual_seed(0)
+    cpu_lpips = lpips.init_weights(lpips.new_lpips("cpu"), gen)
+    card_lpips = lpips.new_lpips(dev)
+    card_lpips.load_state_dict(cpu_lpips.state_dict())
+    pred = live["intensity"].clamp(0, 1)
+    gt = frames.intensity(f0).clamp(0, 1)
+    lp_cpu = lpips.make_lpips_fn(cpu_lpips)(pred.cpu(), gt.cpu())
+    lp_card, lp_s = _timed(lambda: lpips.make_lpips_fn(card_lpips)(pred, gt))
+    print(f"[cli-check] {card}: {os.path.basename(ckpt)} renders frame "
+          f"{f0}'s channels bit-identically to the trainer (accum, summed "
+          f"with atomics, within {acc_err:.3e}); U-Net (in_ch "
+          f"{umeta['in_ch']}, final loss {umeta['final_loss']:.4f}) card vs "
+          f"CPU max abs err {unet_err:.3e} (bar 1e-4); LPIPS with seeded "
+          f"weights {lp_card:.6f} card vs {lp_cpu:.6f} CPU, abs err "
+          f"{abs(lp_card - lp_cpu):.3e} (bar 1e-4), {1e3 * lp_s:.1f} ms on "
+          f"the card; launches (forward, backward, exact forward, exact "
+          f"backward): train + resume {train_launches}, eval "
+          f"{eval_launches}")
+    _check(unet_err <= 1e-4, "U-Net on the card vs the CPU")
+    _check(lp_card > 0 and abs(lp_card - lp_cpu) <= 1e-4,
+           "LPIPS on the card vs the CPU")
+    _check(train_launches[2:] == eval_launches[2:] == (0, 0)
+           and eval_launches[1] == 0, "tile order only; no backward in eval")
+    return {"fwd_paths": {"cli_train": train_launches[0],
+                          "cli_eval": eval_launches[0]},
+            "bwd_paths": {"cli_train": train_launches[1]}}
 
 
 def main() -> None:
@@ -1468,16 +1656,20 @@ def main() -> None:
                f"{label}: the loss falls over the run")
         del trainer
 
-    # 13. The data path: files on disk to an assembled, trained scene.
-    data = data_phase(args.seed, card, dev, gen)
+    # 13. The data path: files on disk to an assembled, trained scene;
+    # 14. the CLI on phase 13's Waymo segment, before it is removed.
+    with tempfile.TemporaryDirectory() as tmp:
+        data = data_phase(args.seed, card, dev, gen, tmp)
+        cli_runs = cli_phase(tmp, card, dev)
     kern_err = max(kern_err, data["fwd_err"])
     bwd_abs = max(bwd_abs, data["bwd_err"])
 
     fwd_paths = {"serve": launches, "train": train_fwd,
                  "serve_multi_return": multi, "serve_tail": serve_tail,
-                 "train_tail": mode_launches["tail"][0], **data["fwd_paths"]}
+                 "train_tail": mode_launches["tail"][0], **data["fwd_paths"],
+                 **cli_runs["fwd_paths"]}
     bwd_paths = {"train": train_bwd, "train_tail": mode_launches["tail"][1],
-                 **data["bwd_paths"]}
+                 **data["bwd_paths"], **cli_runs["bwd_paths"]}
     fwd_x_paths = {"serve_exact": serve_exact,
                    "train_exact": mode_launches["exact"][2]}
     bwd_x_paths = {"train_exact": mode_launches["exact"][3]}

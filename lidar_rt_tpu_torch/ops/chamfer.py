@@ -3,7 +3,8 @@
 
 Brute-force nearest neighbours over chunks of 512 points of the second
 cloud, so peak memory is N x 512, with the cross term of
-||a - b||^2 = |a|^2 + |b|^2 - 2 a.b as a matmul.  The search runs without
+||a - b||^2 = |a|^2 + |b|^2 - 2 a.b as a matmul.  The search
+(`nearest_sq_dists`, which the eval metrics also call) runs without
 autograd and gives the values; the gradient of the min comes from the
 distances of the pairs at the minimum, recomputed from the gathered points,
 so the N x M distance field is not kept for the backward pass.  Invalid
@@ -28,6 +29,25 @@ def _sq_dists(a: Tensor, a_sq: Tensor, b: Tensor, b_mask: Tensor, s: int,
     return torch.where(b_mask[None, s:s + chunk], d2.clamp_min(0.0), _BIG)
 
 
+def nearest_sq_dists(a: Tensor, b: Tensor, b_mask: Tensor | None = None,
+                     chunk: int = 512) -> Tensor:
+    """The value-only search: for each point of `a` (N, 3), the squared
+    distance to the nearest (valid) point of `b` (M, 3), _BIG where there
+    is none, without autograd and on the points' device, with no host
+    sync."""
+    if b_mask is None:
+        b_mask = torch.ones(b.shape[0], dtype=torch.bool, device=b.device)
+    with torch.no_grad():
+        a, b = a.detach(), b.detach()
+        a_sq = (a * a).sum(-1)
+        best = torch.full((a.shape[0],), _BIG, dtype=a.dtype,
+                          device=a.device)
+        for s in range(0, b.shape[0], chunk):
+            best = torch.minimum(
+                best, _sq_dists(a, a_sq, b, b_mask, s, chunk).amin(-1))
+    return best
+
+
 def min_sq_dists(a: Tensor, a_mask: Tensor, b: Tensor, b_mask: Tensor,
                  chunk: int = 512) -> Tensor:
     """For each point of `a`, squared distance to the nearest valid point of
@@ -37,14 +57,10 @@ def min_sq_dists(a: Tensor, a_mask: Tensor, b: Tensor, b_mask: Tensor,
     as dropped rays back-projected to the sensor origin), the gradient is
     split evenly among them, as the reference's `jnp.min` splits it.
     Rows that are invalid or find no valid point of b take no pairs."""
+    best = nearest_sq_dists(a, b, b_mask, chunk)
     with torch.no_grad():
         a0, b0 = a.detach(), b.detach()
         a_sq = (a0 * a0).sum(-1)
-        best = torch.full((a.shape[0],), _BIG, dtype=a.dtype,
-                          device=a.device)
-        for s in range(0, b.shape[0], chunk):
-            best = torch.minimum(
-                best, _sq_dists(a0, a_sq, b0, b_mask, s, chunk).amin(-1))
         keep = a_mask & (best < _BIG)
         target = torch.where(keep, best, float("nan"))   # NaN equals nothing
         rows, cols = [], []

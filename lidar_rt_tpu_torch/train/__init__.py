@@ -6,4 +6,5 @@
 - density:  clone / split / prune and opacity reset, in place
 - loop:     `make_train_step`, `Trainer`
 - options:  the trainer's options from configs/base.yaml + exp.yaml
+- refine:   the U-Net ray-drop refine stage
 """

@@ -8,8 +8,9 @@
     means, and visibility from the accumulated weights;
   * `Trainer` owns the schedule: shuffled frame sampling, SH degree
     warm-up, densify/prune and opacity-reset events, per-actor densify,
-    rebin-cache invalidation, the two-phase candidate budget, and
-    per-iteration `history`.
+    rebin-cache invalidation, the two-phase candidate budget,
+    per-iteration `history`, and the non-finite guard at each log event
+    (`snapshot_dir`).
 
 The scene's capacity never changes, so the optimizers' parameters are the
 scene's own tensors, updated in place by Adam and by density control.
@@ -20,6 +21,7 @@ until a log event moves them to `history`.
 from __future__ import annotations
 
 import dataclasses
+import os
 import random
 import time
 from dataclasses import dataclass
@@ -37,6 +39,7 @@ from lidar_rt_tpu_torch.scene.asset import PARAM_FIELDS, GaussianAsset
 from lidar_rt_tpu_torch.scene.scene import Scene, compose, split_by_asset
 from lidar_rt_tpu_torch.scene.tracks import ActorTrack
 from lidar_rt_tpu_torch.train import density, losses, optim
+from lidar_rt_tpu_torch.utils import profiling
 
 Tensor = torch.Tensor
 
@@ -311,6 +314,9 @@ class Trainer:
         # (iteration, frame, metrics on the device) awaiting a log event.
         self._pending_metrics: list[tuple[int, int, dict[str, Tensor]]] = []
         self.densify_log: list[dict] = []
+        # Set to a directory to snapshot the state when a logged metric is
+        # not finite (`utils.profiling.guard_finite`).
+        self.snapshot_dir: str | None = None
         self._elapsed_total = 0.0
 
     def _next_frame(self) -> int:
@@ -331,6 +337,12 @@ class Trainer:
         if self.state.bins is not None:
             bins.rebins = self.state.bins.rebins
         return bins
+
+    def restore(self, state: TrainState, iteration: int) -> None:
+        """Continue from a saved state at `iteration` (a checkpoint holds
+        no bin cache): every frame re-bins at its first step."""
+        state.bins = self._fresh_bins(self.step_cfg)
+        self.state, self.iteration = state, iteration
 
     def _invalidate_bins(self) -> None:
         """Mark every cached assignment stale (the surfel set changed)."""
@@ -368,6 +380,13 @@ class Trainer:
             self.step()
             if self.iteration % log_every == 0 or local == total:
                 self._flush_metrics()
+                if self.snapshot_dir is not None:
+                    it = self.iteration
+                    profiling.guard_finite(
+                        self.history[-1], self.state,
+                        os.path.join(self.snapshot_dir,
+                                     f"snapshot_it{it}.npz"),
+                        context=f"iteration {it}")
                 self.history[-1].update(
                     alive=int(self.state.scene.background.num_alive),
                     elapsed=self._elapsed_total + time.time() - t0)

@@ -3,10 +3,10 @@ values of configs/base.yaml + configs/exp.yaml, and of the rehearsal's
 configs/rehearsal/{exp,waymo,kitti}.yaml, read by attribute like the
 reference's config (`args.seed`, `args.opt.position_lr_init`, ...).
 
-The reference reads those files with `lidar_rt_tpu.config`, which needs
-`yaml`; the port does not, so the values stand here (tests hold them equal
-to the files).  `trace_configs` turns a `tracer` block into the trainer's
-candidate-budget schedule.
+The files themselves are read by `lidar_rt_tpu_torch.config` (the CLI's
+path); these tables keep the values for programmatic use, and tests hold
+them equal to the files.  `trace_configs` turns a `tracer` block (of
+either) into the trainer's candidate-budget schedule.
 """
 
 from __future__ import annotations
@@ -121,21 +121,41 @@ def rehearsal_options(dataset: str) -> SimpleNamespace:
     return ns
 
 
+# Keys of a `tracer` block that select TPU code paths or precision: the
+# port always bins with exact top-k and composites in float32.
+TPU_ONLY = ("approx_topk", "fast_math", "macro_cols", "ray_block")
+
+
+def tracer_block(args) -> dict:
+    """`args.tracer` as a dict ({} without one): a config's `Args` or a
+    namespace of these tables."""
+    t = getattr(args, "tracer", None)
+    if t is None:
+        return {}
+    return t.to_dict() if hasattr(t, "to_dict") else dict(vars(t))
+
+
 def trace_configs(args) -> tuple[tracer_lib.TraceConfig,
                                  tracer_lib.TraceConfig | None, int | None]:
     """(trace_cfg, warmup_cfg, warmup_until) from `args.tracer`: the
     trainer's steady-state config and its larger warm-up budget, which
     differs only in max_per_tile (None without `warmup_max_per_tile`).
-    `approx_topk` and `fast_math` are TPU precision options: the port
-    always selects with exact top-k and composites in float32."""
-    t = vars(args.tracer)
+    A key the block lacks takes the flagship's value (`FLAGSHIP_TILE`,
+    `TraceConfig()`), as the reference's CLI does.  The `TPU_ONLY` keys
+    are read by nothing: the port always selects with exact top-k and
+    composites in float32."""
+    t = tracer_block(args)
+    ft, fd = tracer_lib.FLAGSHIP_TILE, tracer_lib.TraceConfig()
     tile = TileConfig(
-        tile_h=int(t["tile_h"]), tile_w=int(t["tile_w"]),
-        max_per_tile=int(t["max_per_tile"]), binner=str(t["binner"]),
-        coarse_factor=int(t["coarse_factor"]))
-    cfg = tracer_lib.TraceConfig(tile=tile,
-                                 exact_order=bool(t["exact_order"]),
-                                 tail_passes=int(t["tail_passes"]))
+        tile_h=int(t.get("tile_h", ft.tile_h)),
+        tile_w=int(t.get("tile_w", ft.tile_w)),
+        max_per_tile=int(t.get("max_per_tile", ft.max_per_tile)),
+        binner=str(t.get("binner", ft.binner)),
+        coarse_factor=int(t.get("coarse_factor", ft.coarse_factor)))
+    cfg = tracer_lib.TraceConfig(
+        tile=tile, exact_order=bool(t.get("exact_order", fd.exact_order)),
+        tile_batch=int(t.get("tile_batch", fd.tile_batch)),
+        tail_passes=int(t.get("tail_passes", fd.tail_passes)))
     warmup_cfg = None
     if "warmup_max_per_tile" in t:
         warmup_cfg = dataclasses.replace(cfg, tile=dataclasses.replace(

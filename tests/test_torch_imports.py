@@ -58,6 +58,36 @@ def test_port_imports_no_jax():
     assert proc.stdout.strip() == "clean"
 
 
+def test_cli_imports_no_jax_yaml_flax_optax():
+    """The CLI and everything it pulls in (config reader, checkpoints,
+    eval, refine, U-Net, LPIPS, the utilities) load no jax, yaml, flax,
+    optax or module of `lidar_rt_tpu`."""
+    proc = _python(
+        "import sys\n"
+        "import lidar_rt_tpu_torch.cli\n"
+        "import lidar_rt_tpu_torch.config\n"
+        "import lidar_rt_tpu_torch.eval.lpips\n"
+        "import lidar_rt_tpu_torch.eval.metrics\n"
+        "import lidar_rt_tpu_torch.eval.runner\n"
+        "import lidar_rt_tpu_torch.models.unet\n"
+        "import lidar_rt_tpu_torch.train.refine\n"
+        "import lidar_rt_tpu_torch.utils.checkpoint\n"
+        "import lidar_rt_tpu_torch.utils.console\n"
+        "import lidar_rt_tpu_torch.utils.export\n"
+        "import lidar_rt_tpu_torch.utils.import_torch\n"
+        "import lidar_rt_tpu_torch.utils.profiling\n"
+        "import lidar_rt_tpu_torch.utils.record\n"
+        "from lidar_rt_tpu_torch import cli\n"
+        "cli._train_parser(); cli._eval_parser()\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'yaml', 'flax',\n"
+        "                                    'optax', 'lidar_rt_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('clean')\n")
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "clean"
+
+
 def test_chip_smoke_scene_is_bench_scene():
     """chip_smoke.py draws bench.py's street soup without importing jax."""
     proc = _python(
