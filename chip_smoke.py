@@ -65,6 +65,22 @@ On one CUDA card it:
      bit-identically to the trainer, and the U-Net and the LPIPS network
      (seeded weights) on the card against the CPU; prints each CLI
      stage's seconds, ms per eval frame and peak memory.
+ 15. the scale-out path (`lidar_rt_tpu_torch.parallel`) on the Waymo
+     segment's scene, assembled again and handed to the ranks as a
+     checkpoint; ranks are processes sharing this card through gloo
+     (`parallel.run_world`), each importing only this script and the
+     port: (a) in a rays = 2 world, each band's kernels (both orders)
+     against their twins on its tile inputs (8 x 128 tiles, K = 256: 88
+     tiles of 1325 columns each), and the bands of `trace_ray_sharded`,
+     gathered, against this process's band traces (channels to the bit);
+     (b) the bundle's gradients of a loss on the gathered scan against
+     this process's; (c) `ShardedTrainer` on a 1 x 1 mesh against
+     `Trainer` (run twice, to measure how far two runs part on the card),
+     20 rehearsal steps, ms per step of both; (d) a dp = 2 x rays = 2
+     world of 4 ranks, 10 tile-order steps with the rehearsal's tracer
+     settings and 2 in exact order: losses, distinct frames per row, the
+     state bit-identical on every rank, ms per step and the bytes and ms
+     of its all-reduces (four ranks share one card: no scaling figure).
 
 Every failed check raises.  Without a CUDA device it exits non-zero before
 any phase.  The last two lines of standard output are the kernel table
@@ -78,6 +94,7 @@ from __future__ import annotations
 import argparse
 import collections
 import dataclasses
+import hashlib
 import json
 import os
 import re
@@ -688,9 +705,8 @@ def data_phase(seed: int, card: str, dev, gen, tmp: str) -> dict:
           f"({size_mb:.1f} MB); KITTI-360 {KITTI_FRAMES} x 66x1030, 1 "
           f"car: {gen_k_s:.2f} s")
 
-    opts_w = options.rehearsal_options("waymo")
+    opts_w = _waymo_options()
     opts_k = options.rehearsal_options("kitti")
-    opts_w.frame_length = [0, WAYMO_FRAMES - 1]
     opts_k.frame_length = [0, KITTI_FRAMES - 1]
     (frames_w, tracks_w), load_w_s = _timed(lambda: waymo.load(
         w_dir, opts_w, use_native=True, device=dev))
@@ -1036,6 +1052,354 @@ refine:
     return {"fwd_paths": {"cli_train": train_launches[0],
                           "cli_eval": eval_launches[0]},
             "bwd_paths": {"cli_train": train_launches[1]}}
+
+
+SHARDED_STEPS, SHARDED_EXACT_STEPS = 10, 2     # phase 15 (d)
+SHARDED_WARMUP_UNTIL = 5                      # of the 10 tile-order steps
+SHARDED_DEADLINE_S = 300.0                    # per world
+BUNDLE_FIELDS = ("means", "rotations", "scales", "opacities", "sh")
+TWIN_GRADS = ("d_axes", "d_plane", "d_inv_scale", "d_opac", "d_sh")
+
+
+def _waymo_options():
+    """The rehearsal's Waymo options for phase 13's 50-frame segment."""
+    from lidar_rt_tpu_torch.train import options
+
+    opts = options.rehearsal_options("waymo")
+    opts.frame_length = [0, WAYMO_FRAMES - 1]
+    return opts
+
+
+def _rank_inputs(dev: str, w_dir: str, scene_path: str):
+    """A phase 15 rank's copy of phase 13's Waymo segment (its loader,
+    from the segment's npz cache) and of the assembled scene (its
+    checkpoint), on the rank's device, TF32 off as in the parent."""
+    from lidar_rt_tpu_torch.data import waymo
+    from lidar_rt_tpu_torch.utils import checkpoint
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    frames, _ = waymo.load(w_dir, _waymo_options(), device=dev)
+    return frames, checkpoint.load_scene(scene_path, dev)[0]
+
+
+def _leaf_bundle(scene, frame: int):
+    """The scene's render bundle at a frame, each field a leaf that
+    requires grad."""
+    from lidar_rt_tpu_torch.scene import compose
+
+    with torch.no_grad():
+        bundle, _ = compose(scene, frame)
+    return type(bundle)(*(x.clone().requires_grad_() for x in bundle))
+
+
+def _scan_loss(scan: torch.Tensor) -> torch.Tensor:
+    return (scan[..., 3] ** 2).sum() * 1e-3 + scan[..., 0].sum()
+
+
+def _digest(tensors) -> str:
+    h = hashlib.sha256()
+    for x in tensors:
+        h.update(x.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _state_digest(trainer) -> str:
+    """Digest of every parameter and Adam moment of a trainer's scene."""
+    from lidar_rt_tpu_torch.train.optim import GROUPS
+
+    st = trainer.state
+    parts = []
+    for asset, opt in ((st.scene.background, st.opt_bg),
+                       (st.scene.actors, st.opt_actors)):
+        if asset is not None:
+            for g in GROUPS:
+                parts += [asset.params()[g], *opt.moments(g)]
+    return _digest(parts)
+
+
+def _launch_counts() -> tuple[int, int, int, int]:
+    from lidar_rt_tpu_torch.ops import kernels
+
+    return (kernels.forward_launches, kernels.backward_launches,
+            kernels.forward_exact_launches, kernels.backward_exact_launches)
+
+
+def band_rank(mesh, dev: str, w_dir: str, scene_path: str, frame: int,
+              seed: int) -> dict:
+    """Phase 15 (a) and (b) on one rank of a rays = 2 world: both kernels
+    in both orders against their twins on this band's tile inputs (the
+    flagship tiling), then the ray-sharded render of the band in each
+    order with a loss on the gathered scan, its launches counted from 0.
+    Returns the errors, the launches and a digest of the bundle's
+    gradients; band 0 also the gathered scans, accums and gradients."""
+    from lidar_rt_tpu_torch.ops import cuda_tracer, kernels, tracer
+    from lidar_rt_tpu_torch.parallel import gather_bands, trace_ray_sharded
+    from lidar_rt_tpu_torch.parallel.sharding import band_columns
+
+    frames, scene = _rank_inputs(dev, w_dir, scene_path)
+    grid, width, pose = frames.grid, frames.width, frames.pose(frame)
+    degree = scene.background.active_sh_degree
+    col_offset, band_w = band_columns(width, mesh)
+    cfg = tracer.TraceConfig()
+    out = {"band": (col_offset, band_w)}
+    gen = torch.Generator(device=dev).manual_seed(seed + mesh.band)
+    with torch.no_grad():
+        inputs, asg = cuda_tracer.tile_inputs(
+            _leaf_bundle(scene, frame), grid, width, pose, degree, cfg.tile,
+            col_offset=col_offset, render_width=band_w)
+        out["tiles"] = (tuple(inputs.dirs.shape[:2]),
+                        inputs.cnt.float().mean().item(),
+                        int((asg.truncated > 0).sum()))
+        for exact in (False, True):
+            chans, accum = kernels.tracer_forward(*inputs, exact=exact)
+            ref_c, ref_a = cuda_tracer.forward_tiles_reference(*inputs,
+                                                               exact=exact)
+            g = torch.randn(chans.shape, generator=gen, device=dev)
+            g[:, 9:] = 0.0     # raw T: never read by the training loss
+            grads = kernels.tracer_backward(*inputs, chans, g, exact=exact)
+            ref_g = cuda_tracer.backward_tiles_reference(*inputs, chans, g,
+                                                         exact=exact)
+            out["twin", exact] = (
+                (chans - ref_c).abs().max().item(), *_accum_err(accum, ref_a),
+                _grad_errors(grads, ref_g, TWIN_GRADS),
+                max((a - b).abs().max().item() for a, b in zip(grads, ref_g)))
+            del chans, accum, ref_c, ref_a, g, grads, ref_g
+        del inputs, asg
+    torch.cuda.synchronize()
+
+    background = torch.tensor([0.0, 0.0, 1.0], device=dev)
+    kernels.reset_launches()
+    runs = {}
+    for exact in (False, True):
+        bundle = _leaf_bundle(scene, frame)
+        o = trace_ray_sharded(bundle, grid, width, pose, background, degree,
+                              dataclasses.replace(cfg, exact_order=exact),
+                              mesh)
+        scan = gather_bands(o.channels, mesh)
+        _scan_loss(scan).backward()
+        runs[exact] = (scan.detach(), o.accum_weights,
+                       [x.grad for x in bundle])
+    torch.cuda.synchronize()
+    out["launches"] = _launch_counts()
+    out["digest"] = {exact: _digest(r[2]) for exact, r in runs.items()}
+    if mesh.band == 0:
+        out["runs"] = runs
+    return out
+
+
+def train_rank(mesh, dev: str, w_dir: str, scene_path: str, seed: int
+               ) -> dict:
+    """Phase 15 (d) on one rank of a dp = 2 x rays = 2 world: the
+    `ShardedTrainer` for SHARDED_STEPS steps with the rehearsal's tracer
+    settings (K = 512 until SHARDED_WARMUP_UNTIL, then K = 256; one tail
+    pass), then from the same scene SHARDED_EXACT_STEPS in exact order at
+    K = 256.  Per run: losses, each step's frames, a digest of the state,
+    launches counted from 0, host ms per step, and the collectives' bytes
+    and ms per step."""
+    from lidar_rt_tpu_torch.ops import kernels
+    from lidar_rt_tpu_torch.parallel import ShardedTrainer
+    from lidar_rt_tpu_torch.train import options
+
+    frames, scene = _rank_inputs(dev, w_dir, scene_path)
+    opts = _waymo_options()
+    cfg, warm, _ = options.trace_configs(opts)
+    out = {}
+    for label, kw, steps in (
+            ("tile", dict(trace_cfg=cfg, warmup_cfg=warm,
+                          warmup_until=SHARDED_WARMUP_UNTIL), SHARDED_STEPS),
+            ("exact", dict(trace_cfg=dataclasses.replace(cfg,
+                                                         exact_order=True)),
+             SHARDED_EXACT_STEPS)):
+        trainer = ShardedTrainer(scene, frames, opts, mesh, seed=seed, **kw)
+        kernels.reset_launches()
+        bytes0, secs0 = mesh.collective_bytes, mesh.collective_s
+        ms = []
+        for _ in range(steps):
+            _, s = _timed(lambda: trainer.run(1, log_every=1))
+            ms.append(1e3 * s)
+        out[label] = {
+            "loss": [h["loss"] for h in trainer.history],
+            "frames": [h["frame"] for h in trainer.history],
+            "digest": _state_digest(trainer), "launches": _launch_counts(),
+            "ms": ms, "rebins": trainer.state.bins.rebins,
+            "bytes": (mesh.collective_bytes - bytes0) / steps,
+            "collective_ms": 1e3 * (mesh.collective_s - secs0) / steps}
+        del trainer
+    return out
+
+
+def sharded_phase(tmp: str, card: str, dev, seed: int) -> dict:
+    """Phase 15: the scale-out path on the card, from phase 13's Waymo
+    segment under `tmp`, its scene assembled again and handed to the ranks
+    as a checkpoint.  Ranks are processes sharing this one card through
+    gloo (NCCL takes a card per rank).  Returns each kernel's launches on
+    the sharded paths and the band kernels' largest errors."""
+    from lidar_rt_tpu_torch.data import build, waymo
+    from lidar_rt_tpu_torch.ops import kernels, tracer
+    from lidar_rt_tpu_torch.parallel import (ShardedTrainer, make_mesh,
+                                             run_world)
+    from lidar_rt_tpu_torch.train import loop, options
+    from lidar_rt_tpu_torch.utils import checkpoint
+
+    w_dir = os.path.join(tmp, "waymo")
+    opts = _waymo_options()
+    frames, tracks = waymo.load(w_dir, opts, device=dev)
+    scene = build.assemble_scene(
+        frames, tracks, opts, torch.Generator(device=dev).manual_seed(seed))
+    scene_path = os.path.join(tmp, "sharded_scene.npz")
+    checkpoint.save(scene_path, scene)
+    frame = frames.train_frames[0]
+    launches = collections.Counter()
+
+    # (a), (b): a rays = 2 world.
+    rank_dev = str(dev)      # every rank on this process's card
+    bands, world_s = _timed(lambda: run_world(
+        band_rank, 1, 2, "gloo", device=rank_dev,
+        timeout_s=SHARDED_DEADLINE_S,
+        args=(rank_dev, w_dir, scene_path, frame, seed)))
+    out = {"fwd_err": 0.0, "bwd_err": 0.0, "fwd_x_err": 0.0,
+           "bwd_x_err": 0.0}
+    for r in bands:
+        (t, rays), cand, trunc = r["tiles"]
+        for exact in (False, True):
+            c_err, a_err, a_ok, g_err, g_abs = r["twin", exact]
+            order = "exact" if exact else "tile"
+            print(f"[sharded-band] band {r['band']} (offset, columns) of "
+                  f"{frames.width}, frame {frame}: T={t} R={rays} K="
+                  f"{tracer.FLAGSHIP_TILE.max_per_tile}, {cand:.1f} "
+                  f"candidates/tile, {trunc} tiles truncated; {order} "
+                  f"order, kernels vs twins: channels max abs err "
+                  f"{c_err:.3e} (bar {CHAN_ATOL}), accum {a_err:.3e}; "
+                  f"backward {_fmt_grads(g_err)}")
+            _check(c_err <= CHAN_ATOL and a_ok,
+                   f"band {r['band']} {order} forward kernel vs twin")
+            _check_grads(g_err, f"band {r['band']} {order} backward kernel "
+                         "vs twin")
+            key = "_x" if exact else ""
+            out[f"fwd{key}_err"] = max(out[f"fwd{key}_err"], c_err)
+            out[f"bwd{key}_err"] = max(out[f"bwd{key}_err"], g_abs)
+        launches.update(dict(zip(("fwd", "bwd", "fwd_x", "bwd_x"),
+                                 r["launches"])))
+    _check(bands[0]["digest"] == bands[1]["digest"],
+           "both ranks hold the same bundle gradients")
+    _check(tuple(bands[0]["launches"]) == (1, 1, 1, 1)
+           and tuple(bands[1]["launches"]) == (1, 1, 1, 1),
+           f"one launch of each kernel per rank and order: "
+           f"{[r['launches'] for r in bands]}")
+
+    # The same bands rendered in this process, one after the other.
+    background = torch.tensor([0.0, 0.0, 1.0], device=dev)
+    degree = scene.background.active_sh_degree
+    band_w = frames.width // 2
+    for exact in (False, True):
+        bundle = _leaf_bundle(scene, frame)
+        cfg = tracer.TraceConfig(exact_order=exact)
+        parts = [tracer.trace(bundle, frames.grid, frames.width,
+                              frames.pose(frame), background, degree, cfg,
+                              col_offset=c, render_width=band_w)
+                 for c in (0, band_w)]
+        scan = torch.cat([p.channels for p in parts], 1)
+        _scan_loss(scan).backward()
+        got_scan, got_accum, got_grads = bands[0]["runs"][exact]
+        same = torch.equal(torch.as_tensor(got_scan).to(dev), scan.detach())
+        acc_err, acc_ok = _accum_err(
+            torch.as_tensor(got_accum).to(dev),
+            parts[0].accum_weights + parts[1].accum_weights)
+        g_err = _grad_errors([torch.as_tensor(g).to(dev) for g in got_grads],
+                             [x.grad for x in bundle], BUNDLE_FIELDS)
+        order = "exact" if exact else "tile"
+        print(f"[sharded-render] {card}: trace_ray_sharded, 2 ranks sharing "
+              f"the card (gloo), {order} order, gathered {tuple(scan.shape)}"
+              f" vs this process's two band traces: channels "
+              f"{'bit-identical' if same else 'DIFFER'}, accum max abs err "
+              f"{acc_err:.3e}; bundle gradients of a loss on the scan, "
+              f"summed over the bands: {_fmt_grads(g_err)}")
+        _check(same, f"{order} gathered bands vs one-process band traces")
+        _check(acc_ok, f"{order} sharded accum vs one-process band accums")
+        _check_grads(g_err, f"{order} ray-sharded gradients")
+        del bundle, parts, scan
+    print(f"[sharded-render] {card}: rays = 2 world {world_s:.2f} s (2 "
+          f"processes: start, load the segment and the scene, twins, "
+          f"renders)")
+
+    # (c): a 1 x 1 mesh against the plain trainer, same schedule.  The
+    # kernels and the gathers' backward sum with atomics in no fixed order,
+    # and Adam (eps 1e-15) turns a noise-sized gradient into a whole
+    # lr-sized step, so two runs of one trainer part after the first step:
+    # the plain trainer runs twice to measure that spread, and the 1 x 1
+    # run is held to 2e-3 or twice the spread, whichever is larger, after a
+    # first step whose loss must agree to 1e-6.
+    cfg, warm, _ = options.trace_configs(opts)
+    results = {}
+    for label in ("Trainer", "Trainer again", "ShardedTrainer 1x1"):
+        kw = dict(trace_cfg=cfg, warmup_cfg=warm,
+                  warmup_until=DATA_WARMUP_UNTIL, seed=seed)
+        trainer = (ShardedTrainer(scene, frames, opts, make_mesh(), **kw)
+                   if label.startswith("Sharded")
+                   else loop.Trainer(scene, frames, opts, **kw))
+        kernels.reset_launches()
+        ms = [1e3 * _timed(lambda: trainer.run(1, log_every=1))[1]
+              for _ in range(DATA_TRAIN_STEPS)]
+        results[label] = (np.array([h["loss"] for h in trainer.history]),
+                          ms, _launch_counts())
+        del trainer
+    (ref, ref_ms, _), (again, _, _), (loss, ms, one) = results.values()
+    spread = float(np.max(np.abs(again - ref) / np.abs(ref)))
+    rel = np.abs(loss - ref) / np.abs(ref)
+    bar = max(2e-3, 2.0 * spread)
+    print(f"[sharded-1x1] {card}: {DATA_TRAIN_STEPS} rehearsal steps "
+          f"(K=512 to {DATA_WARMUP_UNTIL}, one tail pass): ShardedTrainer "
+          f"on a 1x1 mesh median {statistics.median(ms):.3f} ms per step "
+          f"(min {min(ms):.3f}, max {max(ms):.3f}) vs Trainer "
+          f"{statistics.median(ref_ms):.3f} (min {min(ref_ms):.3f}, max "
+          f"{max(ref_ms):.3f}), host clock; losses: step 1 rel diff "
+          f"{rel[0]:.3e} (bar 1e-6), max rel diff {rel.max():.3e} (bar "
+          f"{bar:.3e}: 2e-3 or twice the {spread:.3e} between two runs of "
+          f"the Trainer); launches {one}")
+    _check(spread <= 5e-2, "two runs of the Trainer stay within 5e-2")
+    _check(bool(np.isfinite(loss).all()) and rel[0] <= 1e-6
+           and rel.max() <= bar, "1x1 ShardedTrainer losses vs Trainer")
+    launches.update(dict(zip(("fwd", "bwd", "fwd_x", "bwd_x"), one)))
+
+    # (d): a dp = 2 x rays = 2 world.
+    ranks, world_s = _timed(lambda: run_world(
+        train_rank, 2, 2, "gloo", device=rank_dev,
+        timeout_s=SHARDED_DEADLINE_S,
+        args=(rank_dev, w_dir, scene_path, seed)))
+    for label in ("tile", "exact"):
+        runs = [r[label] for r in ranks]
+        first = runs[0]
+        same = all(r["digest"] == first["digest"] and r["loss"] == first["loss"]
+                   and r["frames"] == first["frames"] for r in runs)
+        ms = [statistics.median(r["ms"]) for r in runs]
+        print(f"[sharded-2x2] {card}: 4 ranks share this one card (gloo, "
+              f"dp=2 x rays=2): no scaling figure.  {label} order, "
+              f"{len(first['loss'])} steps: rows of frames "
+              f"{first['frames']}; loss {[round(x, 5) for x in first['loss']]};"
+              f" median ms per step per rank {[round(x, 3) for x in ms]} "
+              f"(host clock); all-reduced per step "
+              f"{first['bytes'] / 2 ** 20:.1f} MiB per rank in "
+              f"{statistics.mean(r['collective_ms'] for r in runs):.3f} ms "
+              f"(mean over ranks, staged through pinned host memory); "
+              f"{first['rebins']} rebins; parameters and Adam moments "
+              f"{'bit-identical' if same else 'DIFFER'} on the 4 ranks; "
+              f"launches per rank {[r['launches'] for r in runs]}")
+        _check(same, f"2x2 {label}: every rank holds the same state")
+        _check(all(np.isfinite(first["loss"])), f"2x2 {label}: losses finite")
+        _check(all(len(set(row)) == 2 for row in first["frames"]),
+               f"2x2 {label}: distinct frames in each step's dp rows")
+        n = 2 * len(first["loss"])       # two passes a step
+        want = (n, n, 0, 0) if label == "tile" else (0, 0, n, n)
+        _check(all(tuple(r["launches"]) == want for r in runs),
+               f"2x2 {label}: launches per rank, want {want}")
+        for r in runs:
+            launches.update(dict(zip(("fwd", "bwd", "fwd_x", "bwd_x"),
+                                     r["launches"])))
+    print(f"[sharded-2x2] {card}: world {world_s:.2f} s (4 processes: "
+          f"start, load, {SHARDED_STEPS} + {SHARDED_EXACT_STEPS} steps)")
+    out["launches"] = dict(launches)
+    return out
 
 
 def main() -> None:
@@ -1658,21 +2022,29 @@ def main() -> None:
 
     # 13. The data path: files on disk to an assembled, trained scene;
     # 14. the CLI on phase 13's Waymo segment, before it is removed.
+    # 15. The scale-out path on the segment's assembled scene.
     with tempfile.TemporaryDirectory() as tmp:
         data = data_phase(args.seed, card, dev, gen, tmp)
         cli_runs = cli_phase(tmp, card, dev)
-    kern_err = max(kern_err, data["fwd_err"])
-    bwd_abs = max(bwd_abs, data["bwd_err"])
+        sharded = sharded_phase(tmp, card, dev, args.seed)
+    kern_err = max(kern_err, data["fwd_err"], sharded["fwd_err"])
+    bwd_abs = max(bwd_abs, data["bwd_err"], sharded["bwd_err"])
+    exact_fwd_err = max(exact_fwd_err, sharded["fwd_x_err"])
+    exact_bwd_err = max(exact_bwd_err, sharded["bwd_x_err"])
+    shard_n = sharded["launches"]
 
     fwd_paths = {"serve": launches, "train": train_fwd,
                  "serve_multi_return": multi, "serve_tail": serve_tail,
                  "train_tail": mode_launches["tail"][0], **data["fwd_paths"],
-                 **cli_runs["fwd_paths"]}
+                 **cli_runs["fwd_paths"], "sharded": shard_n["fwd"]}
     bwd_paths = {"train": train_bwd, "train_tail": mode_launches["tail"][1],
-                 **data["bwd_paths"], **cli_runs["bwd_paths"]}
+                 **data["bwd_paths"], **cli_runs["bwd_paths"],
+                 "sharded": shard_n["bwd"]}
     fwd_x_paths = {"serve_exact": serve_exact,
-                   "train_exact": mode_launches["exact"][2]}
-    bwd_x_paths = {"train_exact": mode_launches["exact"][3]}
+                   "train_exact": mode_launches["exact"][2],
+                   "sharded": shard_n["fwd_x"]}
+    bwd_x_paths = {"train_exact": mode_launches["exact"][3],
+                   "sharded": shard_n["bwd_x"]}
     train_work = works["training", False]
     kernel_work = {"tracer_forward": (t_inputs, train_work, False),
                    "tracer_backward": (t_inputs, train_work, True),

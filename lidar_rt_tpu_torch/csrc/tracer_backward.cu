@@ -535,17 +535,15 @@ __global__ void __launch_bounds__(kWalkRays) tracer_backward_exact_kernel(
   float trans = trans0;
   float prefix = 0.0f;
   bool alive = has_ray;
-  float cur_t = -CUDART_INF_F;
-  int cur_j = -1;
+  unsigned long long cur = 0;
   while (alive) {
-    float bt[kBuf];
-    int bj[kBuf];
-    nearest_hits(RowStage{s_geo}, AllCands{}, count, dx, dy, dz, min_t,
-                 cur_t, cur_j, bt, bj);
+    unsigned long long bk[kBuf];
+    nearest_hits(RowStage{s_geo}, AllCands{}, count, dx, dy, dz, min_t, cur,
+                 bk);
 #pragma unroll
     for (int b = 0; b < kBuf; ++b) {
-      if (!(bt[b] < CUDART_INF_F)) break;
-      const int j = bj[b];
+      if (bk[b] == kEmptyKey) break;
+      const int j = key_index(bk[b]);
       const Hit h = intersect(s_geo, j, dx, dy, dz, min_t);
       float d_alpha = 0.0f, w = 0.0f, x0 = 0.0f, x1 = 0.0f, x2 = 0.0f;
       replay_hit(h, s_geo, s_sh, j, basis, g, gw_total, t_out, g_raw, trans,
@@ -555,9 +553,8 @@ __global__ void __launch_bounds__(kWalkRays) tracer_backward_exact_kernel(
       }
       if (!alive) break;
     }
-    if (!alive || !(bt[kBuf - 1] < CUDART_INF_F)) break;
-    cur_t = bt[kBuf - 1];
-    cur_j = bj[kBuf - 1];
+    if (!alive || bk[kBuf - 1] == kEmptyKey) break;
+    cur = bk[kBuf - 1];
   }
 }
 

@@ -343,13 +343,11 @@ __global__ void __launch_bounds__(kExactRays, 3) tracer_forward_exact_kernel(
   bool alive = has_ray;
   float acc_c0 = 0.0f, acc_c1 = 0.0f, acc_c2 = 0.0f, acc_t = 0.0f;
   float acc_w = 0.0f, acc_n0 = 0.0f, acc_n1 = 0.0f, acc_n2 = 0.0f;
-  float cur_t = -CUDART_INF_F;  // the walk's cursor: (t, index) of the
-  int cur_j = -1;               // last hit composited
+  unsigned long long cur = 0;  // the walk's cursor: the last hit's key
   while (alive) {
-    float bt[kBuf];
-    int bj[kBuf];
+    unsigned long long bk[kBuf];
     nearest_hits(QuadStage{s_cand}, CandList{list}, listed, dx, dy, dz,
-                 min_t, cur_t, cur_j, bt, bj);
+                 min_t, cur, bk);
     // The basis is made again after each scan, from a copy of the
     // direction the compiler may not hoist, so that its 16 registers are
     // not held through the scan.
@@ -359,8 +357,8 @@ __global__ void __launch_bounds__(kExactRays, 3) tracer_forward_exact_kernel(
     sh_basis(ux, uy, uz, basis);
 #pragma unroll
     for (int b = 0; b < kBuf; ++b) {
-      if (!(bt[b] < CUDART_INF_F)) break;
-      const int j = bj[b];
+      if (bk[b] == kEmptyKey) break;
+      const int j = key_index(bk[b]);
       const QuadCand cand = quad_cand(s_cand, j);
       const Hit h = intersect_cand(cand, dx, dy, dz, min_t);
       const float next = next_trans(trans, h.alpha);
@@ -385,9 +383,8 @@ __global__ void __launch_bounds__(kExactRays, 3) tracer_forward_exact_kernel(
       acc_n2 += sw * n.z;
       atomicAdd(&s_acc[j], w);
     }
-    if (!(bt[kBuf - 1] < CUDART_INF_F)) break;  // all composited
-    cur_t = bt[kBuf - 1];
-    cur_j = bj[kBuf - 1];
+    if (bk[kBuf - 1] == kEmptyKey) break;  // all composited
+    cur = bk[kBuf - 1];
   }
 
   __syncthreads();

@@ -8,9 +8,13 @@ That order is the compositing order, the sentinel index is N, and `valid`
 is a prefix of each row.  Selection is exact (a stable sort).
 
 Binners: "topk" scores a dense (T, N) overlap matrix; "hier" selects per
-azimuth sector first (K_c = coarse_factor * K), then per row tile.  Both
-take a per-tile `min_range`, the re-binning half of tail re-tracing.  The
-reference's "sort" binner, `macro_cols` and `approx_topk` are not ported.
+azimuth sector first (K_c = coarse_factor * K), then per row tile; "sort"
+emits up to dup_rows x 2 dup_cols (tile, surfel) pairs per surfel and
+groups them by one stable sort of (tile, quantized range) keys, so its
+lists order near-equal ranges by surfel index.  All three take a per-tile
+`min_range`, the re-binning half of tail re-tracing, and a column band
+`col_offset`/`num_cols`, the unit of ray sharding (`parallel/`).  The
+reference's `macro_cols` and `approx_topk` are not ported.
 """
 
 from __future__ import annotations
@@ -31,6 +35,8 @@ Tensor = torch.Tensor
 class TileConfig:
     """Static tiling parameters (fields as in the reference's TileConfig).
 
+    dup_rows/dup_cols cap the row and column tiles a surfel is listed in
+    by the "sort" binner (it loses its outermost tiles beyond them).
     pad_px pads every footprint (rebin-interval reuse); sample_snap culls
     surfels whose padded footprint holds no integer raster sample (margin
     snap_pad_px, default pad_px); int_overlap lists a (tile, surfel) pair
@@ -44,6 +50,8 @@ class TileConfig:
     max_per_tile: int = 512
     cutoff_eps: float = 0.01
     binner: str = "topk"
+    dup_rows: int = 2
+    dup_cols: int = 8
     coarse_factor: int = 8
     pad_px: float = 0.0
     sample_snap: bool = True
@@ -52,9 +60,9 @@ class TileConfig:
     int_eps: float = 0.25
 
     def __post_init__(self):
-        if self.binner not in ("topk", "hier"):
+        if self.binner not in ("topk", "hier", "sort"):
             raise ValueError(f"unknown binner {self.binner!r} "
-                             "(the port has 'topk' and 'hier')")
+                             "(the port has 'topk', 'hier' and 'sort')")
         if not 0.0 <= self.int_eps <= 0.5:
             raise ValueError("int_eps must lie in [0, 0.5]")
 
@@ -219,29 +227,42 @@ def _pad_k(index: Tensor, valid: Tensor, k: int, n: int):
 def bin_surfels(grid: rays_lib.SensorGrid, width: int, world2sensor: Tensor,
                 means: Tensor, scales: Tensor, opacities: Tensor,
                 cfg: TileConfig, rotations: Tensor | None = None,
-                min_range: Tensor | None = None) -> TileAssignment:
+                min_range: Tensor | None = None, col_offset: int = 0,
+                num_cols: int | None = None) -> TileAssignment:
     """Assign surfels (N, 3 world) to tiles, row-major over (tiles_y,
     tiles_x): per-tile nearest-first candidate lists.  Binning is a
     visibility oracle: inputs are detached.
 
     min_range (T,): a tile lists only surfels with center range strictly
     above it (+inf lists none): tail re-tracing passes the range of each
-    truncated tile's K-th candidate and gets ranks K+1, K+2, ..."""
+    truncated tile's K-th candidate and gets ranks K+1, K+2, ...
+
+    col_offset/num_cols bin only the column band [col_offset, col_offset +
+    num_cols) of the full raster (modulo its width): tile x covers columns
+    col_offset + [x tile_w, (x + 1) tile_w), and the band's last tile may
+    reach into the next band."""
     means, scales, opacities = means.detach(), scales.detach(), \
         opacities.detach()
     rotations = None if rotations is None else rotations.detach()
     h = grid.height
     n = means.shape[0]
     dev = means.device
-    tiles_y, tiles_x = cfg.num_tiles(h, width)
+    num_cols = width if num_cols is None else num_cols
+    tiles_y, tiles_x = cfg.num_tiles(h, num_cols)
     row_lo, row_hi, col_c, col_half, rng, live = footprint_bounds(
         grid, width, world2sensor.detach(), means, scales, opacities, cfg,
         rotations)
+    if cfg.binner == "sort":
+        return _select_sorted(cfg, h, width, col_offset, tiles_y, tiles_x,
+                              row_lo, row_hi, col_c, col_half, rng, live,
+                              min_range)
 
     tx = torch.arange(tiles_x, dtype=torch.float32, device=dev)
     ty = torch.arange(tiles_y, device=dev)
-    tile_col_c = torch.remainder((tx + 0.5) * cfg.tile_w, float(width))
-    first_col = torch.remainder(tx * cfg.tile_w, float(width))
+    # Floor-mod by W: a band's offset or its last tile may pass the seam.
+    tile_col_c = torch.remainder(col_offset + (tx + 0.5) * cfg.tile_w,
+                                 float(width))
+    first_col = torch.remainder(col_offset + tx * cfg.tile_w, float(width))
     t_row_lo = (ty * cfg.tile_h).to(torch.float32)
     t_row_hi = ((ty + 1) * cfg.tile_h).clamp_max(h).to(torch.float32)
 
@@ -307,3 +328,95 @@ def bin_surfels(grid: rays_lib.SensorGrid, width: int, world2sensor: Tensor,
     truncated = ((row_ok.sum(-1) - kk).clamp_min(0)
                  + coarse_trunc[None]).reshape(-1)
     return TileAssignment(index=index, valid=valid, truncated=truncated)
+
+
+# The sort binner's key: tile id above an 18-bit range quantized over
+# [0, 120) m (the reference's packing; the tile id takes 13 bits).
+RANGE_BITS = 18
+RANGE_MAX = 120.0
+_INVALID_KEY = 2 ** 31 - 1
+
+
+def _select_sorted(cfg: TileConfig, h: int, width: int, col_offset: int,
+                   tiles_y: int, tiles_x: int, row_lo, row_hi, col_c,
+                   col_half, rng, live, min_range=None) -> TileAssignment:
+    """The "sort" binner: each surfel emits up to dup_rows x 2 dup_cols
+    (tile, surfel) pairs (the second representation, shifted by the full
+    width, covers a footprint across the azimuth seam); one stable sort of
+    the packed (tile << RANGE_BITS | quantized range) keys groups the
+    pairs by tile, nearest first, and each tile's list is gathered from
+    its start offset.  The tile enumeration is a +-0.5 px superset of the
+    topk binner's overlap test, filtered by that test."""
+    n = rng.shape[0]
+    dev = rng.device
+    th, tw = cfg.tile_h, cfg.tile_w
+    t_total = tiles_y * tiles_x
+    k = cfg.max_per_tile
+    fw = float(width)
+
+    # Row tiles; the raw bounds stay unclipped for the validity test, so
+    # an interval wholly above or below the raster lists nothing.
+    ty_min_raw = torch.ceil((row_lo + 0.5) / th).to(torch.int32) - 1
+    ty_max_raw = torch.floor((row_hi + 0.5) / th).to(torch.int32)
+    ty_min = ty_min_raw.clamp(0, tiles_y - 1)
+    ty_max = ty_max_raw.clamp_max(tiles_y - 1)
+
+    # Column tiles: two representations, the second shifted by W.
+    b = col_half + tw / 2.0 + 0.5
+    u = torch.remainder(col_c - col_offset, fw)               # (N,)
+    tx_min_u = torch.ceil((u - b) / tw - 0.5).to(torch.int32)
+    tx_max_u = torch.floor((u + b) / tw - 0.5).to(torch.int32)
+    tx_min_w = torch.ceil((u + width - b) / tw - 0.5).to(torch.int32)
+
+    dy = torch.arange(cfg.dup_rows, device=dev).view(1, -1, 1, 1)
+    dx = torch.arange(cfg.dup_cols, device=dev).view(1, 1, -1, 1)
+    rep = torch.arange(2, device=dev).view(1, 1, 1, 2)
+
+    def per_surfel(x):                                       # (N, 1, 1, 1)
+        return x.view(-1, 1, 1, 1)
+
+    ty_c = per_surfel(ty_min) + dy                           # (N, DR, 1, 1)
+    tx_c = torch.stack([tx_min_u, tx_min_w], -1)[:, None, None, :] + dx
+    # Seam dedup: the shifted representation must stay past the first.
+    rep_ok = (rep == 0) | (tx_c > per_surfel(tx_max_u))
+    row_ok = (ty_c <= per_surfel(ty_max)) & (ty_c >= per_surfel(ty_min_raw))
+    col_in = (tx_c >= 0) & (tx_c < tiles_x)
+    # The exact circular-distance test (caps and clips add no pair).
+    tile_cc = torch.remainder(col_offset + (tx_c.to(torch.float32) + 0.5)
+                              * tw, fw)
+    dcol = (per_surfel(col_c) - tile_cc).abs()
+    dcol = torch.minimum(dcol, width - dcol)
+    col_ok = dcol <= (per_surfel(col_half) + tw / 2.0 + 0.5)
+    if cfg.int_overlap:
+        t_lo = (ty_c * th).to(torch.float32)
+        t_hi = ((ty_c + 1) * th).clamp_max(h).to(torch.float32)
+        row_ok = row_ok & _int_row_overlap(per_surfel(row_lo),
+                                           per_surfel(row_hi), t_lo, t_hi,
+                                           cfg.int_eps)
+        fc = torch.remainder(col_offset + tx_c.to(torch.float32) * tw, fw)
+        o = _signed_col_offset(per_surfel(col_c), fc, fw)
+        col_ok = col_ok & _int_col_overlap(o, per_surfel(col_half), tw, fw,
+                                           cfg.int_eps)
+
+    valid = row_ok & col_in & col_ok & rep_ok & per_surfel(live)
+    tile_id = (ty_c.clamp(0, tiles_y - 1) * tiles_x
+               + tx_c.clamp(0, tiles_x - 1))                 # (N, DR, DC, 2)
+    if min_range is not None:
+        valid = valid & (per_surfel(rng) > min_range[tile_id])
+
+    qrange = (rng / RANGE_MAX * (1 << RANGE_BITS)).clamp(
+        0, (1 << RANGE_BITS) - 1).to(torch.int32)
+    key = torch.where(valid, (tile_id << RANGE_BITS) | per_surfel(qrange),
+                      _INVALID_KEY).reshape(-1)
+    key_sorted, order = torch.sort(key, stable=True)
+    surf_sorted = order // (cfg.dup_rows * cfg.dup_cols * 2)
+    starts = torch.searchsorted(
+        key_sorted >> RANGE_BITS,
+        torch.arange(t_total + 1, dtype=key_sorted.dtype, device=dev))
+    slots = starts[:-1, None] + torch.arange(k, device=dev)  # (T, K)
+    valid_tk = slots < starts[1:, None]
+    index = torch.where(valid_tk,
+                        surf_sorted[slots.clamp(0, surf_sorted.numel() - 1)],
+                        n)
+    truncated = (starts[1:] - starts[:-1] - k).clamp_min(0)
+    return TileAssignment(index=index, valid=valid_tk, truncated=truncated)

@@ -70,28 +70,36 @@ def _pad_rows(x: Tensor, hp: int) -> Tensor:
     return torch.cat([x, x[-1:].expand(hp - h, *x.shape[1:])], dim=0)
 
 
-def _take_cols_mod(x: Tensor, wp: int) -> Tensor:
-    """Columns [0, wp) of x modulo its width along axis 1 (azimuth wrap)."""
+def _take_cols_mod(x: Tensor, col_offset: int, wp: int) -> Tensor:
+    """Columns [col_offset, col_offset + wp) of x modulo its width along
+    axis 1 (azimuth wrap): a column band of the scan, padded to whole
+    tiles with the columns past its end."""
     w = x.shape[1]
-    return torch.cat([x] * -(-wp // w), dim=1)[:, :wp]
+    reps = -(-(col_offset % w + wp) // w)
+    start = col_offset % w
+    return torch.cat([x] * reps, dim=1)[:, start:start + wp]
 
 
-def to_tiles(x: Tensor, tile: TileConfig) -> Tensor:
+def to_tiles(x: Tensor, tile: TileConfig, col_offset: int = 0,
+             num_cols: int | None = None) -> Tensor:
     """(H, W, ...) pixels -> (T, tile_h * tile_w, ...) tiles, row-major over
-    (tiles_y, tiles_x); rows clamp-padded, columns wrap-padded."""
+    (tiles_y, tiles_x), of the column band [col_offset, col_offset +
+    num_cols) (default: all of x's columns); rows clamp-padded, columns
+    taken modulo W, so a band's last tile reads past its end."""
     h, w = x.shape[:2]
+    num_cols = w if num_cols is None else num_cols
     th, tw = tile.tile_h, tile.tile_w
-    tiles_y, tiles_x = tile.num_tiles(h, w)
+    tiles_y, tiles_x = tile.num_tiles(h, num_cols)
     rest = x.shape[2:]
-    xp = _take_cols_mod(_pad_rows(x, tiles_y * th), tiles_x * tw)
+    xp = _take_cols_mod(_pad_rows(x, tiles_y * th), col_offset, tiles_x * tw)
     perm = (0, 2, 1, 3) + tuple(range(4, 4 + len(rest)))
     return (xp.reshape(tiles_y, th, tiles_x, tw, *rest).permute(*perm)
             .reshape(tiles_y * tiles_x, th * tw, *rest))
 
 
 def from_tiles(x: Tensor, tile: TileConfig, h: int, w: int) -> Tensor:
-    """Inverse of `to_tiles` for (T, R, C) tiles: (H, W, C), first copy of
-    each pixel kept."""
+    """Inverse of `to_tiles` for (T, R, C) tiles of a band w columns wide:
+    (H, w, C), the padding rows and columns dropped."""
     th, tw = tile.tile_h, tile.tile_w
     tiles_y, tiles_x = tile.num_tiles(h, w)
     c = x.shape[-1]
@@ -110,11 +118,14 @@ def scatter_accum(assignment: TileAssignment, accum_tk: Tensor, n: int
 
 
 def bin_bundle(bundle: SurfelBundle, grid: rays_lib.SensorGrid, width: int,
-               sensor2world: Tensor, tile: TileConfig) -> TileAssignment:
-    """The tile assignment of one render, with oriented footprints."""
+               sensor2world: Tensor, tile: TileConfig, col_offset: int = 0,
+               num_cols: int | None = None) -> TileAssignment:
+    """The tile assignment of one render (of the column band col_offset,
+    num_cols), with oriented footprints."""
     return bin_surfels(grid, width, transforms.invert_se3(sensor2world),
                        bundle.means, bundle.scales, bundle.opacities, tile,
-                       rotations=bundle.rotations)
+                       rotations=bundle.rotations, col_offset=col_offset,
+                       num_cols=num_cols)
 
 
 def _prepare_tile_inputs(bundle: SurfelBundle, origin: Tensor,
@@ -141,16 +152,26 @@ def tile_inputs(bundle: SurfelBundle, grid: rays_lib.SensorGrid, width: int,
                 sensor2world: Tensor, active_sh_degree: int,
                 tile: TileConfig, assignment: TileAssignment | None = None,
                 min_depth: Tensor | None = None,
-                init_trans: Tensor | None = None
+                init_trans: Tensor | None = None, col_offset: int = 0,
+                render_width: int | None = None
                 ) -> tuple[TileInputs, TileAssignment]:
     """Bin (unless given an assignment), make the rays, and lay out one
     render's kernel inputs.  min_depth and init_trans are optional per-ray
-    (H, W) images of the minimum hit range (default DEPTH_MIN; it gets no
-    gradient) and the initial transmittance (default 1; differentiable)."""
+    (H, W_r) images of the minimum hit range (default DEPTH_MIN; it gets no
+    gradient) and the initial transmittance (default 1; differentiable).
+
+    col_offset/render_width: the column band [col_offset, col_offset +
+    W_r) of the W-column scan (default the whole scan).  The band's tiles
+    start at col_offset; its last tile, where W_r is no multiple of
+    tile_w, holds the next columns' rays, computed and dropped.  The band's
+    min_depth and init_trans cover its W_r columns; in those padding
+    columns they repeat the band from its start."""
     if assignment is None:
-        assignment = bin_bundle(bundle, grid, width, sensor2world, tile)
+        assignment = bin_bundle(bundle, grid, width, sensor2world, tile,
+                                col_offset, render_width)
     origin, dirs = rays_lib.range_rays(grid, width, sensor2world)
-    dirs_t = to_tiles(dirs, tile).contiguous()                # (T, R, 3)
+    dirs_t = to_tiles(dirs, tile, col_offset,
+                      render_width).contiguous()              # (T, R, 3)
     t_total, rays_per_tile = dirs_t.shape[:2]
     if min_depth is None:
         mind = torch.full((t_total, rays_per_tile), geometry.DEPTH_MIN,
@@ -472,15 +493,19 @@ def trace_forward(bundle: SurfelBundle, grid: rays_lib.SensorGrid,
                   width: int, sensor2world: Tensor, active_sh_degree: int,
                   tile: TileConfig, assignment: TileAssignment | None = None,
                   exact: bool = False, min_depth: Tensor | None = None,
-                  init_trans: Tensor | None = None
+                  init_trans: Tensor | None = None, col_offset: int = 0,
+                  render_width: int | None = None
                   ) -> tuple[Tensor, Tensor]:
-    """Kernel-path render -> (channels (H, W, 10): 9 public channels + raw
-    transmittance, accum_weights (N,))."""
+    """Kernel-path render of the column band (col_offset, render_width;
+    default the whole scan) -> (channels (H, W_r, 10): 9 public channels +
+    raw transmittance, accum_weights (N,))."""
     inputs, assignment = tile_inputs(bundle, grid, width, sensor2world,
                                      active_sh_degree, tile, assignment,
-                                     min_depth, init_trans)
+                                     min_depth, init_trans, col_offset,
+                                     render_width)
     chans, accum_tk = forward_tiles(inputs, exact)
-    img = from_tiles(chans.transpose(1, 2), tile, grid.height, width)
+    img = from_tiles(chans.transpose(1, 2), tile, grid.height,
+                     width if render_width is None else render_width)
     return img[..., :10], scatter_accum(assignment, accum_tk,
                                          bundle.num_surfels)
 
@@ -489,13 +514,15 @@ def trace(bundle: SurfelBundle, grid: rays_lib.SensorGrid, width: int,
           sensor2world: Tensor, background: Tensor,
           active_sh_degree: int = 3, tile: TileConfig = TileConfig(),
           assignment: TileAssignment | None = None, exact: bool = False,
-          min_depth: Tensor | None = None, init_trans: Tensor | None = None
+          min_depth: Tensor | None = None, init_trans: Tensor | None = None,
+          col_offset: int = 0, render_width: int | None = None
           ) -> RenderOutputs:
     """Kernel-path counterpart of `ops.tracer.trace`'s torch engine (one
-    pass; the tail passes chain it)."""
+    pass of one column band; the tail passes chain it)."""
     img, accum = trace_forward(bundle, grid, width, sensor2world,
                                active_sh_degree, tile, assignment, exact,
-                               min_depth, init_trans)
+                               min_depth, init_trans, col_offset,
+                               render_width)
     final_t = img[..., 8:9]
     channels = torch.cat([img[..., 0:3] + final_t * background, img[..., 3:8],
                           final_t], dim=-1)

@@ -11,9 +11,11 @@ Engines: "cuda" is the kernel path (`ops/cuda_tracer.py`: the hand-written
 CUDA kernels on CUDA tensors, their plain twins on CPU tensors); "torch" is
 the plain engine below, the twin of the reference's jax engine, composited
 in batches of `tile_batch` tiles to bound memory.  Both take a per-ray
-`min_depth` (`render_multi_return`'s second return) and `init_trans`, and
+`min_depth` (`render_multi_return`'s second return) and `init_trans`,
 chain `tail_passes` re-binned passes past each truncated tile's K-th
-candidate (`bin_tail_chain`, `_trace_tail`).
+candidate (`bin_tail_chain`, `_trace_tail`), and render a column band of
+the scan (`col_offset`, `render_width`: the unit of ray sharding,
+`parallel/`).
 """
 
 from __future__ import annotations
@@ -138,15 +140,24 @@ def trace(bundle: SurfelBundle, grid: rays_lib.SensorGrid, width: int,
           sensor2world: Tensor, background: Tensor,
           active_sh_degree: int = 3, cfg: TraceConfig = TraceConfig(),
           assignment: TileAssignment | Sequence[TileAssignment] | None = None,
-          min_depth: Tensor | None = None, init_trans: Tensor | None = None
+          min_depth: Tensor | None = None, init_trans: Tensor | None = None,
+          col_offset: int = 0, render_width: int | None = None
           ) -> RenderOutputs:
-    """Render a range image: (H, W, 9) channels + (N,) accum weights.
+    """Render a range image: (H, W_r, 9) channels + (N,) accum weights.
 
     `assignment` may be precomputed (it depends on detached inputs only);
     with `cfg.tail_passes` > 0 it is a sequence of tail_passes + 1 of them
-    (`bin_tail_chain`).  min_depth: optional per-ray (H, W) minimum hit
+    (`bin_tail_chain`).  min_depth: optional per-ray (H, W_r) minimum hit
     range (the second return's re-trace); init_trans: optional per-ray
-    (H, W) initial transmittance (the tail passes' carry).
+    (H, W_r) initial transmittance (the tail passes' carry).
+
+    col_offset/render_width render only the column band [col_offset,
+    col_offset + W_r) of the W-column scan (modulo W; default the whole
+    scan): each rank of a ray-sharded render traces its own band against
+    the replicated surfels.  Tiles start at col_offset; a band's last
+    tile, where W_r is no multiple of tile_w, traces the next columns' rays
+    and drops them from the image (their weights still count in accum, as
+    the wrap-padded tiles of a whole scan do).
     """
     if cfg.tail_passes > 0:
         if isinstance(assignment, TileAssignment):
@@ -156,20 +167,23 @@ def trace(bundle: SurfelBundle, grid: rays_lib.SensorGrid, width: int,
                 "trainer's cached chain) or None to re-bin per pass")
         return _trace_tail(bundle, grid, width, sensor2world, background,
                            active_sh_degree, cfg, min_depth, init_trans,
-                           assignment)
+                           assignment, col_offset, render_width)
     if cfg.engine == "cuda":
         return cuda_tracer.trace(bundle, grid, width, sensor2world,
                                  background, active_sh_degree, cfg.tile,
                                  assignment, cfg.exact_order, min_depth,
-                                 init_trans)
+                                 init_trans, col_offset, render_width)
 
-    h, w = grid.height, width
+    h = grid.height
+    w_r = width if render_width is None else render_width
     n = bundle.num_surfels
     if assignment is None:
-        assignment = cuda_tracer.bin_bundle(bundle, grid, w, sensor2world,
-                                            cfg.tile)
-    origin, dirs = rays_lib.range_rays(grid, w, sensor2world)
-    dirs_t = cuda_tracer.to_tiles(dirs, cfg.tile)             # (T, R, 3)
+        assignment = cuda_tracer.bin_bundle(bundle, grid, width,
+                                            sensor2world, cfg.tile,
+                                            col_offset, w_r)
+    origin, dirs = rays_lib.range_rays(grid, width, sensor2world)
+    dirs_t = cuda_tracer.to_tiles(dirs, cfg.tile, col_offset,
+                                  w_r)                        # (T, R, 3)
     md_t = (None if min_depth is None
             else cuda_tracer.to_tiles(min_depth, cfg.tile))
     t0_t = (None if init_trans is None
@@ -190,7 +204,7 @@ def trace(bundle: SurfelBundle, grid: rays_lib.SensorGrid, width: int,
             None if t0_t is None else t0_t[batch])
         chans.append(c)
         wsums.append(ws)
-    img = cuda_tracer.from_tiles(torch.cat(chans), cfg.tile, h, w)
+    img = cuda_tracer.from_tiles(torch.cat(chans), cfg.tile, h, w_r)
     accum = cuda_tracer.scatter_accum(assignment, torch.cat(wsums), n)
     return RenderOutputs(channels=img[..., :9], accum_weights=accum,
                          raw_trans=img[..., 9])
@@ -212,10 +226,12 @@ def _tile_range_cutoff(assignment: TileAssignment, means: Tensor,
 
 def bin_tail_chain(bundle: SurfelBundle, grid: rays_lib.SensorGrid,
                    width: int, world2sensor: Tensor, tile: TileConfig,
-                   passes: int) -> list[TileAssignment]:
-    """Bin the tail re-trace chain: passes + 1 disjoint assignments, each
-    strictly past the previous pass's per-tile K-th candidate range (a
-    visibility oracle: every input is detached).  `trace` with
+                   passes: int, col_offset: int = 0,
+                   num_cols: int | None = None) -> list[TileAssignment]:
+    """Bin the tail re-trace chain of the column band (col_offset,
+    num_cols; default the whole scan): passes + 1 disjoint assignments,
+    each strictly past the previous pass's per-tile K-th candidate range
+    (a visibility oracle: every input is detached).  `trace` with
     cfg.tail_passes = passes consumes it; the trainer caches it."""
     w2s = world2sensor.detach()
     means = bundle.means.detach()
@@ -224,7 +240,8 @@ def bin_tail_chain(bundle: SurfelBundle, grid: rays_lib.SensorGrid,
     for p in range(passes + 1):
         a = bin_surfels(grid, width, w2s, means, bundle.scales,
                         bundle.opacities, tile, rotations=bundle.rotations,
-                        min_range=min_range)
+                        min_range=min_range, col_offset=col_offset,
+                        num_cols=num_cols)
         chain.append(a)
         if p < passes:
             cutoff = _tile_range_cutoff(a, means, w2s)
@@ -237,7 +254,8 @@ def _trace_tail(bundle: SurfelBundle, grid: rays_lib.SensorGrid, width: int,
                 sensor2world: Tensor, background: Tensor,
                 active_sh_degree: int, cfg: TraceConfig,
                 min_depth: Tensor | None, init_trans: Tensor | None,
-                assignments: Sequence[TileAssignment] | None
+                assignments: Sequence[TileAssignment] | None,
+                col_offset: int = 0, render_width: int | None = None
                 ) -> RenderOutputs:
     """Chain cfg.tail_passes re-binned passes (the reference's re-launch
     from the last depth, at whole-image granularity).  Each pass
@@ -246,7 +264,9 @@ def _trace_tail(bundle: SurfelBundle, grid: rays_lib.SensorGrid, width: int,
     the channel sums add up.  T_out telescopes: T_0 minus every pass's
     composited weight.  Gradients flow through every pass and the carry.
     assignments: an optional precomputed chain of tail_passes + 1
-    (`bin_tail_chain`); else each pass bins past the previous one."""
+    (`bin_tail_chain`); else each pass bins past the previous one.  A
+    column band (col_offset, render_width) carries its own (H, W_r)
+    transmittance."""
     passes = cfg.tail_passes + 1
     if assignments is not None and len(assignments) != passes:
         raise ValueError(
@@ -255,14 +275,15 @@ def _trace_tail(bundle: SurfelBundle, grid: rays_lib.SensorGrid, width: int,
     if assignments is None:
         assignments = bin_tail_chain(
             bundle, grid, width, transforms.invert_se3(sensor2world),
-            cfg.tile, cfg.tail_passes)
+            cfg.tile, cfg.tail_passes, col_offset, render_width)
     cfg0 = dataclasses.replace(cfg, tail_passes=0)
     zero_bg = torch.zeros_like(background)
     carry = init_trans
     chans = accum = None
     for assignment in assignments:
         out = trace(bundle, grid, width, sensor2world, zero_bg,
-                    active_sh_degree, cfg0, assignment, min_depth, carry)
+                    active_sh_degree, cfg0, assignment, min_depth, carry,
+                    col_offset, render_width)
         if chans is None:
             chans, accum = out.channels[..., 0:8], out.accum_weights
         else:

@@ -47,7 +47,8 @@ STALE_AGE = (2 ** 31 - 1) // 2   # the age of a never-binned frame
 
 
 class FrameBatch(NamedTuple):
-    """One step's inputs (one scan)."""
+    """One step's inputs (one scan; stacked along a leading axis, with a
+    list of frames, for the sharded step's dp rows)."""
 
     frame: int            # index into the track timeline
     sensor2world: Tensor  # (4, 4)
@@ -140,6 +141,37 @@ def init_train_state(scene: Scene, opt_args, seed: int = 0) -> TrainState:
     return state
 
 
+def loss_weights(args) -> losses.LossWeights:
+    """The loss weights of `args.opt`."""
+    return losses.LossWeights(
+        depth_l1=args.opt.lambda_depth_l1,
+        intensity_l1=args.opt.lambda_intensity_l1,
+        intensity_l2=args.opt.lambda_intensity_l2,
+        intensity_dssim=args.opt.lambda_intensity_dssim,
+        raydrop_bce=args.opt.lambda_raydrop_bce,
+        cd=args.opt.lambda_cd,
+        reg=args.opt.lambda_reg)
+
+
+def cache_tile(trace_cfg: tracer_lib.TraceConfig):
+    """The tiling a cached assignment is binned with: footprints padded
+    by 2 px for the drift between rebins, the integer-sample existence
+    cull at a tight 0.5 px margin."""
+    return dataclasses.replace(trace_cfg.tile,
+                               pad_px=max(trace_cfg.tile.pad_px, 2.0),
+                               snap_pad_px=0.5)
+
+
+def cached_assignment(bins: "BinCache", f: int, tail: int
+                      ) -> TileAssignment | list[TileAssignment]:
+    """Frame f's cached assignment, or its chain of tail + 1 passes."""
+    zero = torch.zeros(bins.index.shape[2], dtype=torch.int64,
+                       device=bins.index.device)
+    chain = [TileAssignment(bins.index[f, p], bins.valid[f, p], zero)
+             for p in range(tail + 1)]
+    return chain if tail else chain[0]
+
+
 def make_train_step(frames: LiDARFrames, args,
                     trace_cfg: tracer_lib.TraceConfig, rebin_every: int):
     """Build the training step: train_step(state, batch) -> (state,
@@ -150,25 +182,13 @@ def make_train_step(frames: LiDARFrames, args,
     footprint padding, once its age reaches `rebin_every` (>= 1) steps."""
     if rebin_every < 1:
         raise ValueError(f"rebin_every must be >= 1, got {rebin_every}")
-    lw = losses.LossWeights(
-        depth_l1=args.opt.lambda_depth_l1,
-        intensity_l1=args.opt.lambda_intensity_l1,
-        intensity_l2=args.opt.lambda_intensity_l2,
-        intensity_dssim=args.opt.lambda_intensity_dssim,
-        raydrop_bce=args.opt.lambda_raydrop_bce,
-        cd=args.opt.lambda_cd,
-        reg=args.opt.lambda_reg)
+    lw = loss_weights(args)
     use_rayhit = bool(args.opt.use_rayhit)
     use_cd = float(args.opt.lambda_cd) > 0
     cd_stride = max(1, (frames.height * frames.width)
                     // int(args.opt.cd_max_points))
     grid, width = frames.grid, frames.width
-    # Cached assignments are binned with padded footprints; the integer-
-    # sample existence cull keeps a tight margin.
-    bin_tile = dataclasses.replace(trace_cfg.tile,
-                                   pad_px=max(trace_cfg.tile.pad_px, 2.0),
-                                   snap_pad_px=0.5)
-
+    bin_tile = cache_tile(trace_cfg)
     tail = trace_cfg.tail_passes
 
     def loss_fn(scene: Scene, probe: Tensor, batch: FrameBatch,
@@ -225,11 +245,7 @@ def make_train_step(frames: LiDARFrames, args,
         bins.age = [age + 1 for age in bins.age]
         if stale:
             bins.age[f] = 1
-        zero = torch.zeros(bins.index.shape[2], dtype=torch.int64,
-                           device=bins.index.device)
-        chain = [TileAssignment(bins.index[f, p], bins.valid[f, p], zero)
-                 for p in range(tail + 1)]
-        return chain if tail else chain[0]
+        return cached_assignment(bins, f, tail)
 
     def train_step(state: TrainState, batch: FrameBatch
                    ) -> tuple[TrainState, dict[str, Tensor]]:
@@ -245,23 +261,35 @@ def make_train_step(frames: LiDARFrames, args,
         lb.total.backward()
         for o in opts:
             o.step()
-
-        # Densify statistics from the probe gradient and visibility.
-        parts_g = split_by_asset(scene, probe.grad)
-        parts_w = split_by_asset(scene, out["accum_weights"].detach())
-        state.stats_bg = state.stats_bg.add(parts_g[0], parts_w[0] > 0)
-        if state.stats_actors is not None:
-            state.stats_actors = state.stats_actors.add(
-                torch.cat(parts_g[1:]), torch.cat(parts_w[1:]) > 0)
-        metrics = {"loss": lb.total, "depth": lb.depth,
-                   "intensity": lb.intensity, "raydrop": lb.raydrop,
-                   "cd": lb.cd, "reg": lb.reg}
-        return state, {k: v.detach() for k, v in metrics.items()}
+        add_densify_stats(state, probe.grad, out["accum_weights"].detach())
+        return state, step_metrics(lb)
 
     return train_step
 
 
-def frame_batch(frames: LiDARFrames, f: int) -> FrameBatch:
+def add_densify_stats(state: TrainState, g_probe: Tensor, accum: Tensor
+                      ) -> None:
+    """Accumulate each asset's densify statistics from the probe gradient
+    (world-mean gradient norms) and the visibility (accum > 0)."""
+    parts_g = split_by_asset(state.scene, g_probe)
+    parts_w = split_by_asset(state.scene, accum)
+    state.stats_bg = state.stats_bg.add(parts_g[0], parts_w[0] > 0)
+    if state.stats_actors is not None:
+        state.stats_actors = state.stats_actors.add(
+            torch.cat(parts_g[1:]), torch.cat(parts_w[1:]) > 0)
+
+
+def step_metrics(lb: losses.LossBreakdown) -> dict[str, Tensor]:
+    """A step's metrics (on the device) from its loss breakdown."""
+    metrics = {"loss": lb.total, "depth": lb.depth,
+               "intensity": lb.intensity, "raydrop": lb.raydrop,
+               "cd": lb.cd, "reg": lb.reg}
+    return {k: v.detach() for k, v in metrics.items()}
+
+
+def frame_batch(frames: LiDARFrames, f: int | list[int]) -> FrameBatch:
+    """Frame f's batch; for a list of frames, their batches stacked along
+    a leading axis (the sharded trainer's dp rows)."""
     return FrameBatch(frame=f, sensor2world=frames.pose(f),
                       gt_depth=frames.depth(f),
                       gt_intensity=frames.intensity(f),
@@ -297,16 +325,14 @@ class Trainer:
         np.random.seed(seed)
         self.rebin_every = int(args.opt.rebin_interval)
         self.state = init_train_state(scene, args.opt, seed)
-        self._main_step = make_train_step(frames, args, self.trace_cfg,
-                                          self.rebin_every)
+        self._main_step = self._make_step(self.trace_cfg)
         self.warmup_until = 0
         if warmup_cfg is not None:
             self.warmup_until = (int(args.opt.densify_until_iter)
                                  if warmup_until is None else warmup_until)
         self.step_cfg = warmup_cfg if self.warmup_until else self.trace_cfg
-        self.step_fn = (make_train_step(frames, args, warmup_cfg,
-                                        self.rebin_every)
-                        if self.warmup_until else self._main_step)
+        self.step_fn = (self._make_step(warmup_cfg) if self.warmup_until
+                        else self._main_step)
         self.state.bins = self._fresh_bins(self.step_cfg)
         self._frame_stack: list[int] = []
         self.iteration = 0
@@ -318,6 +344,17 @@ class Trainer:
         # not finite (`utils.profiling.guard_finite`).
         self.snapshot_dir: str | None = None
         self._elapsed_total = 0.0
+
+    def _make_step(self, cfg: tracer_lib.TraceConfig):
+        """The training step for one trace config (the sharded trainer
+        builds its own; the schedule is this class's)."""
+        return make_train_step(self.frames, self.args, cfg,
+                               self.rebin_every)
+
+    def _sample_ids(self, n: int) -> list:
+        """Frame ids of the next n iterations (the sharded trainer draws
+        a row of distinct frames per iteration)."""
+        return [self._next_frame() for _ in range(n)]
 
     def _next_frame(self) -> int:
         if not self._frame_stack:
@@ -360,7 +397,7 @@ class Trainer:
             self.step_fn, self.step_cfg = self._main_step, self.trace_cfg
             self.warmup_until = 0
             self.state.bins = self._fresh_bins(self.trace_cfg)
-        f = self._next_frame()
+        f = self._sample_ids(1)[0]
         self.state, metrics = self.step_fn(self.state,
                                            frame_batch(self.frames, f))
         self._pending_metrics.append((it, f, metrics))

@@ -204,7 +204,7 @@ class TestFootprint:
 class TestTileConfig:
     def test_rejects_what_the_port_lacks(self):
         with pytest.raises(ValueError, match="binner"):
-            t_bin.TileConfig(binner="sort")
+            t_bin.TileConfig(binner="radix")
         with pytest.raises(ValueError, match="int_eps"):
             t_bin.TileConfig(int_eps=0.75)
         assert t_bin.TileConfig(tile_h=8, tile_w=128).num_tiles(64, 2650) \

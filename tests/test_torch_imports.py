@@ -44,6 +44,11 @@ def test_port_imports_no_jax():
         "import lidar_rt_tpu_torch.ops.knn\n"
         "import lidar_rt_tpu_torch.scene.asset\n"
         "import lidar_rt_tpu_torch.scene.tracks\n"
+        "import lidar_rt_tpu_torch.parallel\n"
+        "import lidar_rt_tpu_torch.parallel.sharding\n"
+        "import lidar_rt_tpu_torch.parallel.train_step\n"
+        "import lidar_rt_tpu_torch.parallel.trainer\n"
+        "import lidar_rt_tpu_torch.parallel.world\n"
         "from lidar_rt_tpu_torch.ops.tracer import (bin_tail_chain,\n"
         "                                           render_multi_return)\n"
         "from lidar_rt_tpu_torch.ops.kernels import check_exact_k\n"
@@ -52,6 +57,26 @@ def test_port_imports_no_jax():
         "bad = sorted(m for m in sys.modules\n"
         "             if m in ('jax', 'yaml', 'lidar_rt_tpu')\n"
         "             or m.startswith(('jax.', 'jaxlib', 'lidar_rt_tpu.')))\n"
+        "assert not bad, bad\n"
+        "print('clean')\n")
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "clean"
+
+
+def test_spawned_ranks_import_only_the_port():
+    """A rank that `parallel.run_world` spawns imports the module of its
+    function: the test worlds' (tests/torch_parallel_workers.py) and
+    chip_smoke.py's phase 15 ranks load no jax and no module of
+    `lidar_rt_tpu`."""
+    proc = _python(
+        "import sys\n"
+        "sys.path.insert(0, 'tests')\n"
+        "import torch_parallel_workers, chip_smoke\n"
+        "from lidar_rt_tpu_torch.parallel import run_world\n"
+        "assert callable(chip_smoke.band_rank)\n"
+        "assert callable(chip_smoke.train_rank)\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'lidar_rt_tpu'))\n"
         "assert not bad, bad\n"
         "print('clean')\n")
     assert proc.returncode == 0, proc.stderr

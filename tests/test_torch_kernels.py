@@ -22,7 +22,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import permuted_rays
+from chip_smoke import permuted_rays, street_soup
 from lidar_rt_tpu_torch.core import rays as t_rays
 from lidar_rt_tpu_torch.ops import cuda_tracer, geometry, kernels
 from lidar_rt_tpu_torch.ops import tracer as t_tracer
@@ -555,6 +555,88 @@ def test_render_on_card_matches_torch_engine(cuda_device, exact, tail):
     assert _launches(not exact)[0] == 0
     _assert_bars(outs[0].channels, outs[0].accum_weights,
                  outs[1].channels, outs[1].accum_weights)
+
+
+def _tied_depth_case(device):
+    """Two stacks of 40 coplanar surfels facing the sensor, 10 m and 10.5 m
+    ahead, their indices interleaved: every ray through them meets 40 hits
+    at one exact t, then 40 at another, more than the exact walk's
+    16-entry buffer holds (the planes of surfels assembled from one flat
+    range-image patch tie the same way)."""
+    n = 80
+    rng = np.random.default_rng(3)
+    means = np.zeros((n, 3), np.float32)
+    means[:, 0] = np.where(np.arange(n) % 2 == 0, 10.0, 10.5)
+    rotations = np.tile(np.float32([np.sqrt(0.5), 0.0, np.sqrt(0.5), 0.0]),
+                        (n, 1))                  # normal along x
+    sh = np.zeros((n, 16, 3), np.float32)
+    sh[:, 0, :] = rng.uniform(-0.5, 1.0, (n, 3))
+    bundle = SurfelBundle(**{k: torch.tensor(v, device=device) for k, v in dict(
+        means=means, rotations=rotations,
+        scales=rng.uniform(2.0, 4.0, (n, 2)).astype(np.float32),
+        opacities=rng.uniform(0.01, 0.04, n).astype(np.float32),
+        sh=sh).items()})
+    grid = t_rays.SensorGrid.from_bounds(16, (-0.2, 0.2), device=device)
+    tile = TileConfig(tile_h=8, tile_w=128, max_per_tile=128, binner="hier")
+    inputs, _ = cuda_tracer.tile_inputs(bundle, grid, 2048,
+                                        torch.eye(4, device=device), 3, tile)
+    return inputs
+
+
+def test_tied_depth_case_is_what_it_claims():
+    """Checked on the twin: rays with more tied hits than the buffer."""
+    inputs = _tied_depth_case("cpu")
+    f = cuda_tracer._pairs(*inputs[:8], exact=True)
+    hits = f.ok.sum(-1)
+    assert int(hits.max()) == 80
+    tile, ray = torch.nonzero(hits == 80)[0]
+    assert len(set(f.t[tile, ray][f.ok[tile, ray]].tolist())) == 2
+    assert int((f.live & f.ok)[tile, ray].sum()) == 80
+
+
+@pytest.mark.cuda
+def test_exact_kernels_with_tied_depths_on_card(cuda_device):
+    """The exact walk keeps tied hits in index order across its passes:
+    both exact kernels against their twins where 40 hits share each t."""
+    inputs = _tied_depth_case(cuda_device)
+    with torch.no_grad():
+        chans, accum = kernels.tracer_forward(*inputs, exact=True)
+        _assert_bars(chans, accum, *cuda_tracer.forward_tiles_reference(
+            *inputs, exact=True))
+        g = _upstream(chans, 3)
+        got = kernels.tracer_backward(*inputs, chans, g, exact=True)
+        _assert_grad_bars(got, cuda_tracer.backward_tiles_reference(
+            *inputs, chans, g, exact=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exact", [False, True], ids=["tile", "exact"])
+def test_band_kernels_match_twins_on_card(cuda_device, exact):
+    """The column bands of a rays = 2 mesh on the flagship shape: a 64 x
+    2650 scan in 8 x 128 tiles at K = 256, so each band of 1325 columns is
+    8 x 11 = 88 tiles, its last tile tracing 83 columns of the next band.
+    Both kernels against their twins on each band's tile inputs."""
+    soup = street_soup(32_768, seed=2)
+    bundle = SurfelBundle(**{k: torch.tensor(v, device=cuda_device)
+                             for k, v in soup.items()})
+    grid = t_rays.SensorGrid.from_bounds(64, (-0.31, 0.04), pixel_offset=0.5,
+                                         device=cuda_device)
+    pose = torch.eye(4, device=cuda_device)
+    pose[2, 3] = 2.0
+    for band in range(2):
+        inputs, _ = cuda_tracer.tile_inputs(
+            bundle, grid, 2650, pose, 3, t_tracer.FLAGSHIP_TILE,
+            col_offset=1325 * band, render_width=1325)
+        assert tuple(inputs.dirs.shape[:2]) == (88, 1024)
+        with torch.no_grad():
+            chans, accum = kernels.tracer_forward(*inputs, exact=exact)
+            _assert_bars(chans, accum, *cuda_tracer.forward_tiles_reference(
+                *inputs, exact=exact))
+            g = _upstream(chans, band)
+            got = kernels.tracer_backward(*inputs, chans, g, exact=exact)
+            _assert_grad_bars(got, cuda_tracer.backward_tiles_reference(
+                *inputs, chans, g, exact=exact))
+        assert float(chans[:, 4].max()) > 0.5
 
 
 @pytest.mark.cuda
