@@ -50,8 +50,9 @@ On one CUDA card it:
      its loaders (Waymo through the native ingest, held to the Python
      parser on two frames to the bit), assembles both scenes on the card
      with the rehearsal's options, holds the tile-order forward and
-     backward kernels to their twins on a render of the assembled Waymo
-     scene at K=512 and K=256, and trains the Waymo scene 20 steps and the
+     backward kernels, uncached and cached (16's checks), to their twins
+     on a render of the assembled Waymo scene at K=512 and K=256, and
+     trains the Waymo scene 20 steps and the
      KITTI-360 scene 10 with the rehearsal's tracer settings (K=512 warm-up,
      K=256 after, one tail pass), the warm-up cut short so that both
      budgets and the switch run;
@@ -69,7 +70,8 @@ On one CUDA card it:
      segment's scene, assembled again and handed to the ranks as a
      checkpoint; ranks are processes sharing this card through gloo
      (`parallel.run_world`), each importing only this script and the
-     port: (a) in a rays = 2 world, each band's kernels (both orders)
+     port: (a) in a rays = 2 world, each band's kernels (both orders,
+     the exact backward's fast sums, and on band 0 the cached pair)
      against their twins on its tile inputs (8 x 128 tiles, K = 256: 88
      tiles of 1325 columns each), and the bands of `trace_ray_sharded`,
      gathered, against this process's band traces (channels to the bit);
@@ -81,6 +83,18 @@ On one CUDA card it:
      settings and 2 in exact order: losses, distinct frames per row, the
      state bit-identical on every rank, ms per step and the bytes and ms
      of its all-reduces (four ranks share one card: no scaling figure).
+     Phases 13-15 train with the rehearsal's tracer settings, whose
+     fast_math selects the training modes on the card (16).
+ 16. the tracer's training modes (the reference's fast_math and
+     cache_fwd) at phase 8's training inputs: the forward writing its
+     bf16 cache against the uncached forward (channels to the bit) and its
+     twin's encoding, the decoding backward with one TF32 product per d_sh
+     term against its twin and the float32 replay, the cache poisoned two
+     ways, the exact order's fast sums against its twin, CUDA-event times
+     of each mode beside the other, 20 training steps replayed in float32
+     and 20 cached from the same state (ms per step and peak memory of
+     each), 5 exact-order steps with the fast sums, and a serving render's
+     peak memory in the cached configuration.
 
 Every failed check raises.  Without a CUDA device it exits non-zero before
 any phase.  The last two lines of standard output are the kernel table
@@ -119,6 +133,18 @@ ACCUM_RTOL, ACCUM_ATOL = 1e-4, 1e-3
 # field, cosine above the reference's on-device bar and max abs error
 # within 3e-3 of the field's largest magnitude (its CPU bar, scaled).
 GRAD_COS, GRAD_REL = 0.999, 3e-3
+# The training modes (fast_math, cache_fwd) against the float32 replay:
+# the reference's cache bars (tests/test_pallas_tracer.py:354-379: within
+# 1.5e-2 of the field's largest magnitude, cosine > 0.999) and the cosine
+# its fast mode met on the TPU (PARITY_r03.json: >= 0.9996 per field).
+FAST_COS, FAST_REL = 0.9996, 1.5e-2
+# The cache's sign bits against the twin's float32 gates: a gate within
+# these margins of its threshold may fall either way (the kernel's expf
+# and the twin's exp differ by an ulp or two; the twin's cumulative
+# product of (1 - alpha) associates differently from the kernel's running
+# product), anywhere else the bits must agree.
+ALPHA_GATE_ULPS = 4
+LIVE_GATE_REL = 1e-5
 TRAIN_STEPS = 20
 MODE_STEPS = 10        # training steps in each other mode (phase 12)
 
@@ -142,8 +168,13 @@ CONE_FLOPS = 130
 FWD_HIT_FLOPS = 120
 BWD_HIT_FLOPS = 230
 # Of the backward's, the d_sh sums (48 multiply-adds) run on the tensor
-# cores, each product as three TF32 products (3xTF32).
+# cores, each product as three TF32 products (3xTF32), or one in the fast
+# mode.
 BWD_SH_FLOPS = 96
+# A backward pair decoded from the forward's cache: the intersection's
+# locals without the exp, the gates or the transmittance product.
+CACHE_PAIR_FLOPS = 22
+CACHE_BYTES = 4        # per cached (ray, candidate) step: two bfloat16
 
 
 def street_soup(n: int, seed: int) -> dict[str, np.ndarray]:
@@ -224,14 +255,17 @@ def scene_arrays(seed: int) -> dict[str, np.ndarray]:
 
 def ptxas_report(log: str) -> list[tuple[str, str]]:
     """[(device kernel, "N registers, S bytes spill stores, L bytes spill
-    loads")] from an `nvcc -Xptxas -v` log; a kernel template's bool
-    argument is named <false>/<true>."""
+    loads")] from an `nvcc -Xptxas -v` log; a kernel template's arguments
+    are named as `kernels.DEVICE_KERNELS` names them (<false>, <2,true>)."""
     out, kernel, spills = [], None, ""
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            m = re.search(r"(tracer_[a-z_]+_kernel)(?:ILb([01])E)?", line)
-            kernel = (m.group(1) + {None: "", "0": "<false>",
-                                    "1": "<true>"}[m.group(2)]
+            m = re.search(r"(tracer_[a-z_]+_kernel)((?:L[bi]\d+E)*)",
+                          line.replace("_kernelI", "_kernel"))
+            args = [("true" if v == "1" else "false") if t == "b" else v
+                    for t, v in re.findall(r"L([bi])(\d+)E",
+                                           m.group(2) if m else "")]
+            kernel = (m.group(1) + (f"<{','.join(args)}>" if args else "")
                       if m else line.split("'")[1])
         elif "spill stores" in line:
             spills = ", ".join(x.strip() for x in line.split(",")[1:])
@@ -427,26 +461,33 @@ def tracer_work(inputs, exact: bool) -> dict[str, int | float]:
             "block_max": per_block.max().item()}
 
 
-def bound(inputs, work: dict, backward: bool, culled: bool = True
-          ) -> tuple[float, str]:
+def bound(inputs, work: dict, backward: bool, culled: bool = True,
+          cache: bool = False, fast: bool = False) -> tuple[float, str]:
     """The least ms the card could take for a tracer kernel's work, and
     what bounds it: the larger of its bytes (each input read once, each
     output written once) over the memory rate and its operations (from
     `tracer_work`) over the float32 rate, the backward's d_sh sums over
-    the TF32 rate.  The operations are the box tests and the pairs they
-    leave (whether or not the kernel culls yet: a floor), or, with
-    `culled` False, every pair a ray reaches and no box test."""
+    the TF32 rate (three products per term, one with `fast`).  The
+    operations are the box tests and the pairs they leave (whether or not
+    the kernel culls yet: a floor), or, with `culled` False, every pair a
+    ray reaches and no box test.  With `cache` the forward also writes,
+    and the backward reads, CACHE_BYTES per pair its rays reach at a
+    visited step, and its (T, 8, R) float totals; the backward's pairs
+    cost CACHE_PAIR_FLOPS."""
     t, r = inputs.dirs.shape[:2]
     k = inputs.axes.shape[-1]
     hits = work["hits"]
-    flops = (work["pairs"] * PAIR_FLOPS + work["tests"] * CONE_FLOPS
-             if culled else work["all_pairs"] * PAIR_FLOPS)
+    pair_flops = CACHE_PAIR_FLOPS if cache and backward else PAIR_FLOPS
+    flops = (work["pairs"] * pair_flops + work["tests"] * CONE_FLOPS
+             if culled else work["all_pairs"] * pair_flops)
     nbytes = 4 * (t + 5 * t * r + 64 * t * k)   # cnt, dirs/mind/t0, candidates
+    if cache:
+        nbytes += CACHE_BYTES * work["pairs"] + 4 * 8 * t * r
     tf32_flops = 0
     if backward:
         nbytes += 4 * (2 * 16 * t * r + 64 * t * k)   # channels, grads in/out
         flops += hits * (BWD_HIT_FLOPS - BWD_SH_FLOPS)
-        tf32_flops = 3 * hits * BWD_SH_FLOPS
+        tf32_flops = (1 if fast else 3) * hits * BWD_SH_FLOPS
     else:
         nbytes += 4 * (16 * t * r + t * k)            # channels, accum out
         flops += hits * FWD_HIT_FLOPS
@@ -454,6 +495,174 @@ def bound(inputs, work: dict, backward: bool, culled: bool = True
     by_ops = (flops / PEAK_F32_FLOPS + tf32_flops / PEAK_TF32_FLOPS) * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
                                                            "operations")
+
+
+def cache_check(inputs, got: torch.Tensor) -> dict[str, int]:
+    """The forward kernel's cache pairs `got` (`kernels.cache_shape`,
+    bfloat16), written into a NaN-filled buffer, against the plain twin's
+    encoding of the same tile inputs (`cuda_tracer.encode_cache`).  Counts of (tile,
+    candidate, ray) steps: `written` (not NaN); `stray`, written where the
+    twin's ray had stopped before the step; `missed`, a step the twin's
+    ray reaches, holding a pair that passes its gates, left unwritten;
+    `magnitude`, written with |x| or |y| more than one bfloat16 ulp from
+    the twin's; `sign`, with a sign bit other than the twin's where the
+    twin's gate is clear of its threshold (ALPHA_GATE_ULPS of the alpha
+    before its clamp, LIVE_GATE_REL); `near_gate`, sign bits that differ at a gate within
+    those margins (excused).  A ray whose twin transmittance comes within
+    LIVE_GATE_REL of T_MIN may stop a step apart in the two: its steps
+    are left out of `stray`, `missed` and `sign` (`borderline_rays`)."""
+    from lidar_rt_tpu_torch.ops import cuda_tracer, geometry
+
+    with torch.no_grad():
+        f = cuda_tracer._pairs(*inputs[:8])
+        want = cuda_tracer.encode_cache(f, inputs.dirs, inputs.axes,
+                                        inputs.sign, inputs.sh).pairs
+
+        def ckr(x):                                  # (T, R, K) -> (T, K, R)
+            return x.transpose(1, 2)
+
+        live = ckr(f.live)
+        t, k, r = live.shape
+        reached = torch.cat([torch.ones_like(live[:, :1]),
+                             torch.cumprod(live.int(), 1)[:, :-1].bool()], 1)
+        t_incl = ckr(f.t_excl * (1.0 - f.alpha))
+        border = (reached & ((t_incl - geometry.T_MIN).abs()
+                             <= LIVE_GATE_REL * geometry.T_MIN)
+                  ).any(1, keepdim=True).expand_as(live)
+        ulp = ALPHA_GATE_ULPS * torch.finfo(torch.float32).eps
+        # Before the ALPHA_MAX clamp, which sets every clamped pair to the
+        # threshold itself.
+        a_raw = ckr(inputs.opac[:, None, :] * f.g)
+        near_alpha = (((a_raw - geometry.ALPHA_MAX).abs()
+                       <= ulp * geometry.ALPHA_MAX)
+                      | ((a_raw - geometry.ALPHA_MIN).abs()
+                         <= ulp * geometry.ALPHA_MIN))
+        written = ~got[..., 0].float().isnan()
+        bits_got = got.view(torch.int16).int()
+        bits_want = want.view(torch.int16).int()
+        mag = ((bits_got & 0x7fff) - (bits_want & 0x7fff)).abs().amax(-1)
+        sign_diff = (bits_got < 0) != (bits_want < 0)          # (T, K, R, 2)
+        sign_ok_ac = near_alpha | border
+        both = written & reached
+        return {
+            "written": int(written.sum()),
+            "stray": int((written & ~reached & ~border).sum()),
+            "missed": int((reached & ~written & ~border & ~near_alpha
+                           & (want[..., 0].float() != 0.0)).sum()),
+            "magnitude": int((both & (mag > 1)).sum()),
+            "sign": int((both & ((sign_diff[..., 0] & ~sign_ok_ac)
+                                 | (sign_diff[..., 1] & ~border))).sum()),
+            "near_gate": int((both & ((sign_diff[..., 0] & sign_ok_ac)
+                                      | (sign_diff[..., 1] & border))).sum()),
+            "borderline_rays": int(border[:, 0].sum()),
+            "steps": t * k * r}
+
+
+def totals_error(inputs, cache) -> float:
+    """The largest absolute difference between the forward's `totals`
+    (`cache.totals`) and rows 0-7 of the twin's channel sums taken with
+    the kernel's own decoded weights: |alpha| x T at each step it wrote
+    with a positive T, zero elsewhere.  This holds the sums apart from the
+    encoding, which `cache_check` holds to the twin's (to one bfloat16 ulp
+    a value: a weight's two ulps would move a total by up to 2^-6 of its
+    terms' magnitude, past any useful bar), so the channels' bar applies."""
+    from lidar_rt_tpu_torch.ops import cuda_tracer
+
+    with torch.no_grad():
+        f = cuda_tracer._pairs(*inputs[:8])
+        d = cache.pairs.float().transpose(1, 2)            # (T, R, K, 2)
+        w = torch.where(d[..., 1] > 0.0, d[..., 0].abs() * d[..., 1], 0.0)
+        want = torch.stack(cuda_tracer._channel_sums(
+            w, f, inputs.dirs, inputs.axes, inputs.sign, inputs.sh), 1)
+        return (cache.totals - want).abs().max().item()
+
+
+def check_cached_pair(inputs, chans, accum, g, what: str,
+                      report=print) -> dict:
+    """The cached tile-order pair on `inputs` (upstream `g`), held to the
+    uncached forward's `chans` and `accum` and to the plain twins: the
+    forward writing its cache into a NaN-filled buffer (channels to the
+    uncached forward's bits, accum within 1e-5 relative; channels and
+    accum against the twin; the cache against the twin's encoding,
+    `cache_check`; the totals by `totals_error`), then the decoding
+    backward with the fast sums against its twin (decoding the twin's
+    cache) and the float32 replay, at FAST_COS and FAST_REL.  Each finding goes to `report` before it is
+    checked; every failed check raises, naming `what`.  Returns the
+    largest errors against the twins (`fwd_err`, `bwd_err`) and both
+    caches (`cache`, `twin_cache`)."""
+    from lidar_rt_tpu_torch.ops import cuda_tracer, kernels
+
+    t, r = inputs.dirs.shape[:2]
+    k = inputs.axes.shape[-1]
+    with torch.no_grad():
+        poisoned = torch.full(kernels.cache_shape(t, k, r), float("nan"),
+                              dtype=torch.bfloat16, device=chans.device)
+        c_chans, c_accum, cache = kernels.tracer_forward(
+            *inputs, cache=True, cache_out=poisoned)
+        p_chans, p_accum, p_cache = cuda_tracer.forward_tiles_reference(
+            *inputs, cache=True)
+        torch.cuda.synchronize()
+    same = torch.equal(c_chans, chans)
+    acc_rel = ((c_accum - accum).abs()
+               / accum.abs().clamp_min(1e-30)).max().item()
+    counts = cache_check(inputs, cache.pairs)
+    fwd_err = (c_chans - p_chans).abs().max().item()
+    acc_err, acc_ok = _accum_err(c_accum, p_accum)
+    written = ~cache.pairs[..., 0].isnan()
+    cache_err = (cache.pairs.float()
+                 - p_cache.pairs.float())[written].abs().max().item()
+    totals_err = totals_error(inputs, cache)
+    # For the record: each row's largest gap from the twin's totals, whose
+    # weights are the twin's own bfloat16 values, beside the row's largest
+    # magnitude.
+    totals_gap = [f"{a:.2e}/{b:.2e}" for a, b in zip(
+        (cache.totals - p_cache.totals).abs().amax((0, 2)).tolist(),
+        p_cache.totals.abs().amax((0, 2)).tolist())]
+    cache_mib = sum(x.numel() * x.element_size() for x in cache) / 2 ** 20
+    report(f"forward {what}, T={t} R={r} K={k}, cache {cache_mib:.1f} MiB: "
+           f"channels {'bit-identical' if same else 'DIFFER'} to the "
+           f"uncached forward, accum max rel diff {acc_rel:.3e} (atomics; "
+           f"bar 1e-05); vs twin channels {fwd_err:.3e} (bar {CHAN_ATOL}), "
+           f"accum {acc_err:.3e}; cache steps {counts} (bars: stray, "
+           f"missed, magnitude and sign 0), written values within "
+           f"{cache_err:.3e} of the twin's; totals within {totals_err:.3e} "
+           f"of the twin's sums with the kernel's decoded weights (bar "
+           f"{CHAN_ATOL}); from the twin's totals, per row, largest gap / "
+           f"largest magnitude {totals_gap} (no bar)")
+    _check(same, f"{what}: cached forward channels vs the uncached "
+           "forward's bits")
+    _check(acc_rel <= 1e-5, f"{what}: cached forward accum vs the uncached "
+           "forward")
+    _check(fwd_err <= CHAN_ATOL and acc_ok, f"{what}: cached forward vs its "
+           "twin")
+    _check(totals_err <= CHAN_ATOL, f"{what}: cached forward's totals vs "
+           "the twin's sums of its decoded weights")
+    _check(counts["written"] > 0 and counts["stray"] == counts["missed"]
+           == counts["magnitude"] == counts["sign"] == 0,
+           f"{what}: the forward's cache against its twin's encoding: "
+           f"{counts}")
+    del poisoned, p_chans, p_accum, written
+    with torch.no_grad():
+        replay = kernels.tracer_backward(*inputs, chans, g)
+        got = kernels.tracer_backward(*inputs, chans, g, cache=cache,
+                                      fast=True)
+        twin = cuda_tracer.backward_tiles_reference(*inputs, chans, g,
+                                                    cache=p_cache)
+        torch.cuda.synchronize()
+    for x in got:
+        _check(bool(torch.isfinite(x).all()), f"{what}: cached backward "
+               "finite")
+    for label, ref in (("its twin", twin), ("the float32 replay", replay)):
+        errs = _grad_errors(got, ref, TWIN_GRADS)
+        report(f"backward {what}, T={t} R={r} K={k}, cache decoded, fast "
+               f"sums, vs {label}: {_fmt_grads(errs)} (bars: cosine >= "
+               f"{FAST_COS}, err <= {FAST_REL} x max|ref|)")
+        _check(all(cos >= FAST_COS and rel <= FAST_REL
+                   for cos, rel in errs.values()),
+               f"{what}: cached backward vs {label}: {errs}")
+    bwd_err = max((a - b).abs().max().item() for a, b in zip(got, twin))
+    return {"fwd_err": fwd_err, "bwd_err": bwd_err, "cache": cache,
+            "twin_cache": p_cache}
 
 
 def permuted_rays(inputs, seed: int = 0):
@@ -637,23 +846,34 @@ def _timed(fn):
 
 def _train_budgets(trainer, steps: int, what: str, card: str):
     """Run `steps` single steps with the tile-order kernels' launches
-    counted from 0, and print them per budget: {K: (steps, forward
-    launches, backward launches, host ms per step)}.  Checks every loss
-    and parameter finite."""
+    counted from 0, in the trainer's mode (cached or replayed), and print
+    them per budget: {K: (steps, forward launches, backward launches,
+    host ms per step)}.  Checks every loss and parameter finite, and that
+    no kernel of another mode ran."""
     from lidar_rt_tpu_torch.ops import kernels
+
+    cached = trainer.trace_cfg.use_cache
+
+    def counts():
+        return ((kernels.forward_cache_launches,
+                 kernels.backward_cache_launches) if cached
+                else (kernels.forward_launches, kernels.backward_launches))
 
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     rows = []
     for _ in range(steps):
-        fwd, bwd = kernels.forward_launches, kernels.backward_launches
+        fwd, bwd = counts()
         _, s = _timed(lambda: trainer.run(1, log_every=1))
         rows.append((trainer.step_cfg.tile.max_per_tile,
-                     kernels.forward_launches - fwd,
-                     kernels.backward_launches - bwd, s * 1e3))
-    _check((kernels.forward_exact_launches,
-            kernels.backward_exact_launches) == (0, 0),
-           f"{what}: exact-order launches in tile-order training")
+                     counts()[0] - fwd, counts()[1] - bwd, s * 1e3))
+    others = ((kernels.forward_launches, kernels.backward_launches)
+              if cached else (kernels.forward_cache_launches,
+                              kernels.backward_cache_launches))
+    _check((kernels.forward_exact_launches, kernels.backward_exact_launches,
+            kernels.backward_exact_fast_launches) + others == (0,) * 5,
+           f"{what}: launches of another mode in "
+           f"{'cached' if cached else 'replayed'} tile-order training")
     loss = [h["loss"] for h in trainer.history]
     _check(len(loss) == steps and all(np.isfinite(loss)),
            f"{what}: training losses finite")
@@ -668,10 +888,12 @@ def _train_budgets(trainer, steps: int, what: str, card: str):
     for k, fwd, bwd, ms in rows:
         n, f, b, times = by_k.get(k, (0, 0, 0, []))
         by_k[k] = (n + 1, f + fwd, b + bwd, times + [ms])
+    mode = "cached" if cached else "replayed"
     print(f"[data-train] {card}: {what}, {steps} steps, "
           f"{trainer.state.bins.rebins} rebins; "
           + "; ".join(f"K={k}: {n} steps, {f} forward and {b} backward "
-                      f"launches, median {statistics.median(t):.3f} ms per "
+                      f"{mode} launches, median {statistics.median(t):.3f} "
+                      f"ms per "
                       f"step (min {min(t):.3f}, max {max(t):.3f}, host "
                       f"clock)" for k, (n, f, b, t) in by_k.items())
           + f"; peak allocated {peak:.1f} MiB; loss "
@@ -682,7 +904,8 @@ def _train_budgets(trainer, steps: int, what: str, card: str):
 def data_phase(seed: int, card: str, dev, gen, tmp: str) -> dict:
     """Phase 13: the data path from files on disk (written under `tmp`)
     to a trained scene.  Returns the kernels' launches on its training
-    paths and their errors on the assembled scene's tile inputs."""
+    paths and their errors (uncached and cached) on the assembled scene's
+    tile inputs."""
     from lidar_rt_tpu_torch import native
     from lidar_rt_tpu_torch.data import build, kitti, waymo
     from lidar_rt_tpu_torch.ops import cuda_tracer, kernels
@@ -690,8 +913,9 @@ def data_phase(seed: int, card: str, dev, gen, tmp: str) -> dict:
     from lidar_rt_tpu_torch.train import loop, options
 
     names = ("d_axes", "d_plane", "d_inv_scale", "d_opac", "d_sh")
-    out = {"fwd_err": 0.0, "bwd_err": 0.0, "fwd_paths": {},
-           "bwd_paths": {}}
+    out = {"fwd_err": 0.0, "bwd_err": 0.0, "fwd_c_err": 0.0,
+           "bwd_c_err": 0.0, "fwd_paths": {}, "bwd_paths": {},
+           "fwd_c_paths": {}, "bwd_c_paths": {}}
     w_dir, k_dir = os.path.join(tmp, "waymo"), os.path.join(tmp, "kitti")
     w_imgs, gen_w_s = _timed(lambda: gen_waymo(
         w_dir, dev, WAYMO_FRAMES, WAYMO_H, WAYMO_W))
@@ -785,8 +1009,9 @@ def data_phase(seed: int, card: str, dev, gen, tmp: str) -> dict:
         _check(scene.num_actors == len(tracks), f"{label}: every moving "
                f"vehicle became an actor")
 
-    # The tile-order kernels against their twins on the tile inputs of one
-    # render of the assembled Waymo scene, at both budgets.
+    # The tile-order kernels, uncached and cached, against their twins on
+    # the tile inputs of one render of the assembled Waymo scene, at both
+    # budgets.
     scene = scenes["Waymo"]
     cfg, warm_cfg, _ = options.trace_configs(opts_w)
     f0 = frames_w.train_frames[0]
@@ -828,7 +1053,16 @@ def data_phase(seed: int, card: str, dev, gen, tmp: str) -> dict:
         _check_grads(g_err, f"backward kernel vs twin at K={k}")
         out["fwd_err"] = max(out["fwd_err"], err)
         out["bwd_err"] = max(out["bwd_err"], g_abs)
-        del inputs, chans_k, chans_p, grads_k, grads_p, g
+        # The rehearsal's settings train this budget cached on the card:
+        # the cached pair against its twins on the same inputs.
+        _check(budget.use_cache, f"K={k}: the rehearsal's tracer settings "
+               "(fast_math) train with the cache on the card")
+        pair = check_cached_pair(
+            inputs, chans_k, acc_k, g, f"assembled Waymo scene, frame {f0}",
+            lambda line: print(f"[data-cache] {line}", flush=True))
+        out["fwd_c_err"] = max(out["fwd_c_err"], pair["fwd_err"])
+        out["bwd_c_err"] = max(out["bwd_c_err"], pair["bwd_err"])
+        del inputs, chans_k, chans_p, grads_k, grads_p, g, pair
 
     # Training with the rehearsal's tracer settings: both budgets and the
     # switch between them.
@@ -855,8 +1089,11 @@ def data_phase(seed: int, card: str, dev, gen, tmp: str) -> dict:
                    f"{label} K={k}: {fwd} forward / {bwd} backward launches "
                    f"for {n} steps of {passes} passes")
         path = f"train_rehearsal_{label.split('-')[0].lower()}"
-        out["fwd_paths"][path] = sum(v[1] for v in by_k.values())
-        out["bwd_paths"][path] = sum(v[2] for v in by_k.values())
+        mode = "_c" if cfg.use_cache else ""
+        _check(cfg.use_cache, f"{label}: the rehearsal's tracer settings "
+               "(fast_math) train with the cache on the card")
+        out[f"fwd{mode}_paths"][path] = sum(v[1] for v in by_k.values())
+        out[f"bwd{mode}_paths"][path] = sum(v[2] for v in by_k.values())
         prof = _device_profile(trainer.step, 3)
         if prof is None:
             print(f"[data-profile] {card}: the trace holds no device "
@@ -935,9 +1172,7 @@ refine:
               f"entries, held-out PSNR {psnr}, "
               f"{trainer.state.bins.rebins} rebins, "
               f"{int(trainer.state.scene.background.num_alive)} surfels")
-    train_launches = (kernels.forward_launches, kernels.backward_launches,
-                      kernels.forward_exact_launches,
-                      kernels.backward_exact_launches)
+    train_launches = _launch_counts()
     trainer, log = runs["resume"]
     _check([h["iteration"] for h in log["history"]]
            == list(range(1, CLI_RESUMED + 1)),
@@ -955,9 +1190,7 @@ refine:
     _, eval_wall = _timed(lambda: cli.main(
         ["eval", "-dc", data_cfg, "-ec", exp_cfg, "-t", "test", "-e", "-i",
          "-p"]))
-    eval_launches = (kernels.forward_launches, kernels.backward_launches,
-                     kernels.forward_exact_launches,
-                     kernels.backward_exact_launches)
+    eval_launches = _launch_counts()
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 20
     metrics_dir = os.path.join(mdir, "metrics")
     with open(os.path.join(metrics_dir, "results_all.json")) as f:
@@ -1041,17 +1274,24 @@ refine:
           f"CPU max abs err {unet_err:.3e} (bar 1e-4); LPIPS with seeded "
           f"weights {lp_card:.6f} card vs {lp_cpu:.6f} CPU, abs err "
           f"{abs(lp_card - lp_cpu):.3e} (bar 1e-4), {1e3 * lp_s:.1f} ms on "
-          f"the card; launches (forward, backward, exact forward, exact "
-          f"backward): train + resume {train_launches}, eval "
-          f"{eval_launches}")
+          f"the card; launches {LAUNCH_KEYS}: train + resume "
+          f"{train_launches}, eval {eval_launches}")
     _check(unet_err <= 1e-4, "U-Net on the card vs the CPU")
     _check(lp_card > 0 and abs(lp_card - lp_cpu) <= 1e-4,
            "LPIPS on the card vs the CPU")
-    _check(train_launches[2:] == eval_launches[2:] == (0, 0)
-           and eval_launches[1] == 0, "tile order only; no backward in eval")
-    return {"fwd_paths": {"cli_train": train_launches[0],
-                          "cli_eval": eval_launches[0]},
-            "bwd_paths": {"cli_train": train_launches[1]}}
+    train_n = dict(zip(LAUNCH_KEYS, train_launches))
+    eval_n = dict(zip(LAUNCH_KEYS, eval_launches))
+    _check(train_n["fwd_c"] == train_n["bwd_c"] > 0
+           and train_n["bwd"] == 0
+           and train_n["fwd_x"] == train_n["bwd_x"] == train_n["bwd_xf"] == 0,
+           "CLI training: the cached tile-order kernels (the rehearsal's "
+           "fast_math), grad-free renders uncached")
+    _check(eval_n["fwd"] > 0 and sum(eval_launches) == eval_n["fwd"],
+           "CLI eval: uncached tile-order forwards only")
+    return {"fwd_paths": {"cli_train": train_n["fwd"],
+                          "cli_eval": eval_n["fwd"]},
+            "fwd_c_paths": {"cli_train": train_n["fwd_c"]},
+            "bwd_c_paths": {"cli_train": train_n["bwd_c"]}}
 
 
 SHARDED_STEPS, SHARDED_EXACT_STEPS = 10, 2     # phase 15 (d)
@@ -1118,21 +1358,31 @@ def _state_digest(trainer) -> str:
     return _digest(parts)
 
 
-def _launch_counts() -> tuple[int, int, int, int]:
+# The launch counts of `_launch_counts`, in order: tile order, exact order,
+# the cached tile order and the exact order's fast sums.
+LAUNCH_KEYS = ("fwd", "bwd", "fwd_x", "bwd_x", "fwd_c", "bwd_c", "bwd_xf")
+
+
+def _launch_counts() -> tuple[int, ...]:
     from lidar_rt_tpu_torch.ops import kernels
 
     return (kernels.forward_launches, kernels.backward_launches,
-            kernels.forward_exact_launches, kernels.backward_exact_launches)
+            kernels.forward_exact_launches, kernels.backward_exact_launches,
+            kernels.forward_cache_launches, kernels.backward_cache_launches,
+            kernels.backward_exact_fast_launches)
 
 
 def band_rank(mesh, dev: str, w_dir: str, scene_path: str, frame: int,
               seed: int) -> dict:
     """Phase 15 (a) and (b) on one rank of a rays = 2 world: both kernels
     in both orders against their twins on this band's tile inputs (the
-    flagship tiling), then the ray-sharded render of the band in each
+    flagship tiling), the exact backward's fast sums too and, on band 0,
+    the cached pair (`check_cached_pair`), then the ray-sharded render of
+    the band in each
     order with a loss on the gathered scan, its launches counted from 0.
     Returns the errors, the launches and a digest of the bundle's
-    gradients; band 0 also the gathered scans, accums and gradients."""
+    gradients; band 0 also the cached pair's errors and report and the
+    gathered scans, accums and gradients."""
     from lidar_rt_tpu_torch.ops import cuda_tracer, kernels, tracer
     from lidar_rt_tpu_torch.parallel import gather_bands, trace_ray_sharded
     from lidar_rt_tpu_torch.parallel.sharding import band_columns
@@ -1164,6 +1414,23 @@ def band_rank(mesh, dev: str, w_dir: str, scene_path: str, frame: int,
                 (chans - ref_c).abs().max().item(), *_accum_err(accum, ref_a),
                 _grad_errors(grads, ref_g, TWIN_GRADS),
                 max((a - b).abs().max().item() for a, b in zip(grads, ref_g)))
+            if exact:
+                # The sharded trainer's exact order runs the fast sums.
+                fast = kernels.tracer_backward(*inputs, chans, g, exact=True,
+                                               fast=True)
+                out["fast_sums"] = (
+                    _grad_errors(fast, ref_g, TWIN_GRADS),
+                    max((a - b).abs().max().item()
+                        for a, b in zip(fast, ref_g)))
+                del fast
+            elif mesh.band == 0:
+                # Its tile order trains cached: the pair on this band.
+                pair = check_cached_pair(
+                    inputs, chans, accum, g, f"band {mesh.band}",
+                    lambda line: print(f"[sharded-cache] {line}",
+                                       flush=True))
+                out["cached"] = (pair["fwd_err"], pair["bwd_err"])
+                del pair
             del chans, accum, ref_c, ref_a, g, grads, ref_g
         del inputs, asg
     torch.cuda.synchronize()
@@ -1259,7 +1526,7 @@ def sharded_phase(tmp: str, card: str, dev, seed: int) -> dict:
         timeout_s=SHARDED_DEADLINE_S,
         args=(rank_dev, w_dir, scene_path, frame, seed)))
     out = {"fwd_err": 0.0, "bwd_err": 0.0, "fwd_x_err": 0.0,
-           "bwd_x_err": 0.0}
+           "bwd_x_err": 0.0, "bwd_xf_err": 0.0}
     for r in bands:
         (t, rays), cand, trunc = r["tiles"]
         for exact in (False, True):
@@ -1279,12 +1546,21 @@ def sharded_phase(tmp: str, card: str, dev, seed: int) -> dict:
             key = "_x" if exact else ""
             out[f"fwd{key}_err"] = max(out[f"fwd{key}_err"], c_err)
             out[f"bwd{key}_err"] = max(out[f"bwd{key}_err"], g_abs)
-        launches.update(dict(zip(("fwd", "bwd", "fwd_x", "bwd_x"),
-                                 r["launches"])))
+        f_err, f_abs = r["fast_sums"]
+        print(f"[sharded-band] band {r['band']}: exact backward, fast sums, "
+              f"vs its twin: {_fmt_grads(f_err)} (bars: cosine >= "
+              f"{FAST_COS}, err <= {FAST_REL} x max|ref|)")
+        _check(all(cos >= FAST_COS and rel <= FAST_REL
+                   for cos, rel in f_err.values()),
+               f"band {r['band']} exact fast sums vs twin: {f_err}")
+        out["bwd_xf_err"] = max(out["bwd_xf_err"], f_abs)
+        launches.update(dict(zip(LAUNCH_KEYS, r["launches"])))
+    # Checked and reported in the rank: a failed check raises there.
+    out["fwd_c_err"], out["bwd_c_err"] = bands[0]["cached"]
     _check(bands[0]["digest"] == bands[1]["digest"],
            "both ranks hold the same bundle gradients")
-    _check(tuple(bands[0]["launches"]) == (1, 1, 1, 1)
-           and tuple(bands[1]["launches"]) == (1, 1, 1, 1),
+    _check(tuple(bands[0]["launches"]) == (1, 1, 1, 1, 0, 0, 0)
+           and tuple(bands[1]["launches"]) == (1, 1, 1, 1, 0, 0, 0),
            f"one launch of each kernel per rank and order: "
            f"{[r['launches'] for r in bands]}")
 
@@ -1360,7 +1636,9 @@ def sharded_phase(tmp: str, card: str, dev, seed: int) -> dict:
     _check(spread <= 5e-2, "two runs of the Trainer stay within 5e-2")
     _check(bool(np.isfinite(loss).all()) and rel[0] <= 1e-6
            and rel.max() <= bar, "1x1 ShardedTrainer losses vs Trainer")
-    launches.update(dict(zip(("fwd", "bwd", "fwd_x", "bwd_x"), one)))
+    _check(one[4] == one[5] > 0 and one[1] == one[3] == one[6] == 0,
+           f"1x1: the rehearsal's settings train cached: {one}")
+    launches.update(dict(zip(LAUNCH_KEYS, one)))
 
     # (d): a dp = 2 x rays = 2 world.
     ranks, world_s = _timed(lambda: run_world(
@@ -1390,15 +1668,213 @@ def sharded_phase(tmp: str, card: str, dev, seed: int) -> dict:
         _check(all(len(set(row)) == 2 for row in first["frames"]),
                f"2x2 {label}: distinct frames in each step's dp rows")
         n = 2 * len(first["loss"])       # two passes a step
-        want = (n, n, 0, 0) if label == "tile" else (0, 0, n, n)
+        # The rehearsal's fast_math: tile order trains cached, exact order
+        # uncached with the fast sums.
+        want = ((0, 0, 0, 0, n, n, 0) if label == "tile"
+                else (0, 0, n, 0, 0, 0, n))
         _check(all(tuple(r["launches"]) == want for r in runs),
                f"2x2 {label}: launches per rank, want {want}")
         for r in runs:
-            launches.update(dict(zip(("fwd", "bwd", "fwd_x", "bwd_x"),
-                                     r["launches"])))
+            launches.update(dict(zip(LAUNCH_KEYS, r["launches"])))
     print(f"[sharded-2x2] {card}: world {world_s:.2f} s (4 processes: "
           f"start, load, {SHARDED_STEPS} + {SHARDED_EXACT_STEPS} steps)")
     out["launches"] = dict(launches)
+    return out
+
+
+EXACT_FAST_STEPS = 5       # exact-order training steps with the fast sums
+
+
+def cache_phase(card: str, dev, t_inputs, g_train, x_inputs, x_chans,
+                g_exact, make_trainer, serve, replay_step_ms: float) -> dict:
+    """Phase 16: the tracer's training modes (the reference's fast_math
+    and cache_fwd) at the flagship shape, on phase 8's training render
+    (`t_inputs`, upstream `g_train`) and phase 9's exact-order case.
+    (a, b) `check_cached_pair` there: (a) the forward writing its cache
+    into a NaN-filled buffer against the uncached forward (channels to the
+    bit) and its twin's encoding (`cache_check`); (b) the decoding
+    backward with the fast sums against its twin (decoding the twin's
+    cache) and the float32 replay, at the cache bars (FAST_COS,
+    FAST_REL), as phases 13 and 15 do on the assembled Waymo scene at
+    both budgets and on a band; (c) the same forward's cache in a
+    NaN-filled buffer and in one filled with a live pair (a read of an
+    unwritten step decodes as a stop in the first and as a composited
+    pair in the second; zeros would decode as a stop too); (d) the exact
+    order's sums at one TF32 product against its twin and the 3xTF32
+    sums; (e) CUDA-event times of each mode beside the other; (f)
+    `Trainer` replayed in float32, in the cached mode and in exact order
+    with the fast sums, and a serving render's peak memory in the cached
+    configuration.
+    `make_trainer(cfg)` builds phase 8's trainer; `serve(cfg)` renders
+    phase 4's scan."""
+    from lidar_rt_tpu_torch.ops import cuda_tracer, kernels, tracer
+
+    t, r = t_inputs.dirs.shape[:2]
+    k = t_inputs.axes.shape[-1]
+    shape = f"T={t} R={r} K={k}"
+    out = {}
+
+    def poisoned(fill):
+        return torch.full(kernels.cache_shape(t, k, r), fill,
+                          dtype=torch.bfloat16, device=dev)
+
+    # (a), (b)
+    with torch.no_grad():
+        chans, accum = kernels.tracer_forward(*t_inputs)
+    pair = check_cached_pair(
+        t_inputs, chans, accum, g_train, "phase 8's training inputs",
+        lambda line: print(f"[cache] {line}", flush=True))
+    out["fwd_c_err"], out["bwd_c_err"] = pair["fwd_err"], pair["bwd_err"]
+    cache, p_cache = pair["cache"], pair["twin_cache"]
+    del pair
+
+    # (c)
+    grads = {}
+    with torch.no_grad():
+        for label, fill in (("nan", float("nan")), ("live", 0.5)):
+            _, _, buf = kernels.tracer_forward(
+                *t_inputs, cache=True, cache_out=poisoned(fill))
+            grads[label] = [kernels.tracer_backward(
+                *t_inputs, chans, g_train, cache=buf, fast=True)
+                for _ in range(2)]
+            del buf
+        torch.cuda.synchronize()
+    nan_a, nan_b = grads["nan"]
+    live = grads["live"][0]
+    rows = []
+    for name, a, b, c in zip(TWIN_GRADS, nan_a, nan_b, live):
+        spread = (a - b).abs().max().item()
+        diff = (a - c).abs().max().item()
+        bar = max(4.0 * spread, 1e-5 * a.abs().max().item())
+        rows.append(f"{name} {'bit-identical' if torch.equal(a, c) else ''}"
+                    f"{'' if torch.equal(a, c) else f'{diff:.3e}'} (two runs "
+                    f"of one buffer {spread:.3e})")
+        _check(bool(torch.isfinite(a).all()) and diff <= bar,
+               f"poisoned caches: {name} {diff:.3e} > {bar:.3e}")
+    print(f"[cache] poison: gradients from the cache in a NaN-filled vs a "
+          f"live-pair-filled buffer: {', '.join(rows)}; sums with atomics "
+          f"in no fixed order: bar 4 x the spread or 1e-5 x max")
+    del grads, nan_a, nan_b, live
+
+    # (d)
+    with torch.no_grad():
+        fast_x = kernels.tracer_backward(*x_inputs, x_chans, g_exact,
+                                         exact=True, fast=True)
+        full_x = kernels.tracer_backward(*x_inputs, x_chans, g_exact,
+                                         exact=True)
+        twin_x = cuda_tracer.backward_tiles_reference(*x_inputs, x_chans,
+                                                      g_exact, exact=True)
+        torch.cuda.synchronize()
+    for what, ref in (("its twin", twin_x), ("the 3xTF32 sums", full_x)):
+        errs = _grad_errors(fast_x, ref, TWIN_GRADS)
+        print(f"[cache] exact order, fast sums, T={x_inputs.dirs.shape[0]} "
+              f"K={x_inputs.axes.shape[-1]}, vs {what}: {_fmt_grads(errs)}")
+        _check(all(cos >= FAST_COS and rel <= FAST_REL
+                   for cos, rel in errs.values()),
+               f"exact fast sums vs {what}: {errs}")
+    out["bwd_xf_err"] = max((a - b).abs().max().item()
+                            for a, b in zip(fast_x, twin_x))
+    del fast_x, full_x, twin_x
+
+    # (e)
+    with torch.no_grad():
+        buf = poisoned(0.0)
+        ms = {
+            "forward": _event_ms(lambda: kernels.tracer_forward(*t_inputs),
+                                 20),
+            "forward_cache": _event_ms(lambda: kernels.tracer_forward(
+                *t_inputs, cache=True, cache_out=buf), 20),
+            "backward": _event_ms(lambda: kernels.tracer_backward(
+                *t_inputs, chans, g_train), 20),
+            "backward_fast": _event_ms(lambda: kernels.tracer_backward(
+                *t_inputs, chans, g_train, fast=True), 20),
+            "backward_cache": _event_ms(lambda: kernels.tracer_backward(
+                *t_inputs, chans, g_train, cache=cache, fast=True), 20),
+            "backward_cache_3xtf32": _event_ms(
+                lambda: kernels.tracer_backward(*t_inputs, chans, g_train,
+                                                cache=cache), 20),
+            "exact_backward": _event_ms(lambda: kernels.tracer_backward(
+                *x_inputs, x_chans, g_exact, exact=True), 10),
+            "exact_backward_fast": _event_ms(
+                lambda: kernels.tracer_backward(*x_inputs, x_chans, g_exact,
+                                                exact=True, fast=True), 10),
+            "forward_cache_twin": _event_ms(
+                lambda: cuda_tracer.forward_tiles_reference(*t_inputs,
+                                                            cache=True), 3),
+            "backward_cache_twin": _event_ms(
+                lambda: cuda_tracer.backward_tiles_reference(
+                    *t_inputs, chans, g_train, cache=p_cache), 3)}
+        del buf
+    out["ms"] = ms
+    print(f"[cache-times] {card}: {shape} (phase 8's training render) and "
+          f"the exact case of phase 9, CUDA events: "
+          + ", ".join(f"{key} {v:.3f} ms" for key, v in ms.items()))
+    del cache, p_cache, chans, accum
+
+    # (f) The replayed float32 trainer beside the cached one, from the same
+    # state of this phase, for a like-for-like peak and step time.
+    cached_cfg = tracer.TraceConfig(fast_math=True, cache_fwd=True)
+    out["launches"], out["step_ms"], out["peak_mib"] = {}, {}, {}
+    for label, cfg, steps, want in (
+            ("replayed", tracer.TraceConfig(), TRAIN_STEPS,
+             (TRAIN_STEPS, TRAIN_STEPS, 0, 0, 0, 0, 0)),
+            ("cached", cached_cfg, TRAIN_STEPS,
+             (0, 0, 0, 0, TRAIN_STEPS, TRAIN_STEPS, 0)),
+            ("exact-fast", tracer.TraceConfig(exact_order=True,
+                                              fast_math=True),
+             EXACT_FAST_STEPS,
+             (0, 0, EXACT_FAST_STEPS, 0, 0, 0, EXACT_FAST_STEPS))):
+        trainer = make_trainer(cfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        kernels.reset_launches()
+        history = trainer.run(steps, log_every=steps)
+        torch.cuda.synchronize()
+        got_n = _launch_counts()
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+        loss = [h["loss"] for h in history]
+        step_ms = []
+        for _ in range(0 if label == "exact-fast" else 10):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.step()
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        times = (f"step median {statistics.median(step_ms):.3f} ms (min "
+                 f"{min(step_ms):.3f}, max {max(step_ms):.3f}, 10 steps, "
+                 f"host clock; phase 8's replayed steps "
+                 f"{replay_step_ms:.3f} ms); " if step_ms else "")
+        print(f"[cache-train] {card}: {label}, {steps} steps at {H}x{W}: "
+              f"launches {dict(zip(LAUNCH_KEYS, got_n))}; {times}peak "
+              f"allocated {peak:.1f} MiB; loss {[round(x, 5) for x in loss]}")
+        _check(got_n == want, f"{label} training launches {got_n}, want "
+               f"{want}")
+        _check(all(np.isfinite(loss)), f"{label}: losses finite")
+        out["launches"][label] = got_n
+        out["peak_mib"][label] = peak
+        if step_ms:
+            out["step_ms"][label] = statistics.median(step_ms)
+            _check(statistics.mean(loss[-5:]) < statistics.mean(loss[:5]),
+                   f"{label} training: the loss falls over the run")
+        del trainer
+    peaks = {}
+    for label, cfg in (("default", tracer.TraceConfig()),
+                       ("cached", cached_cfg)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        kernels.reset_launches()
+        serve(cfg)
+        torch.cuda.synchronize()
+        peaks[label] = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+        _check(kernels.forward_cache_launches == 0
+               and kernels.forward_launches == 1,
+               f"a {label} serving render launches one uncached forward")
+    print(f"[cache-serve] {card}: render_scan peak allocated "
+          f"{peaks['default']:.1f} MiB in the default configuration, "
+          f"{peaks['cached']:.1f} MiB in the cached one (no cache without "
+          f"a gradient)")
+    _check(peaks["cached"] <= peaks["default"],
+           "a serving render's peak memory does not grow with the cache")
     return out
 
 
@@ -1717,6 +2193,7 @@ def main() -> None:
           f"{render_ms:.3f} ms, Chamfer ({int(cd_mask.sum())} points) "
           f"forward + backward {cd_ms:.3f} ms, background Adam step "
           f"{adam_ms:.3f} ms")
+    replay_step_ms = statistics.median(step_ms)
     print(f"[train-times] {card}: training step median "
           f"{statistics.median(step_ms):.3f} ms (min {min(step_ms):.3f}, "
           f"max {max(step_ms):.3f}, 10 steps, host clock); forward kernel "
@@ -2027,10 +2504,23 @@ def main() -> None:
         data = data_phase(args.seed, card, dev, gen, tmp)
         cli_runs = cli_phase(tmp, card, dev)
         sharded = sharded_phase(tmp, card, dev, args.seed)
+    # 16. The training modes at the flagship shape.
+    cached = cache_phase(
+        card, dev, t_inputs, g_train, inputs, chans_x, g_exact,
+        lambda cfg: loop.Trainer(scene_from_numpy(perturbed(
+            scene_arrays(args.seed), args.seed + 2), dev), frames, opts,
+            cfg),
+        lambda cfg: sim.render_scan(scene, grid, W, s2w, 0, cfg),
+        replay_step_ms)
     kern_err = max(kern_err, data["fwd_err"], sharded["fwd_err"])
     bwd_abs = max(bwd_abs, data["bwd_err"], sharded["bwd_err"])
     exact_fwd_err = max(exact_fwd_err, sharded["fwd_x_err"])
     exact_bwd_err = max(exact_bwd_err, sharded["bwd_x_err"])
+    fwd_c_err = max(cached["fwd_c_err"], data["fwd_c_err"],
+                    sharded["fwd_c_err"])
+    bwd_c_err = max(cached["bwd_c_err"], data["bwd_c_err"],
+                    sharded["bwd_c_err"])
+    bwd_xf_err = max(cached["bwd_xf_err"], sharded["bwd_xf_err"])
     shard_n = sharded["launches"]
 
     fwd_paths = {"serve": launches, "train": train_fwd,
@@ -2038,18 +2528,33 @@ def main() -> None:
                  "train_tail": mode_launches["tail"][0], **data["fwd_paths"],
                  **cli_runs["fwd_paths"], "sharded": shard_n["fwd"]}
     bwd_paths = {"train": train_bwd, "train_tail": mode_launches["tail"][1],
-                 **data["bwd_paths"], **cli_runs["bwd_paths"],
-                 "sharded": shard_n["bwd"]}
+                 **data["bwd_paths"], "sharded": shard_n["bwd"]}
     fwd_x_paths = {"serve_exact": serve_exact,
                    "train_exact": mode_launches["exact"][2],
-                   "sharded": shard_n["fwd_x"]}
+                   "sharded": shard_n["fwd_x"],
+                   "train_exact_fast": cached["launches"]["exact-fast"][2]}
     bwd_x_paths = {"train_exact": mode_launches["exact"][3],
                    "sharded": shard_n["bwd_x"]}
+    fwd_c_paths = {**data["fwd_c_paths"], **cli_runs["fwd_c_paths"],
+                   "sharded": shard_n["fwd_c"],
+                   "train_cached": cached["launches"]["cached"][4]}
+    bwd_c_paths = {**data["bwd_c_paths"], **cli_runs["bwd_c_paths"],
+                   "sharded": shard_n["bwd_c"],
+                   "train_cached": cached["launches"]["cached"][5]}
+    bwd_xf_paths = {"sharded": shard_n["bwd_xf"],
+                    "train_exact_fast": cached["launches"]["exact-fast"][6]}
     train_work = works["training", False]
-    kernel_work = {"tracer_forward": (t_inputs, train_work, False),
-                   "tracer_backward": (t_inputs, train_work, True),
-                   "tracer_forward_exact": (inputs, exact_work, False),
-                   "tracer_backward_exact": (inputs, exact_work, True)}
+    # (inputs, work, backward, cache, fast) of each kernel's bound.
+    kernel_work = {
+        "tracer_forward": (t_inputs, train_work, False, False, False),
+        "tracer_backward": (t_inputs, train_work, True, False, False),
+        "tracer_forward_exact": (inputs, exact_work, False, False, False),
+        "tracer_backward_exact": (inputs, exact_work, True, False, False),
+        "tracer_forward_cache": (t_inputs, train_work, False, True, False),
+        "tracer_backward_cache": (t_inputs, train_work, True, True, True),
+        "tracer_backward_exact_fast": (inputs, exact_work, True, False,
+                                       True)}
+    cms = cached["ms"]
     entries = [
         ("tracer_forward", "lidar_rt_tpu_torch/csrc/tracer_forward.cu",
          "lidar_rt_tpu/ops/pallas_tracer.py:120", fwd_paths, kern_err,
@@ -2064,16 +2569,31 @@ def main() -> None:
          "lidar_rt_tpu_torch/csrc/tracer_backward.cu",
          "lidar_rt_tpu/ops/pallas_sort.py:30 (in pallas_backward.py:52)",
          bwd_x_paths, exact_bwd_err, bx_ms, bx_plain_ms),
+        ("tracer_forward_cache", "lidar_rt_tpu_torch/csrc/tracer_forward.cu",
+         "lidar_rt_tpu/ops/pallas_tracer.py:286 (cache_fwd, in "
+         "pallas_tracer.py:120)", fwd_c_paths, fwd_c_err,
+         cms["forward_cache"], cms["forward_cache_twin"]),
+        ("tracer_backward_cache",
+         "lidar_rt_tpu_torch/csrc/tracer_backward.cu",
+         "lidar_rt_tpu/ops/pallas_backward.py:183 (cache_fwd, in "
+         "pallas_backward.py:52)", bwd_c_paths, bwd_c_err,
+         cms["backward_cache"], cms["backward_cache_twin"]),
+        ("tracer_backward_exact_fast",
+         "lidar_rt_tpu_torch/csrc/tracer_backward.cu",
+         "lidar_rt_tpu/ops/pallas_backward.py:127 (fast_math, in "
+         "pallas_backward.py:52)", bwd_xf_paths, bwd_xf_err,
+         cms["exact_backward_fast"], bx_plain_ms),
     ]
-    entries = [e + (bound(*kernel_work[e[0]]),) for e in entries]
+    entries = [e + (bound(*kernel_work[e[0]][:3], True,
+                          *kernel_work[e[0]][3:]),) for e in entries]
     for name, _src, _rep, paths, _err, ms, _plain, (b_ms, b_by) in entries:
-        case, work, backward = kernel_work[name]
+        case, work, backward, cache, fast = kernel_work[name]
         print(f"[bound] {card}: {name} {ms:.3f} ms against a bound of "
               f"{b_ms:.4f} ms ({b_by}; {work['tests']} box tests, "
               f"{work['pairs']} pairs they leave, {work['hits']} hits "
               f"composited; with no box test, {work['all_pairs']} pairs: "
-              f"{bound(case, work, backward, culled=False)[0]:.4f} ms); "
-              f"launches {paths}")
+              f"{bound(case, work, backward, False, cache, fast)[0]:.4f} "
+              f"ms); launches {paths}")
         _check(all(n > 0 for n in paths.values()),
                f"{name} launched on every path it serves: {paths}")
     print(json.dumps({"kernels": [{

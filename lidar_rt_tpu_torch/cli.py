@@ -14,9 +14,10 @@ runs on `--device` (the card by default) in chunks of
 visual, best-checkpoint retention and `logs/log.json`; then the U-Net
 ray-drop refine and `models/unet.npz`.  Eval renders with the refined
 ray-drop and writes `metrics/results_all.json`, PNGs, an APNG and PLYs.
-The `tracer:` block's TPU options (approx_topk, fast_math, ...) select
-nothing here: the port bins with exact top-k and composites in float32,
-and the CLI says so.
+The `tracer:` block's TPU options (approx_topk, macro_cols, ray_block)
+select nothing here: the port bins with exact top-k, one thread per ray,
+and the CLI says so.  Its `fast_math` and `cache_fwd` select the tracer
+kernels' training modes on the card (`train.options.trace_configs`).
 """
 
 from __future__ import annotations
@@ -80,15 +81,15 @@ def _model_dir(args) -> str:
     return os.path.join(*parts)
 
 
-def trace_configs(args):
-    """`train.options.trace_configs`, logging the `tracer:` block's TPU
-    options that the port maps to exact top-k in float32."""
+def trace_configs(args, device: torch.device):
+    """`train.options.trace_configs` for `device`, logging the `tracer:`
+    block's TPU options, which the port does not read."""
     block = options.tracer_block(args)
     mapped = {k: block[k] for k in options.TPU_ONLY if k in block}
     if mapped:
         console.log(f"tracer: {mapped} select TPU code paths; the port "
-                    "bins with exact top-k and composites in float32")
-    return options.trace_configs(args)
+                    "bins with exact top-k, one thread per ray")
+    return options.trace_configs(args, device)
 
 
 class _Stopwatch:
@@ -160,7 +161,7 @@ def main_train(argv=None):
     t0 = time.perf_counter()
     scene = build_lib.assemble_scene(frames, tracks, args)
     clock.add("assemble", t0)
-    cfg, warmup_cfg, warmup_until = trace_configs(args)
+    cfg, warmup_cfg, warmup_until = trace_configs(args, device)
 
     def new_trainer(scene):
         trainer = loop_lib.Trainer(scene, frames, args, cfg,
@@ -384,7 +385,8 @@ def main_eval(argv=None) -> dict:
                               out["depth"], *rays)
         print(f"using unet {unet_path}")
 
-    runner = EvalRunner(scene, frames, args, trace_configs(args)[0],
+    runner = EvalRunner(scene, frames, args,
+                        trace_configs(args, device)[0],
                         unet_apply=unet_apply, use_gt_mask=a.use_gt_mask,
                         lpips_fn=make_lpips_fn(device=device))
     results = runner.run(a.eval_type, os.path.join(model_dir, "metrics"),

@@ -52,6 +52,14 @@ def to_rotation_matrix(q: Tensor) -> Tensor:
     return m.reshape(*q.shape[:-1], 3, 3)
 
 
+def rotation_matrix_vjp(q: Tensor, g: Tensor) -> Tensor:
+    """VJP of `to_rotation_matrix` at unnormalized q (..., 4) with cotangent
+    g (..., 3, 3): dL/dq.  Taken by autograd over the closed form
+    (`torch.autograd.functional.vjp`, as the reference takes `jax.vjp`),
+    so it cannot drift from `to_rotation_matrix`."""
+    return torch.autograd.functional.vjp(to_rotation_matrix, q, g)[1]
+
+
 def from_rotation_matrix(m: Tensor, eps: float = 1e-12) -> Tensor:
     """Rotation matrix (..., 3, 3) -> unit quaternion (..., 4) wxyz.
 

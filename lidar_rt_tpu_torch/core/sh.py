@@ -69,3 +69,8 @@ def evaluate(sh: Tensor, dirs: Tensor, active_degree: int) -> Tensor:
 def rgb_to_sh(rgb: Tensor) -> Tensor:
     """Channel value -> DC SH coefficient."""
     return (rgb - 0.5) / C0
+
+
+def sh_to_rgb(sh: Tensor) -> Tensor:
+    """DC SH coefficient -> channel value."""
+    return sh * C0 + 0.5

@@ -1,4 +1,5 @@
-"""Rigid transform helpers (counterpart of `lidar_rt_tpu.core.transforms`)."""
+"""Rigid and pinhole-camera transform helpers (counterpart of
+`lidar_rt_tpu.core.transforms`)."""
 
 from __future__ import annotations
 
@@ -27,6 +28,36 @@ def invert_se3(m: Tensor) -> Tensor:
     r_t = m[..., :3, :3].transpose(-1, -2)
     t = m[..., :3, 3]
     return se3(r_t, -(r_t * t[..., None, :]).sum(-1))
+
+
+def world_to_view(r: np.ndarray, t: np.ndarray,
+                  translate=(0.0, 0.0, 0.0), scale: float = 1.0
+                  ) -> np.ndarray:
+    """Pinhole world->view matrix (4, 4) float32 of a camera with rotation
+    r (3, 3) and translation t (3,) (numpy, host side; reference
+    graphics_utils.py:38-52)."""
+    rt = np.zeros((4, 4), dtype=np.float32)
+    rt[:3, :3] = np.asarray(r).T
+    rt[:3, 3] = np.asarray(t)
+    rt[3, 3] = 1.0
+    c2w = np.linalg.inv(rt)
+    c2w[:3, 3] = (c2w[:3, 3] + np.asarray(translate)) * scale
+    return np.linalg.inv(c2w).astype(np.float32)
+
+
+def projection_matrix(znear: float, zfar: float, fovx: float,
+                      fovy: float) -> np.ndarray:
+    """OpenGL-style perspective projection (4, 4) float32 (numpy, host
+    side; reference graphics_utils.py:54-71)."""
+    tan_x = np.tan(fovx / 2.0)
+    tan_y = np.tan(fovy / 2.0)
+    p = np.zeros((4, 4), dtype=np.float32)
+    p[0, 0] = 1.0 / tan_x
+    p[1, 1] = 1.0 / tan_y
+    p[3, 2] = 1.0
+    p[2, 2] = zfar / (zfar - znear)
+    p[2, 3] = -(zfar * znear) / (zfar - znear)
+    return p
 
 
 def forward_fill_poses(present: np.ndarray, translations: np.ndarray,

@@ -8,8 +8,11 @@
 // per-ray prefix in a register.  Modes: tile order, and exact (per-ray
 // depth) order, which also replaces the Pallas backward's depth sort
 // (lidar_rt_tpu/ops/pallas_sort.py, called at pallas_backward.py:279-292
-// and 377-425); f32, replay (the forward's residuals are recomputed, not
-// cached).  The boundary is the Pallas kernel's: the forward's inputs
+// and 377-425).  In tile order each pair's values come from a replay of
+// the forward (float32), or with the cache (the reference's cache_fwd,
+// pallas_backward.py:183-200,243-270) from the forward's bf16 residuals;
+// see "Cache" below.  The boundary is the Pallas kernel's: the forward's
+// inputs
 // plus the forward channels and their upstream gradients, both
 // channel-major (T, 16, R); the output is one
 // zero-initialised (T, 64, K) buffer whose rows are d_axes (0-8, as
@@ -98,6 +101,37 @@
 // candidate of shared memory (128 KB per 128-ray block, so one block of 4
 // warps per SM) with 63 shared-memory atomics per hit on random columns:
 // ~10x slower.
+//
+// Cache (tile order): tracer_backward_kernel<kFromCache, ...> reads, for
+// each step it visits of a live ray, the (signed gated alpha, signed
+// exclusive transmittance) pair that tracer_forward_kernel<true> wrote
+// there, and decodes it as pallas_backward.py:183-200,243-270 does: alpha
+// = |x|, the gradient gate is x > 0 (a gate failed at 0, the ALPHA_MAX
+// clamp held below 0), T_excl = |y|, the live bit is y > 0, and G = alpha
+// / max(opacity, 1e-12) in place of the exp.  The ray stops at the first
+// pair whose live bit is off, and that pair gets only the raw-T term, as
+// in the replay (the reference zeroes a stopped ray's pairs per
+// 128-candidate chunk only).  The intersection's locals that the gradient
+// chain consumes (t, u, v, n.d, w1.d, w2.d) are recomputed, and the
+// running prefix of gw * w is kept as in the replay; what the decode saves
+// is the exp, the gates and the transmittance product.  gw_total, from
+// which each pair's suffix is taken, comes from the forward's `totals`
+// (its channel sums with the decoded weights, tracer_forward.cu), so that
+// the total and the decoded prefix agree.  The cache is
+// written only at the steps the forward visits, so this kernel must visit
+// no other: the same box test (rounded alike in both translation units,
+// tracer_common.cuh), candidate 0 always, and each ray stopped where the
+// forward stopped it, by the live bit the forward wrote.  A block's stop
+// (no ray alive) may come at an earlier staging boundary here (64
+// candidates against the forward's 128), which reads less, never more.
+//
+// fast (the reference's fast_math, pallas_backward.py:127-135, its d_sh
+// contraction in one bf16 pass): colour_sums takes each d_sh product as
+// one TF32 mma.sync (operands rounded to nearest TF32) where float32
+// takes three (3xTF32).  It applies to every source: tile order replayed
+// or cached, and the exact order's sums kernel.
+
+#include <cuda_bf16.h>
 
 #include "tracer_common.cuh"
 
@@ -111,6 +145,12 @@ constexpr int kSumChunk = 64;  // candidates the sums kernel stages per round
 constexpr int kWarps = kThreads / 32;
 constexpr int kSlots = 8;      // candidates per colour contraction
 constexpr int kWalkRays = 256;  // rays per exact walk block
+constexpr int kTotalRows = 8;   // rows of the cache's (T, 8, R) totals
+
+// Where tracer_backward_kernel takes each pair's values: a replay of the
+// forward (tile order), the exact walk's (dL/dalpha, w) pairs, or the
+// forward's cached residuals (tile order).
+enum PairSource { kReplay = 0, kFromPairs = 1, kFromCache = 2 };
 
 static_assert(kSumChunk <= kThreads, "each thread stages one candidate");
 static_assert(kWalkRays % 32 == 0, "whole warps");
@@ -165,6 +205,13 @@ __device__ __forceinline__ void split_tf32(float x, unsigned& hi,
   lo = __float_as_uint(x - __uint_as_float(hi));
 }
 
+// x rounded to the nearest TF32 value, as the tensor cores read it.
+__device__ __forceinline__ unsigned to_tf32(float x) {
+  unsigned r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
 // d += a b on the tensor cores: a (16 x 8, row-major), b (8 x 8), d
 // (16 x 8), float accumulation, one warp.
 __device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
@@ -181,32 +228,49 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
 // basis (16 rows), s_x their x_ch for each slot (row ch * kSlots + slot),
 // both in lane_word order; lane p's slot_cand is slot p's candidate, and
 // slots [pending, kSlots) are ignored.  Three TF32 products per term
-// (hi hi, hi lo, lo hi: the 3xTF32 split) keep float32's accuracy.  Every
-// lane of the warp calls it.  Not inlined: its fragments would otherwise
-// share the candidate loop's registers and spill the loop's state.
+// (hi hi, hi lo, lo hi: the 3xTF32 split) keep float32's accuracy; kFast
+// takes one, of the operands rounded to TF32.  Every lane of the warp
+// calls it.  Not inlined: its fragments would otherwise share the
+// candidate loop's registers and spill the loop's state.
+template <bool kFast>
 __device__ __noinline__ void colour_sums(const float* s_basis,
-                                            const float* s_x, int pending,
-                                            int slot_cand,
-                                            float* __restrict__ grads,
-                                            long long tile, int k, int lane) {
+                                         const float* s_x, int pending,
+                                         int slot_cand,
+                                         float* __restrict__ grads,
+                                         long long tile, int k, int lane) {
   __syncwarp();
   const int grp = lane >> 2, tig = lane & 3;
   float d[3][4] = {};
 #pragma unroll
   for (int q = 0; q < 4; ++q) {  // lanes [8 q, 8 q + 8)
     const int l0 = 8 * q + tig, l1 = l0 + 4;
+    const float a[4] = {s_basis[lane_word(grp, l0)],
+                        s_basis[lane_word(grp + 8, l0)],
+                        s_basis[lane_word(grp, l1)],
+                        s_basis[lane_word(grp + 8, l1)]};
     unsigned ah[4], al[4];
-    split_tf32(s_basis[lane_word(grp, l0)], ah[0], al[0]);
-    split_tf32(s_basis[lane_word(grp + 8, l0)], ah[1], al[1]);
-    split_tf32(s_basis[lane_word(grp, l1)], ah[2], al[2]);
-    split_tf32(s_basis[lane_word(grp + 8, l1)], ah[3], al[3]);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (kFast) {
+        ah[i] = to_tf32(a[i]);
+      } else {
+        split_tf32(a[i], ah[i], al[i]);
+      }
+    }
 #pragma unroll
     for (int ch = 0; ch < 3; ++ch) {
+      const float b[2] = {s_x[lane_word(ch * kSlots + grp, l0)],
+                          s_x[lane_word(ch * kSlots + grp, l1)]};
       unsigned bh[2], bl[2];
-      split_tf32(s_x[lane_word(ch * kSlots + grp, l0)], bh[0], bl[0]);
-      split_tf32(s_x[lane_word(ch * kSlots + grp, l1)], bh[1], bl[1]);
-      mma_tf32(d[ch], al, bh);
-      mma_tf32(d[ch], ah, bl);
+      if (kFast) {
+        bh[0] = to_tf32(b[0]);
+        bh[1] = to_tf32(b[1]);
+      } else {
+        split_tf32(b[0], bh[0], bl[0]);
+        split_tf32(b[1], bh[1], bl[1]);
+        mma_tf32(d[ch], al, bh);
+        mma_tf32(d[ch], ah, bl);
+      }
       mma_tf32(d[ch], ah, bh);
     }
   }
@@ -230,14 +294,16 @@ __device__ __noinline__ void colour_sums(const float* s_basis,
 }
 
 // A ray's inputs: its direction, min range and t0, the upstream gradients
-// of its 10 channel rows, gw_total = sum_ch g_ch S_ch over the forward's
-// totals of rows 0-7, its T_out and g_9 T_raw.
+// of its 10 channel rows, gw_total = sum_ch g_ch S_ch over the totals of
+// rows 0-7 in `sums` (the forward's channels, or the cache's totals), its
+// T_out and g_9 T_raw.
 __device__ __forceinline__ void load_ray(
     long long ray_at, int rays, const float* __restrict__ dirs,
     const float* __restrict__ mind, const float* __restrict__ t0,
-    const float* __restrict__ fwd, const float* __restrict__ up, float& dx,
-    float& dy, float& dz, float& min_t, float& trans0, float (&g)[10],
-    float& gw_total, float& t_out, float& g_raw) {
+    const float* __restrict__ fwd, const float* __restrict__ sums,
+    const float* __restrict__ up, float& dx, float& dy, float& dz,
+    float& min_t, float& trans0, float (&g)[10], float& gw_total,
+    float& t_out, float& g_raw) {
   dx = dirs[ray_at * 3 + 0];
   dy = dirs[ray_at * 3 + 1];
   dz = dirs[ray_at * 3 + 2];
@@ -246,36 +312,35 @@ __device__ __forceinline__ void load_ray(
 #pragma unroll
   for (int c = 0; c < 10; ++c) g[c] = up[c * rays];
 #pragma unroll
-  for (int c = 0; c < 8; ++c) gw_total += g[c] * fwd[c * rays];
+  for (int c = 0; c < 8; ++c) gw_total += g[c] * sums[c * rays];
   t_out = fwd[8 * rays];
   g_raw = g[9] * fwd[9 * rays];
 }
 
-// Replays the forward at hit h of candidate j, in the forward's order:
-// the stop rule, the hit's weight w, dL/dalpha (0 where a gate failed or
-// the ALPHA_MAX clamp held) and the colour terms x_ch of the SH gradient,
-// which the caller zeroes; advances trans, the running prefix of gw * w,
-// and alive.
+// The terms of one pair of a ray in compositing order, from its gated
+// alpha, the transmittance before it, its live bit (the forward's T_MIN
+// test) and its gradient gate (every gate passed and the ALPHA_MAX clamp
+// off): the hit's weight w, dL/dalpha and the colour terms x_ch of the SH
+// gradient, which the caller zeroes; advances the running prefix of gw *
+// w.  A pair that is not live is the stop hit, seen by the raw-T row
+// only.
 template <typename Rows>
-__device__ __forceinline__ void replay_hit(
-    const Hit& h, Rows s_geo, Rows s_sh, int j, const float basis[16],
-    const float (&g)[10], float gw_total, float t_out, float g_raw,
-    float& trans, float& prefix, bool& alive, float& d_alpha, float& w,
-    float& x0, float& x1, float& x2) {
-  const float next = next_trans(trans, h.alpha);
-  const float one_m = fmaxf(1.0f - h.alpha, 1e-6f);
-  const bool grad_gate = h.alpha > 0.0f && h.alpha_raw < kAlphaMax;
-  if (next < kTMin) {
-    alive = false;  // the stop hit: seen by the raw-T row only
+__device__ __forceinline__ void pair_terms(
+    float alpha, float trans, bool live, bool grad_gate, float t, Rows s_geo,
+    Rows s_sh, int j, const float basis[16], const float (&g)[10],
+    float gw_total, float t_out, float g_raw, float& prefix, float& d_alpha,
+    float& w, float& x0, float& x1, float& x2) {
+  const float one_m = fmaxf(1.0f - alpha, 1e-6f);
+  if (!live) {
     if (grad_gate) d_alpha = -__fdividef(g_raw, one_m);
-  } else if (h.alpha > 0.0f) {
-    w = h.alpha * trans;
+  } else if (alpha > 0.0f) {
+    w = alpha * trans;
     float c0, c1, c2;
     shade(basis, s_sh, j, c0, c1, c2);
     const float col0 = c0 + 0.5f;
     const float sg = s_geo[kSign][j];
     const float gw = g[0] * fmaxf(col0, 0.0f) + g[1] * (c1 + 0.5f)
-                     + g[2] * (c2 + 0.5f) + g[3] * h.t + g[4]
+                     + g[2] * (c2 + 0.5f) + g[3] * t + g[4]
                      + sg * (g[5] * s_geo[kNx][j] + g[6] * s_geo[kNy][j]
                              + g[7] * s_geo[kNz][j]);
     prefix += gw * w;
@@ -287,8 +352,50 @@ __device__ __forceinline__ void replay_hit(
     x0 = col0 > 0.0f ? g[0] * w : 0.0f;
     x1 = g[1] * w;
     x2 = g[2] * w;
+  }
+}
+
+// Replays the forward at hit h of candidate j, in the forward's order:
+// the stop rule and pair_terms; advances trans and alive.
+template <typename Rows>
+__device__ __forceinline__ void replay_hit(
+    const Hit& h, Rows s_geo, Rows s_sh, int j, const float basis[16],
+    const float (&g)[10], float gw_total, float t_out, float g_raw,
+    float& trans, float& prefix, bool& alive, float& d_alpha, float& w,
+    float& x0, float& x1, float& x2) {
+  const float next = next_trans(trans, h.alpha);
+  const bool live = !(next < kTMin);
+  pair_terms(h.alpha, trans, live, h.alpha > 0.0f && h.alpha_raw < kAlphaMax,
+             h.t, s_geo, s_sh, j, basis, g, gw_total, t_out, g_raw, prefix,
+             d_alpha, w, x0, x1, x2);
+  if (!live) {
+    alive = false;
+  } else if (h.alpha > 0.0f) {
     trans = next;
   }
+}
+
+// Decodes the forward's cached residuals `res` (signed gated alpha, signed
+// exclusive transmittance) of candidate j (see "Cache" above) in place of
+// a replay: h gets the intersection's locals and G = alpha / opacity;
+// then pair_terms; clears alive at the stop.
+template <typename Rows>
+__device__ __forceinline__ void decode_hit(
+    float2 res, Rows s_geo, Rows s_sh, int j, float dx, float dy, float dz,
+    float min_t, const float basis[16], const float (&g)[10],
+    float gw_total, float t_out, float g_raw, float& prefix, bool& alive,
+    Hit& h, float& d_alpha, float& w, float& x0, float& x1, float& x2) {
+  const float alpha = fabsf(res.x);
+  const bool live = res.y > 0.0f;
+  if (alpha > 0.0f) {
+    h = intersect<false>(s_geo, j, dx, dy, dz, min_t);
+    h.alpha = alpha;
+    h.g = __fdividef(alpha, fmaxf(s_geo[kOpac][j], 1e-12f));
+  }
+  pair_terms(alpha, fabsf(res.y), live, res.x > 0.0f, h.t, s_geo, s_sh, j,
+             basis, g, gw_total, t_out, g_raw, prefix, d_alpha, w, x0, x1,
+             x2);
+  if (!live) alive = false;
 }
 
 // The chain of one pair from dL/dalpha and its weight w to the candidate's
@@ -321,18 +428,20 @@ __device__ __forceinline__ PairGrad pair_grad(Rows s_geo, int j,
   return p;
 }
 
-// The sums over rays, one thread per ray.  kFromPairs = false: tile
-// order, the walk replayed here.  kFromPairs = true: exact order, each
-// pair's (dL/dalpha, w) read from `pairs` (T, K, R), written by
-// tracer_backward_exact_kernel.  A warp visits only the candidates that
-// its cone of rays may hit (cone_misses, tested 32 candidates at a time,
-// one per lane): the others have alpha = 0 for all its rays, which the
+// The sums over rays, one thread per ray.  kSrc = kReplay: tile order,
+// the walk replayed here.  kFromPairs: exact order, each pair's
+// (dL/dalpha, w) read from `pairs` (T, K, R), written by
+// tracer_backward_exact_kernel.  kFromCache: tile order, each visited
+// pair decoded from the forward's `cache` (T, K, R).  kFast: the d_sh
+// sums in one TF32 product per term.  A warp visits only the candidates
+// that its cone of rays may hit (cone_misses, tested 32 candidates at a
+// time, one per lane): the others have alpha = 0 for all its rays, which the
 // replay would pass over without a change, except candidate 0, where a
 // ray whose t0 is already below T_MIN stops.  Of a visited candidate with
 // a pair in the warp, rows 0-14 are summed at once in each half-warp; the
 // colour terms go to the warp's next slot, and every kSlots candidates
 // colour_sums takes the d_sh rows of all of them.
-template <bool kFromPairs>
+template <int kSrc, bool kFast>
 __global__ void __launch_bounds__(kThreads, 6) tracer_backward_kernel(
     const int* __restrict__ cnt, const float* __restrict__ dirs,
     const float* __restrict__ mind, const float* __restrict__ t0,
@@ -340,8 +449,11 @@ __global__ void __launch_bounds__(kThreads, 6) tracer_backward_kernel(
     const float* __restrict__ inv_scale, const float* __restrict__ opac,
     const float* __restrict__ sign, const float* __restrict__ sh,
     const float* __restrict__ fwd_chans, const float* __restrict__ g_chans,
-    const float2* __restrict__ pairs, float* __restrict__ grads, int rays,
+    const float2* __restrict__ pairs,
+    const __nv_bfloat162* __restrict__ cache,
+    const float* __restrict__ totals, float* __restrict__ grads, int rays,
     int k) {
+  constexpr bool kPairs = kSrc == kFromPairs;
   __shared__ float s_geo[kGeo][kSumChunk];
   __shared__ float s_sh[kSh][kSumChunk];
   __shared__ float s_basis_all[kWarps][16 * 32];
@@ -367,8 +479,12 @@ __global__ void __launch_bounds__(kThreads, 6) tracer_backward_kernel(
   float gw_total = 0.0f, t_out = 0.0f, g_raw = 0.0f;
   if (has_ray) {
     const long long at = tile * kOutRows * rays + ray;
-    load_ray(ray_at, rays, dirs, mind, t0, fwd_chans + at, g_chans + at, dx,
-             dy, dz, min_t, trans0, g, gw_total, t_out, g_raw);
+    const float* sums = kSrc == kFromCache
+                            ? totals + tile * kTotalRows * rays + ray
+                            : fwd_chans + at;
+    load_ray(ray_at, rays, dirs, mind, t0, fwd_chans + at, sums,
+             g_chans + at, dx, dy, dz, min_t, trans0, g, gw_total, t_out,
+             g_raw);
   }
   float basis[16];
   sh_basis(dx, dy, dz, basis);
@@ -393,7 +509,7 @@ __global__ void __launch_bounds__(kThreads, 6) tracer_backward_kernel(
   for (int base = 0; base < count; base += kSumChunk) {
     // Barrier before shared memory is overwritten; in tile order the
     // whole block stops once none of its rays is alive.
-    if (kFromPairs) {
+    if (kPairs) {
       __syncthreads();
     } else if (!__syncthreads_or(alive)) {
       break;
@@ -402,7 +518,7 @@ __global__ void __launch_bounds__(kThreads, 6) tracer_backward_kernel(
     stage_chunk(s_geo, s_sh, tile, k, base, n, axes, plane, inv_scale, opac,
                 sign, sh);
     __syncthreads();
-    if (!kFromPairs && !__any_sync(0xffffffffu, alive)) continue;
+    if (!kPairs && !__any_sync(0xffffffffu, alive)) continue;
 
     for (int group = 0; group < n; group += 32) {
       const int mine = group + lane;
@@ -414,7 +530,7 @@ __global__ void __launch_bounds__(kThreads, 6) tracer_backward_kernel(
         todo &= todo - 1u;
         Hit h = {};
         float d_alpha = 0.0f, w = 0.0f, x0 = 0.0f, x1 = 0.0f, x2 = 0.0f;
-        if (kFromPairs) {
+        if (kPairs) {
           if (has_ray) {
             const float2 pw = pairs[(tile * k + base + j) * rays + ray];
             d_alpha = pw.x;
@@ -430,6 +546,14 @@ __global__ void __launch_bounds__(kThreads, 6) tracer_backward_kernel(
               x1 = g[1] * w;
               x2 = g[2] * w;
             }
+          }
+        } else if (kSrc == kFromCache) {
+          if (alive) {  // a step the forward wrote: see "Cache" above
+            const float2 res = __bfloat1622float2(
+                cache[(tile * k + base + j) * rays + ray]);
+            decode_hit(res, s_geo, s_sh, j, dx, dy, dz, min_t, basis, g,
+                       gw_total, t_out, g_raw, prefix, alive, h, d_alpha, w,
+                       x0, x1, x2);
           }
         } else if (alive) {
           // Replay: the same gates, stop and shading as the forward.
@@ -473,14 +597,16 @@ __global__ void __launch_bounds__(kThreads, 6) tracer_backward_kernel(
         s_x[lane_word(2 * kSlots + pending, lane)] = x2;
         if (lane == pending) slot_cand = cand;
         if (++pending == kSlots) {
-          colour_sums(s_basis, s_x, pending, slot_cand, grads, tile, k, lane);
+          colour_sums<kFast>(s_basis, s_x, pending, slot_cand, grads, tile,
+                             k, lane);
           pending = 0;
         }
       }
     }
   }
   if (pending > 0) {
-    colour_sums(s_basis, s_x, pending, slot_cand, grads, tile, k, lane);
+    colour_sums<kFast>(s_basis, s_x, pending, slot_cand, grads, tile, k,
+                       lane);
   }
 }
 
@@ -520,8 +646,9 @@ __global__ void __launch_bounds__(kWalkRays) tracer_backward_exact_kernel(
   float2* mine = pairs + tile * k * rays + ray;  // candidate j at j * rays
   if (has_ray) {
     const long long at = tile * kOutRows * rays + ray;
-    load_ray(ray_at, rays, dirs, mind, t0, fwd_chans + at, g_chans + at, dx,
-             dy, dz, min_t, trans0, g, gw_total, t_out, g_raw);
+    load_ray(ray_at, rays, dirs, mind, t0, fwd_chans + at, fwd_chans + at,
+             g_chans + at, dx, dy, dz, min_t, trans0, g, gw_total, t_out,
+             g_raw);
     // Zero this ray's pairs here, where the coalesced stores overlap the
     // walk's arithmetic: a memset of the buffer would be a pass of its own
     // over the same bytes, slower on the card (PERF.md).
@@ -562,21 +689,49 @@ int walk_smem(int k) {
   return static_cast<int>(sizeof(float)) * (kGeo + kSh) * k;
 }
 
+using SumsKernel = void (*)(const int*, const float*, const float*,
+                            const float*, const float*, const float*,
+                            const float*, const float*, const float*,
+                            const float*, const float*, const float*,
+                            const float2*, const __nv_bfloat162*,
+                            const float*, float*, int, int);
+
+// The sums kernel of a pair source and precision.
+SumsKernel sums_kernel(int src, bool fast) {
+  switch (2 * src + (fast ? 1 : 0)) {
+    case 2 * kReplay: return tracer_backward_kernel<kReplay, false>;
+    case 2 * kReplay + 1: return tracer_backward_kernel<kReplay, true>;
+    case 2 * kFromPairs: return tracer_backward_kernel<kFromPairs, false>;
+    case 2 * kFromPairs + 1: return tracer_backward_kernel<kFromPairs, true>;
+    case 2 * kFromCache: return tracer_backward_kernel<kFromCache, false>;
+    default: return tracer_backward_kernel<kFromCache, true>;
+  }
+}
+
 }  // namespace
 
 // Launches the kernels on `stream` over (tiles, rays, k), in exact order if
 // `exact` is nonzero; returns the first CUDA error of the launches.  grads
 // (tiles, 64, k) must be zero.  pairs: exact order's (tiles, k, rays)
 // float2 buffer, uninitialised (the walk writes what the sums read);
-// unused in tile order.
+// unused in tile order.  cache, totals: null (replay), or in tile order
+// the forward's (tiles, k, rays) __nv_bfloat162 residuals and (tiles, 8,
+// rays) float totals, as tracer_forward wrote them for these inputs.
+// fast: the d_sh sums in one TF32 product per term.
 extern "C" int tracer_backward(const void* cnt, const void* dirs,
                                const void* mind, const void* t0,
                                const void* axes, const void* plane,
                                const void* inv_scale, const void* opac,
                                const void* sign, const void* sh,
                                const void* fwd_chans, const void* g_chans,
-                               void* pairs, void* grads, int tiles, int rays,
-                               int k, int exact, void* stream) {
+                               void* pairs, const void* cache,
+                               const void* totals, void* grads, int tiles,
+                               int rays, int k, int exact, int fast,
+                               void* stream) {
+  if ((exact && cache != nullptr)
+      || ((cache == nullptr) != (totals == nullptr))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (tiles == 0 || rays == 0) return static_cast<int>(cudaSuccess);
   const dim3 grid((rays + kThreads - 1) / kThreads, tiles);
   const auto s = static_cast<cudaStream_t>(stream);
@@ -593,6 +748,8 @@ extern "C" int tracer_backward(const void* cnt, const void* dirs,
   const auto fc = static_cast<const float*>(fwd_chans);
   const auto gc = static_cast<const float*>(g_chans);
   const auto pr = static_cast<float2*>(pairs);
+  const auto cc = static_cast<const __nv_bfloat162*>(cache);
+  const auto tt = static_cast<const float*>(totals);
   const auto gr = static_cast<float*>(grads);
   if (exact) {
     const int smem = walk_smem(k);
@@ -605,18 +762,23 @@ extern "C" int tracer_backward(const void* cnt, const void* dirs,
         c, d, md, tr, ax, pl, is, op, sg, shc, fc, gc, pr, rays, k);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    tracer_backward_kernel<true><<<grid, kThreads, 0, s>>>(
-        c, d, md, tr, ax, pl, is, op, sg, shc, fc, gc, pr, gr, rays, k);
+    const SumsKernel sums = sums_kernel(kFromPairs, fast != 0);
+    sums<<<grid, kThreads, 0, s>>>(c, d, md, tr, ax, pl, is, op, sg, shc, fc,
+                                   gc, pr, nullptr, nullptr, gr, rays, k);
   } else {
-    tracer_backward_kernel<false><<<grid, kThreads, 0, s>>>(
-        c, d, md, tr, ax, pl, is, op, sg, shc, fc, gc, nullptr, gr, rays, k);
+    const SumsKernel sums =
+        sums_kernel(cc != nullptr ? kFromCache : kReplay, fast != 0);
+    sums<<<grid, kThreads, 0, s>>>(c, d, md, tr, ax, pl, is, op, sg, shc, fc,
+                                   gc, nullptr, cc, tt, gr, rays, k);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 // Resident blocks per SM (out[0]) and threads per block (out[1]) of device
 // kernel `which` at k candidates per tile: 0 the tile-order kernel, 1 the
-// exact walk, 2 the exact sums.  Returns the first CUDA error.
+// exact walk, 2 the exact sums, 3 the tile-order kernel decoding the cache
+// with fast sums, 4 the exact sums fast, 5 tile order fast, 6 the cache
+// decode at 3xTF32.  Returns the first CUDA error.
 extern "C" int tracer_backward_occupancy(int which, int k, int* out) {
   int blocks = 0;
   cudaError_t err;
@@ -631,11 +793,14 @@ extern "C" int tracer_backward_occupancy(int which, int k, int* out) {
     }
     out[1] = kWalkRays;
   } else {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks,
-        which == 0 ? tracer_backward_kernel<false>
-                   : tracer_backward_kernel<true>,
-        kThreads, 0);
+    const int src[] = {kReplay, 0, kFromPairs, kFromCache, kFromPairs,
+                       kReplay, kFromCache};
+    const bool fast[] = {false, false, false, true, true, true, false};
+    err = cudaErrorInvalidValue;
+    if (which >= 0 && which < 7) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, sums_kernel(src[which], fast[which]), kThreads, 0);
+    }
     out[1] = kThreads;
   }
   out[0] = blocks;

@@ -11,7 +11,10 @@
 // the functions below, and every operation whose rounding decides a gate
 // is written with an explicitly rounded intrinsic (__fmul_rn, __fadd_rn,
 // __fsub_rn, __fmaf_rn), so the compiler cannot contract it differently
-// in the two translation units.  t = p / (n.d) amplifies rounding at
+// in the two translation units.  The box test is written the same way:
+// the forward's cache of per-pair residuals holds only the (warp,
+// candidate) steps its walk visits, and the backward that decodes it must
+// visit exactly those.  t = p / (n.d) amplifies rounding at
 // grazing incidence: the same explicit forms keep the kernels within
 // rounding of the plain PyTorch twins.  The intersection, the box test
 // and the shading read a candidate through an accessor (RowCand and RowSh
@@ -135,8 +138,11 @@ struct RowStage {
 };
 
 // The intersection and gates of lidar_rt_tpu/ops/geometry.py for one
-// candidate (back() only where t >= min_t).
-template <typename Cand>
+// candidate (back() only where t >= min_t).  kGates = false stops at the
+// splat coordinates: no exp, g = alpha = alpha_raw = 0 (the cached
+// backward decodes the gates and alpha from the forward's residuals, and
+// needs only the locals of the gradient chain).
+template <bool kGates = true, typename Cand>
 __device__ __forceinline__ Hit intersect_cand(const Cand& cand, float dx,
                                               float dy, float dz,
                                               float min_t) {
@@ -151,20 +157,22 @@ __device__ __forceinline__ Hit intersect_cand(const Cand& cand, float dx,
       h.bv = dot3_rn(dx, dy, dz, b.w2.x, b.w2.y, b.w2.z);
       h.u = __fmul_rn(__fadd_rn(b.w1.w, __fmul_rn(h.t, h.bu)), b.m.x);
       h.v = __fmul_rn(__fadd_rn(b.w2.w, __fmul_rn(h.t, h.bv)), b.m.y);
-      h.g = expf(__fmul_rn(-0.5f, __fadd_rn(__fmul_rn(h.u, h.u),
-                                            __fmul_rn(h.v, h.v))));
-      h.alpha_raw = fminf(kAlphaMax, __fmul_rn(b.m.z, h.g));
-      if (h.alpha_raw >= kAlphaMin) h.alpha = h.alpha_raw;
+      if (kGates) {
+        h.g = expf(__fmul_rn(-0.5f, __fadd_rn(__fmul_rn(h.u, h.u),
+                                              __fmul_rn(h.v, h.v))));
+        h.alpha_raw = fminf(kAlphaMax, __fmul_rn(b.m.z, h.g));
+        if (h.alpha_raw >= kAlphaMin) h.alpha = h.alpha_raw;
+      }
     }
   }
   return h;
 }
 
 // The same for candidate j of the staged rows s_geo (kGeo rows).
-template <typename Rows>
+template <bool kGates = true, typename Rows>
 __device__ __forceinline__ Hit intersect(Rows s_geo, int j, float dx,
                                          float dy, float dz, float min_t) {
-  return intersect_cand(RowCand<Rows>{s_geo, j}, dx, dy, dz, min_t);
+  return intersect_cand<kGates>(RowCand<Rows>{s_geo, j}, dx, dy, dz, min_t);
 }
 
 // Transmittance after a hit: T * (1 - alpha).  A ray stops at the first
@@ -303,42 +311,48 @@ __device__ __forceinline__ float warp_all_max(float v) {
   return v;
 }
 
+// The box test's arithmetic below is rounded explicitly throughout
+// (__fmul_rn, __fadd_rn, __fsub_rn; the fast division, log and reciprocal
+// square root are fixed instruction sequences), so every kernel that
+// includes it skips the same steps: see the file comment.
+
 __device__ __forceinline__ float dot3(const float (&a)[3], float x, float y,
                                       float z) {
-  return a[0] * x + a[1] * y + a[2] * z;
+  return dot3_rn(a[0], a[1], a[2], x, y, z);
 }
 
 __device__ __forceinline__ Cone warp_cone(float dx, float dy, float dz,
                                           bool has) {
   const float inv =
-      has ? rsqrtf(fmaxf(dx * dx + dy * dy + dz * dz, 1e-24f)) : 0.0f;
-  const float ux = dx * inv, uy = dy * inv, uz = dz * inv;
+      has ? rsqrtf(fmaxf(dot3_rn(dx, dy, dz, dx, dy, dz), 1e-24f)) : 0.0f;
+  const float ux = __fmul_rn(dx, inv), uy = __fmul_rn(dy, inv);
+  const float uz = __fmul_rn(dz, inv);
   Cone b;
   float cx = warp_all_sum(ux), cy = warp_all_sum(uy), cz = warp_all_sum(uz);
-  const float norm2 = cx * cx + cy * cy + cz * cz;
+  const float norm2 = dot3_rn(cx, cy, cz, cx, cy, cz);
   if (!(norm2 > 1e-12f)) {
     b.c_min = -CUDART_INF_F;
     return b;
   }
   const float cinv = rsqrtf(norm2);
-  b.c[0] = cx * cinv;
-  b.c[1] = cy * cinv;
-  b.c[2] = cz * cinv;
+  b.c[0] = __fmul_rn(cx, cinv);
+  b.c[1] = __fmul_rn(cy, cinv);
+  b.c[2] = __fmul_rn(cz, cinv);
   // e1: the spread from the first ray to the last, made orthogonal to c;
   // any unit vector orthogonal to c where that vanishes.
   const int last = 31 - __clz(__ballot_sync(0xffffffffu, has));
   const int first = __ffs(__ballot_sync(0xffffffffu, has)) - 1;
-  float sx = __shfl_sync(0xffffffffu, ux, last)
-             - __shfl_sync(0xffffffffu, ux, first);
-  float sy = __shfl_sync(0xffffffffu, uy, last)
-             - __shfl_sync(0xffffffffu, uy, first);
-  float sz = __shfl_sync(0xffffffffu, uz, last)
-             - __shfl_sync(0xffffffffu, uz, first);
-  float along = dot3(b.c, sx, sy, sz);
-  sx -= along * b.c[0];
-  sy -= along * b.c[1];
-  sz -= along * b.c[2];
-  float s2 = sx * sx + sy * sy + sz * sz;
+  float sx = __fsub_rn(__shfl_sync(0xffffffffu, ux, last),
+                       __shfl_sync(0xffffffffu, ux, first));
+  float sy = __fsub_rn(__shfl_sync(0xffffffffu, uy, last),
+                       __shfl_sync(0xffffffffu, uy, first));
+  float sz = __fsub_rn(__shfl_sync(0xffffffffu, uz, last),
+                       __shfl_sync(0xffffffffu, uz, first));
+  const float along = dot3(b.c, sx, sy, sz);
+  sx = __fsub_rn(sx, __fmul_rn(along, b.c[0]));
+  sy = __fsub_rn(sy, __fmul_rn(along, b.c[1]));
+  sz = __fsub_rn(sz, __fmul_rn(along, b.c[2]));
+  float s2 = dot3_rn(sx, sy, sz, sx, sy, sz);
   if (!(s2 > 1e-20f)) {  // c crossed with the axis it is least along
     const bool use_x = fabsf(b.c[0]) <= fabsf(b.c[1])
                        && fabsf(b.c[0]) <= fabsf(b.c[2]);
@@ -346,23 +360,23 @@ __device__ __forceinline__ Cone warp_cone(float dx, float dy, float dz,
     sx = use_x ? 0.0f : (use_y ? b.c[2] : -b.c[1]);
     sy = use_x ? -b.c[2] : (use_y ? 0.0f : b.c[0]);
     sz = use_x ? b.c[1] : (use_y ? -b.c[0] : 0.0f);
-    s2 = sx * sx + sy * sy + sz * sz;
+    s2 = dot3_rn(sx, sy, sz, sx, sy, sz);
   }
   const float sinv = rsqrtf(s2);
-  b.e1[0] = sx * sinv;
-  b.e1[1] = sy * sinv;
-  b.e1[2] = sz * sinv;
-  b.e2[0] = b.c[1] * b.e1[2] - b.c[2] * b.e1[1];
-  b.e2[1] = b.c[2] * b.e1[0] - b.c[0] * b.e1[2];
-  b.e2[2] = b.c[0] * b.e1[1] - b.c[1] * b.e1[0];
+  b.e1[0] = __fmul_rn(sx, sinv);
+  b.e1[1] = __fmul_rn(sy, sinv);
+  b.e1[2] = __fmul_rn(sz, sinv);
+  b.e2[0] = __fsub_rn(__fmul_rn(b.c[1], b.e1[2]), __fmul_rn(b.c[2], b.e1[1]));
+  b.e2[1] = __fsub_rn(__fmul_rn(b.c[2], b.e1[0]), __fmul_rn(b.c[0], b.e1[2]));
+  b.e2[2] = __fsub_rn(__fmul_rn(b.c[0], b.e1[1]), __fmul_rn(b.c[1], b.e1[0]));
   // The box's extent over the rays, widened for the rounding of the
   // normalisations and of this frame.
   const float cd = has ? dot3(b.c, ux, uy, uz) : CUDART_INF_F;
   const float a1 = has ? fabsf(dot3(b.e1, ux, uy, uz)) : 0.0f;
   const float a2 = has ? fabsf(dot3(b.e2, ux, uy, uz)) : 0.0f;
-  b.c_min = -warp_all_max(-cd) - 1e-5f;
-  b.a1 = warp_all_max(a1) * 1.001f + 1e-5f;
-  b.a2 = warp_all_max(a2) * 1.001f + 1e-5f;
+  b.c_min = __fsub_rn(-warp_all_max(-cd), 1e-5f);
+  b.a1 = __fadd_rn(__fmul_rn(warp_all_max(a1), 1.001f), 1e-5f);
+  b.a2 = __fadd_rn(__fmul_rn(warp_all_max(a2), 1.001f), 1e-5f);
   return b;
 }
 
@@ -391,38 +405,58 @@ __device__ __forceinline__ bool cone_misses_cand(const Cand& cand,
   const float is0 = g.m.x, is1 = g.m.y, opacity = g.m.z;
   // alpha_raw = opacity * G rounds to at most opacity, as G <= 1.
   if (opacity < kAlphaMin) return true;
-  const float ux = is0 * (au * nx + p * w1x);
-  const float uy = is0 * (au * ny + p * w1y);
-  const float uz = is0 * (au * nz + p * w1z);
-  const float vx = is1 * (av * nx + p * w2x);
-  const float vy = is1 * (av * ny + p * w2y);
-  const float vz = is1 * (av * nz + p * w2z);
-  const float n_len = sqrtf(nx * nx + ny * ny + nz * nz);
+  const float ux =
+      __fmul_rn(is0, __fadd_rn(__fmul_rn(au, nx), __fmul_rn(p, w1x)));
+  const float uy =
+      __fmul_rn(is0, __fadd_rn(__fmul_rn(au, ny), __fmul_rn(p, w1y)));
+  const float uz =
+      __fmul_rn(is0, __fadd_rn(__fmul_rn(au, nz), __fmul_rn(p, w1z)));
+  const float vx =
+      __fmul_rn(is1, __fadd_rn(__fmul_rn(av, nx), __fmul_rn(p, w2x)));
+  const float vy =
+      __fmul_rn(is1, __fadd_rn(__fmul_rn(av, ny), __fmul_rn(p, w2y)));
+  const float vz =
+      __fmul_rn(is1, __fadd_rn(__fmul_rn(av, nz), __fmul_rn(p, w2z)));
+  const float n_len = sqrtf(dot3_rn(nx, ny, nz, nx, ny, nz));
   const float n_c = fabsf(dot3(b.c, nx, ny, nz));
-  const float n_side = b.a1 * fabsf(dot3(b.e1, nx, ny, nz))
-                       + b.a2 * fabsf(dot3(b.e2, nx, ny, nz));
-  const float qd_lo = b.c_min * n_c - n_side;  // least |n.d| in the box
+  const float n_side =
+      __fadd_rn(__fmul_rn(b.a1, fabsf(dot3(b.e1, nx, ny, nz))),
+                __fmul_rn(b.a2, fabsf(dot3(b.e2, nx, ny, nz))));
+  // The least |n.d| over the warp's box.
+  const float qd_lo = __fsub_rn(__fmul_rn(b.c_min, n_c), n_side);
   if (!(qd_lo > 0.0f)) return false;
-  const float inv_hi = __fdividef(1.0f, n_c + n_side);
-  const float amp = __fdividef(1.0f + __fdividef(n_len, qd_lo), qd_lo);
-  const float slack_u = 1e-4f * fabsf(is0) * amp
-      * (fabsf(au) * n_len + fabsf(p) * sqrtf(w1x * w1x + w1y * w1y
-                                              + w1z * w1z));
-  const float slack_v = 1e-4f * fabsf(is1) * amp
-      * (fabsf(av) * n_len + fabsf(p) * sqrtf(w2x * w2x + w2y * w2y
-                                              + w2z * w2z));
+  const float inv_hi = __fdividef(1.0f, __fadd_rn(n_c, n_side));
+  const float amp =
+      __fdividef(__fadd_rn(1.0f, __fdividef(n_len, qd_lo)), qd_lo);
+  const float slack_u = __fmul_rn(
+      __fmul_rn(__fmul_rn(1e-4f, fabsf(is0)), amp),
+      __fadd_rn(__fmul_rn(fabsf(au), n_len),
+                __fmul_rn(fabsf(p),
+                          sqrtf(dot3_rn(w1x, w1y, w1z, w1x, w1y, w1z)))));
+  const float slack_v = __fmul_rn(
+      __fmul_rn(__fmul_rn(1e-4f, fabsf(is1)), amp),
+      __fadd_rn(__fmul_rn(fabsf(av), n_len),
+                __fmul_rn(fabsf(p),
+                          sqrtf(dot3_rn(w2x, w2y, w2z, w2x, w2y, w2z)))));
   const float u_lo = fmaxf(
-      (b.c_min * fabsf(dot3(b.c, ux, uy, uz))
-       - b.a1 * fabsf(dot3(b.e1, ux, uy, uz))
-       - b.a2 * fabsf(dot3(b.e2, ux, uy, uz))) * inv_hi - slack_u,
+      __fsub_rn(__fmul_rn(__fsub_rn(
+                    __fsub_rn(__fmul_rn(b.c_min, fabsf(dot3(b.c, ux, uy, uz))),
+                              __fmul_rn(b.a1, fabsf(dot3(b.e1, ux, uy, uz)))),
+                    __fmul_rn(b.a2, fabsf(dot3(b.e2, ux, uy, uz)))),
+                          inv_hi),
+                slack_u),
       0.0f);
   const float v_lo = fmaxf(
-      (b.c_min * fabsf(dot3(b.c, vx, vy, vz))
-       - b.a1 * fabsf(dot3(b.e1, vx, vy, vz))
-       - b.a2 * fabsf(dot3(b.e2, vx, vy, vz))) * inv_hi - slack_v,
+      __fsub_rn(__fmul_rn(__fsub_rn(
+                    __fsub_rn(__fmul_rn(b.c_min, fabsf(dot3(b.c, vx, vy, vz))),
+                              __fmul_rn(b.a1, fabsf(dot3(b.e1, vx, vy, vz)))),
+                    __fmul_rn(b.a2, fabsf(dot3(b.e2, vx, vy, vz)))),
+                          inv_hi),
+                slack_v),
       0.0f);
-  const float r2 = 2.0f * __logf(__fdividef(opacity, kAlphaMin));
-  return u_lo * u_lo + v_lo * v_lo > 1.05f * r2 + 0.05f;
+  const float r2 = __fmul_rn(2.0f, __logf(__fdividef(opacity, kAlphaMin)));
+  return __fadd_rn(__fmul_rn(u_lo, u_lo), __fmul_rn(v_lo, v_lo)) >
+         __fadd_rn(__fmul_rn(1.05f, r2), 0.05f);
 }
 
 template <typename Rows>

@@ -79,6 +79,33 @@
 // through it, and the 16-entry buffer spills a little, which costs less
 // than the rescans of a smaller one.  The stop rule, row 8 and the
 // partial row 9 are the tile order's.
+//
+// Cache mode (tile order only; the reference's cache_fwd,
+// pallas_tracer.py:286-296): tracer_forward_kernel<true> also writes, for
+// every (ray, candidate) step its walk visits while the ray is alive (the
+// step that stops the ray included), the two backward residuals the
+// reference banks, as one __nv_bfloat162 (x, y) of a (T, K, R) array:
+// x the gated alpha, negative where the ALPHA_MAX clamp held and zero
+// where a gate failed; y the exclusive transmittance, negative where the
+// float32 T_MIN live test failed (the stop).  Both are rounded to
+// nearest, as astype(bfloat16) rounds.  Laid out (T, K, R), a visited step
+// is one coalesced 128-byte store across the warp (the reference's (T, R,
+// K) suits the TPU's lanes).  Steps the walk skips are never written: the
+// cached backward (tracer_backward.cu) visits the same steps, through the
+// same box test and the same stop, and reads only those.  With the cache
+// the kernel also sums rows 0-7 of the channels a second time, with each
+// hit's weight as the backward decodes it (the bf16 alpha times the bf16
+// transmittance), into a (T, 8, R) `totals` array: the backward forms each
+// pair's suffix A_j = gw_total - (prefix of gw w through j) from these,
+// so that its decoded prefix and its total agree (the reference takes
+// gw_total from the float32 channels, and their gap, about 2^-9 gw_total,
+// reaches dL/dalpha divided by 1 - alpha).  The channels and accum are
+// the same bits with or without the cache.  The reference's
+// fast_math relaxes its channel contractions to one bf16 pass; here the
+// channel sums are each thread's own float32 FMAs, with no contraction
+// to relax, so fast_math leaves the forward as it is.
+
+#include <cuda_bf16.h>
 
 #include "tracer_common.cuh"
 
@@ -90,6 +117,7 @@ constexpr int kChunk = 128;      // candidates staged per round (<= kThreads)
 constexpr int kWarps = kThreads / 32;
 constexpr int kExactRays = 256;  // rays per exact-order block
 constexpr int kExactWarps = kExactRays / 32;
+constexpr int kTotalRows = 8;    // rows of the cache's (T, 8, R) totals
 
 static_assert(kChunk <= kThreads && kChunk % 32 == 0,
               "each thread stages at most one candidate; whole groups");
@@ -176,13 +204,50 @@ __device__ __forceinline__ void store_channels(
   for (int r = 10; r < kOutRows; ++r) out[r * rays] = 0.0f;
 }
 
+// The channel sums of rows 0-7 (store_channels' first eight rows).
+struct ChannelSums {
+  float c0 = 0.0f, c1 = 0.0f, c2 = 0.0f, t = 0.0f, w = 0.0f;
+  float n0 = 0.0f, n1 = 0.0f, n2 = 0.0f;
+  __device__ __forceinline__ void add(float wt, float col0, float col1,
+                                      float col2, float depth, float sgn,
+                                      float3 nv) {
+    const float sw = wt * sgn;
+    c0 += wt * fmaxf(col0 + 0.5f, 0.0f);
+    c1 += wt * col1;
+    c2 += wt * col2;
+    t += wt * depth;
+    w += wt;
+    n0 += sw * nv.x;
+    n1 += sw * nv.y;
+    n2 += sw * nv.z;
+  }
+  // Rows 0-7 of the (T, rows, R) output `out` of one ray.
+  __device__ __forceinline__ void store(float* __restrict__ out,
+                                        int rays) const {
+    out[0 * rays] = c0;
+    out[1 * rays] = c1 + 0.5f * w;
+    out[2 * rays] = c2 + 0.5f * w;
+    out[3 * rays] = t;
+    out[4 * rays] = w;
+    out[5 * rays] = n0;
+    out[6 * rays] = n1;
+    out[7 * rays] = n2;
+  }
+};
+
+// kCache: also write the backward's residuals to `cache` (T, K, R) and
+// the decoded weights' channel sums to `totals` (T, 8, R), see the file
+// comment.
+template <bool kCache>
 __global__ void __launch_bounds__(kThreads, 6) tracer_forward_kernel(
     const int* __restrict__ cnt, const float* __restrict__ dirs,
     const float* __restrict__ mind, const float* __restrict__ t0,
     const float* __restrict__ axes, const float* __restrict__ plane,
     const float* __restrict__ inv_scale, const float* __restrict__ opac,
     const float* __restrict__ sign, const float* __restrict__ sh,
-    float* __restrict__ chans, float* __restrict__ accum, int rays, int k) {
+    float* __restrict__ chans, float* __restrict__ accum,
+    __nv_bfloat162* __restrict__ cache, float* __restrict__ totals, int rays,
+    int k) {
   __shared__ float4 s_cand[kChunk * kQuads];
   // Each warp's box, kept in shared memory: it is read once per 32
   // candidates, and registers are what limits this kernel's occupancy.
@@ -218,6 +283,7 @@ __global__ void __launch_bounds__(kThreads, 6) tracer_forward_kernel(
   bool alive = has_ray;
   float acc_c0 = 0.0f, acc_c1 = 0.0f, acc_c2 = 0.0f, acc_t = 0.0f;
   float acc_w = 0.0f, acc_n0 = 0.0f, acc_n1 = 0.0f, acc_n2 = 0.0f;
+  ChannelSums decoded;  // kCache: the sums with the decoded weights
 
   const int count = min(max(cnt[tile], 0), k);
   for (int base = 0; base < count; base += kChunk) {
@@ -249,6 +315,13 @@ __global__ void __launch_bounds__(kThreads, 6) tracer_forward_kernel(
           const QuadCand cand = quad_cand(s_cand, j);
           const Hit h = intersect_cand(cand, dx, dy, dz, min_t);
           const float next = next_trans(trans, h.alpha);
+          __nv_bfloat162 res;
+          if (kCache) {
+            const bool clamped = h.alpha > 0.0f && h.alpha_raw >= kAlphaMax;
+            res = __floats2bfloat162_rn(clamped ? -h.alpha : h.alpha,
+                                        next < kTMin ? -trans : trans);
+            cache[(tile * k + base + j) * rays + ray] = res;
+          }
           if (next < kTMin) {
             alive = false;  // the live prefix ends before this hit
             trans = next;
@@ -267,6 +340,11 @@ __global__ void __launch_bounds__(kThreads, 6) tracer_forward_kernel(
             acc_n0 += sw * nv.x;
             acc_n1 += sw * nv.y;
             acc_n2 += sw * nv.z;
+            if (kCache) {  // the weight as the backward decodes it
+              const float2 d = __bfloat1622float2(res);
+              decoded.add(fabsf(d.x) * d.y, c0, c1, c2, h.t, cand.quad(3).w,
+                          nv);
+            }
           }
         }
         if (__any_sync(0xffffffffu, w != 0.0f)) {
@@ -282,6 +360,7 @@ __global__ void __launch_bounds__(kThreads, 6) tracer_forward_kernel(
     store_channels(chans + tile * kOutRows * rays + ray, rays, acc_c0,
                    acc_c1, acc_c2, acc_t, acc_w, acc_n0, acc_n1, acc_n2,
                    trans0, trans);
+    if (kCache) decoded.store(totals + tile * kTotalRows * rays + ray, rays);
   }
 }
 
@@ -412,13 +491,21 @@ int exact_smem(int k) {
 // Launches the kernel on `stream` over (tiles, rays, k), in exact order if
 // `exact` is nonzero; returns the first CUDA error of the launch.  chans
 // (tiles, 16, rays) need not be initialised; accum (tiles, k) must be zero.
+// cache: null, or the (tiles, k, rays) __nv_bfloat162 residuals to write
+// (tile order only), uninitialised: only the visited steps are written;
+// totals then the (tiles, 8, rays) float decoded sums, uninitialised.
 extern "C" int tracer_forward(const void* cnt, const void* dirs,
                               const void* mind, const void* t0,
                               const void* axes, const void* plane,
                               const void* inv_scale, const void* opac,
                               const void* sign, const void* sh, void* chans,
-                              void* accum, int tiles, int rays, int k,
-                              int exact, void* stream) {
+                              void* accum, void* cache, void* totals,
+                              int tiles, int rays, int k, int exact,
+                              void* stream) {
+  if ((exact && cache != nullptr)
+      || ((cache == nullptr) != (totals == nullptr))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (tiles == 0 || rays == 0) return static_cast<int>(cudaSuccess);
   const auto s = static_cast<cudaStream_t>(stream);
   const auto c = static_cast<const int*>(cnt);
@@ -444,15 +531,23 @@ extern "C" int tracer_forward(const void* cnt, const void* dirs,
         c, d, md, tr, ax, pl, is, op, sg, shc, ch, ac, rays, k);
   } else {
     const dim3 grid((rays + kThreads - 1) / kThreads, tiles);
-    tracer_forward_kernel<<<grid, kThreads, 0, s>>>(
-        c, d, md, tr, ax, pl, is, op, sg, shc, ch, ac, rays, k);
+    const auto cc = static_cast<__nv_bfloat162*>(cache);
+    if (cc != nullptr) {
+      tracer_forward_kernel<true><<<grid, kThreads, 0, s>>>(
+          c, d, md, tr, ax, pl, is, op, sg, shc, ch, ac, cc,
+          static_cast<float*>(totals), rays, k);
+    } else {
+      tracer_forward_kernel<false><<<grid, kThreads, 0, s>>>(
+          c, d, md, tr, ax, pl, is, op, sg, shc, ch, ac, nullptr, nullptr,
+          rays, k);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 // Resident blocks per SM (out[0]) and threads per block (out[1]) of device
-// kernel `which` at k candidates per tile: 0 tile order, 1 exact order.
-// Returns the first CUDA error.
+// kernel `which` at k candidates per tile: 0 tile order, 1 exact order, 2
+// tile order writing the cache.  Returns the first CUDA error.
 extern "C" int tracer_forward_occupancy(int which, int k, int* out) {
   int blocks = 0;
   cudaError_t err;
@@ -468,7 +563,9 @@ extern "C" int tracer_forward_occupancy(int which, int k, int* out) {
     out[1] = kExactRays;
   } else {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, tracer_forward_kernel, kThreads, 0);
+        &blocks,
+        which == 2 ? tracer_forward_kernel<true> : tracer_forward_kernel<false>,
+        kThreads, 0);
     out[1] = kThreads;
   }
   out[0] = blocks;

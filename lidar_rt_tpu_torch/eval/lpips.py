@@ -6,12 +6,20 @@ conv features after each ReLU, unit-normalised over channels, squared
 differences, 1x1 "lin" weights, spatial mean, summed over the five stages.
 
 Pretrained weights are not in the repository.  `make_lpips_fn` reads them
-from the two `.pth` state dicts named by `$LIDAR_RT_LPIPS_WEIGHTS` (or its
-argument), joined by the path separator (`alexnet.pth:alex.pth` on Linux):
-the torchvision AlexNet state dict (`features.{0,3,6,8,10}.weight/bias`)
-and the LPIPS v0.1 lin heads (`{i}.1.weight` or `lin{i}.model.1.weight`),
-loaded as they are (the reference converts them to an `.npz` first).
-Without them it returns None, and eval reports the metric as unavailable.
+from `$LIDAR_RT_LPIPS_WEIGHTS` (or its argument) in either of two forms:
+
+- one path ending in `.npz`, the reference's file
+  (lidar_rt_tpu/eval/lpips.py:10-21): conv{i}_w (O, I, kh, kw), conv{i}_b
+  (O,) and lin{i}_w (1, C_i, 1, 1) for i in 0..4, as
+  `convert_torch_checkpoints` (or `python -m lidar_rt_tpu_torch.eval.lpips
+  alexnet.pth alex.pth lpips.npz`) writes it;
+- the two `.pth` state dicts joined by the path separator
+  (`alexnet.pth:alex.pth` on Linux): the torchvision AlexNet state dict
+  (`features.{0,3,6,8,10}.weight/bias`) and the LPIPS v0.1 lin heads
+  (`{i}.1.weight` or `lin{i}.model.1.weight`), loaded as they are.
+
+Without them (or where the files named are missing) it returns None, and
+eval reports the metric as unavailable.
 
 Inputs follow the reference's call (eval.py:300-304,328-332): clamped,
 unscaled images with `normalize=True`, i.e. the net sees 2x - 1, and a
@@ -20,6 +28,7 @@ single-channel range or intensity image is repeated over 3 channels.
 
 from __future__ import annotations
 
+import argparse
 import os
 
 import numpy as np
@@ -135,21 +144,48 @@ def load_state(model: LPIPS, alexnet_state: dict, lin_state: dict) -> LPIPS:
     return model
 
 
+def _reference_state(arrays) -> tuple[dict, dict]:
+    """The reference's `.npz` arrays as the two state dicts that
+    `load_state` takes."""
+    alexnet, lins = {}, {}
+    for i, idx in enumerate(FEATURE_INDEX):
+        alexnet[f"features.{idx}.weight"] = arrays[f"conv{i}_w"]
+        alexnet[f"features.{idx}.bias"] = arrays[f"conv{i}_b"]
+        lins[f"{i}.1.weight"] = arrays[f"lin{i}_w"]
+    return alexnet, lins
+
+
+def _load_weights(spec: str, device) -> LPIPS | None:
+    """An LPIPS module on `device` from a weights spec (see the module
+    docstring), or None where it names no existing file(s)."""
+    if spec.endswith(".npz"):
+        if not os.path.exists(spec):
+            return None
+        with np.load(spec, allow_pickle=False) as z:
+            alexnet, lins = _reference_state({k: np.array(z[k])
+                                              for k in z.files})
+        return load_state(new_lpips(device), alexnet, lins)
+    paths = spec.split(os.pathsep) if spec else []
+    if len(paths) != 2 or not all(os.path.exists(p) for p in paths):
+        return None
+    alexnet, lins = (torch.load(p, map_location="cpu", weights_only=True)
+                     for p in paths)
+    return load_state(new_lpips(device), alexnet, lins)
+
+
 def make_lpips_fn(model: LPIPS | None = None, weights: str | None = None,
                   device: str | torch.device = "cuda"):
     """-> callable(pred (H, W), gt (H, W)) -> float, or None without
     weights.  Resolution order: `model` > `weights` >
-    $LIDAR_RT_LPIPS_WEIGHTS ("alexnet.pth<pathsep>alex.pth").  The images
-    are numpy arrays or tensors; the network runs on `device` (the card
-    unless the caller names another) or on the given model's device."""
+    $LIDAR_RT_LPIPS_WEIGHTS ("lpips.npz" or
+    "alexnet.pth<pathsep>alex.pth").  The images are numpy arrays or
+    tensors; the network runs on `device` (the card unless the caller
+    names another) or on the given model's device."""
     if model is None:
-        spec = weights or os.environ.get(ENV_VAR, "")
-        paths = spec.split(os.pathsep) if spec else []
-        if len(paths) != 2 or not all(os.path.exists(p) for p in paths):
+        model = _load_weights(weights or os.environ.get(ENV_VAR, ""),
+                              device)
+        if model is None:
             return None
-        alexnet, lins = (torch.load(p, map_location="cpu", weights_only=True)
-                         for p in paths)
-        model = load_state(new_lpips(device), alexnet, lins)
     model.eval()
     dev = next(model.parameters()).device
 
@@ -162,3 +198,60 @@ def make_lpips_fn(model: LPIPS | None = None, weights: str | None = None,
             return float(model(prep(pred), prep(gt))[0])
 
     return fn
+
+
+def _numpy(x) -> np.ndarray:
+    return (x.detach().cpu().numpy() if isinstance(x, torch.Tensor)
+            else np.asarray(x))
+
+
+def convert_torch_checkpoints(alexnet_state: dict, lin_state: dict,
+                              out_path: str) -> None:
+    """Write the reference's `.npz` (see the module docstring) from
+    torchvision's AlexNet state dict (features.{0,3,6,8,10}) and the LPIPS
+    v0.1 lin heads ({i}.1.weight, or lin{i}.model.1.weight); either may be
+    a checkpoint with a "state_dict" entry."""
+    alexnet_state = alexnet_state.get("state_dict", alexnet_state)
+    lin_state = lin_state.get("state_dict", lin_state)
+    arrays = {}
+    for i, idx in enumerate(FEATURE_INDEX):
+        arrays[f"conv{i}_w"] = _numpy(alexnet_state[f"features.{idx}.weight"])
+        arrays[f"conv{i}_b"] = _numpy(alexnet_state[f"features.{idx}.bias"])
+        key = f"{i}.1.weight" if f"{i}.1.weight" in lin_state \
+            else f"lin{i}.model.1.weight"
+        arrays[f"lin{i}_w"] = _numpy(lin_state[key])
+    np.savez(out_path, **arrays)
+
+
+def main(argv: list[str] | None = None) -> None:
+    """Write the LPIPS weights file from the two torch checkpoints:
+
+        python -m lidar_rt_tpu_torch.eval.lpips alexnet.pth alex.pth \
+            lpips.npz [--device cuda]
+
+    `alexnet.pth` is torchvision's AlexNet (ImageNet) state dict,
+    `alex.pth` the LPIPS v0.1 lin heads; then
+    `export LIDAR_RT_LPIPS_WEIGHTS=.../lpips.npz`.  Prints a self-check
+    LPIPS value, computed on --device (the card by default), so that a bad
+    file fails here rather than as unavailable columns at eval time."""
+    p = argparse.ArgumentParser(description=main.__doc__.split("\n")[0])
+    p.add_argument("alexnet_pth")
+    p.add_argument("lin_pth")
+    p.add_argument("out_npz")
+    p.add_argument("--device", default="cuda")
+    ns = p.parse_args(argv)
+    convert_torch_checkpoints(
+        *(torch.load(path, map_location="cpu", weights_only=True)
+          for path in (ns.alexnet_pth, ns.lin_pth)), ns.out_npz)
+    fn = make_lpips_fn(weights=ns.out_npz, device=ns.device)
+    rng = np.random.default_rng(0)
+    a = rng.uniform(0, 1, (64, 64)).astype(np.float32)
+    b = np.clip(a + rng.normal(0, 0.1, a.shape), 0, 1).astype(np.float32)
+    val = fn(a, b)
+    if not np.isfinite(val):
+        raise SystemExit("self-check LPIPS is not finite: a bad checkpoint?")
+    print(f"wrote {ns.out_npz} (self-check LPIPS {val:.4f})")
+
+
+if __name__ == "__main__":
+    main()

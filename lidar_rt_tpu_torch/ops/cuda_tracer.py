@@ -25,6 +25,14 @@ for CUDA tensors, their plain twins (`forward_tiles_reference`,
 kernels and twins composite in tile order, or with `exact` in each ray's
 ascending (depth, candidate index) order of its gate-passing hits.  The
 background term and the ray-drop head stay outside the kernels.
+
+The reference's two training modes (`ops.tracer.TraceConfig`): with
+`cache` (tile order) the forward also returns each (ray, candidate) step's
+signed gated alpha and signed exclusive transmittance as bfloat16, (T, K,
+R, 2) (`kernels.cache_shape`), and the backward decodes them in place of a
+replay; `fast` takes the kernels' d_sh sums in one TF32 product per term.
+The twins decode the same encoding and stay float32 otherwise.  A render
+that takes no gradient never asks for the cache (`forward_tiles`).
 """
 
 from __future__ import annotations
@@ -262,22 +270,15 @@ def _pairs(cnt: Tensor, dirs: Tensor, mind: Tensor, t0: Tensor,
                   t_excl, live, w, t_incl[..., -1], perm)
 
 
-def forward_tiles_reference(cnt: Tensor, dirs: Tensor, mind: Tensor,
-                            t0: Tensor, axes: Tensor, plane: Tensor,
-                            inv_scale: Tensor, opac: Tensor, sign: Tensor,
-                            sh: Tensor, exact: bool = False
-                            ) -> tuple[Tensor, Tensor]:
-    """Plain PyTorch version of the forward kernel, in tile order or (exact)
-    per-ray depth order: (chans (T, 16, R), accum (T, K)).  Dense over
-    every (ray, candidate) pair of a tile.  Row 9 is the product of
-    (1 - alpha) over every pair; the kernel's stops at a ray's T_MIN hit."""
-    f = _pairs(cnt, dirs, mind, t0, axes, plane, inv_scale, opac, exact)
-    w = f.w
+def _channel_sums(w: Tensor, f: _Pairs, dirs: Tensor, axes: Tensor,
+                  sign: Tensor, sh: Tensor) -> list[Tensor]:
+    """Rows 0-7 of the forward's channels for per-pair weights w (T, R,
+    K), each (T, R)."""
     n = axes[:, 0]
     basis = sh_lib.basis(dirs, sh_lib.MAX_SH_DEGREE)          # (T, R, 16)
     col0 = (torch.matmul(basis, sh[:, 0]) + 0.5).clamp_min(0.0)
     sum_w = w.sum(-1)
-    rows = [
+    return [
         (w * col0).sum(-1),
         (basis * torch.matmul(w, sh[:, 1].transpose(1, 2))).sum(-1)
         + 0.5 * sum_w,
@@ -286,11 +287,48 @@ def forward_tiles_reference(cnt: Tensor, dirs: Tensor, mind: Tensor,
         (w * f.t).sum(-1),
         sum_w,
         *torch.matmul(w, (sign[:, None] * n).transpose(1, 2)).unbind(-1),
-        t0 - sum_w,
-        f.t_raw,
     ]
-    chans = torch.stack(rows, dim=1)                          # (T, 10, R)
+
+
+def encode_cache(f: _Pairs, dirs: Tensor, axes: Tensor, sign: Tensor,
+                 sh: Tensor) -> kernels.TracerCache:
+    """The forward's cache of `f`'s pairs as the kernel makes it: pairs
+    as the reference encodes them (pallas_tracer.py:286-296), (T, K, R,
+    2) bfloat16, the gated alpha, negative where the ALPHA_MAX clamp held
+    (zero where a gate failed), and the exclusive transmittance, negative
+    where the float32 T_MIN live test failed; and totals (T, 8, R), the
+    channels' rows 0-7 summed with the decoded weights (bf16 alpha x bf16
+    transmittance).  Dense: the kernel writes only the steps it visits,
+    here every pair is encoded."""
+    clamped = f.ok & (f.alpha_raw >= geometry.ALPHA_MAX)
+    ac = torch.where(clamped, -f.alpha, f.alpha)
+    te = torch.where(f.live, f.t_excl, -f.t_excl)
+    pairs = torch.stack([ac, te], -1).to(torch.bfloat16)       # (T, R, K, 2)
+    decoded = pairs.float()
+    w = torch.where(f.live & f.ok, decoded[..., 0].abs() * decoded[..., 1],
+                    0.0)
+    totals = torch.stack(_channel_sums(w, f, dirs, axes, sign, sh), dim=1)
+    return kernels.TracerCache(pairs.transpose(1, 2).contiguous(), totals)
+
+
+def forward_tiles_reference(cnt: Tensor, dirs: Tensor, mind: Tensor,
+                            t0: Tensor, axes: Tensor, plane: Tensor,
+                            inv_scale: Tensor, opac: Tensor, sign: Tensor,
+                            sh: Tensor, exact: bool = False,
+                            cache: bool = False) -> tuple:
+    """Plain PyTorch version of the forward kernel, in tile order or (exact)
+    per-ray depth order: (chans (T, 16, R), accum (T, K)), with `cache`
+    (tile order) also the cache (`encode_cache`).  Dense over every (ray,
+    candidate) pair of a tile.  Row 9 is the product of (1 - alpha) over
+    every pair; the kernel's stops at a ray's T_MIN hit."""
+    kernels.check_cache_order(exact, cache)
+    f = _pairs(cnt, dirs, mind, t0, axes, plane, inv_scale, opac, exact)
+    w = f.w
+    rows = _channel_sums(w, f, dirs, axes, sign, sh)
+    chans = torch.stack(rows + [t0 - rows[4], f.t_raw], dim=1)  # (T, 10, R)
     chans = torch.nn.functional.pad(chans, (0, 0, 0, NUM_OUT_ROWS - 10))
+    if cache:
+        return chans, w.sum(1), encode_cache(f, dirs, axes, sign, sh)
     return chans, w.sum(1)
 
 
@@ -298,7 +336,9 @@ def backward_tiles_reference(cnt: Tensor, dirs: Tensor, mind: Tensor,
                              t0: Tensor, axes: Tensor, plane: Tensor,
                              inv_scale: Tensor, opac: Tensor, sign: Tensor,
                              sh: Tensor, fwd_chans: Tensor, g_chans: Tensor,
-                             exact: bool = False) -> tuple[Tensor, ...]:
+                             exact: bool = False,
+                             cache: kernels.TracerCache | None = None
+                             ) -> tuple[Tensor, ...]:
     """Plain PyTorch version of the backward kernel: the closed-form VJP of
     `forward_tiles_reference` in the same order, dense over pairs.
     fwd_chans are the forward's (T, 16, R) channels, g_chans their
@@ -309,9 +349,33 @@ def backward_tiles_reference(cnt: Tensor, dirs: Tensor, mind: Tensor,
     dL/dalpha_j = gw_j T_j - (A_j + g_8 T_out + g_9 T_raw) / (1 - alpha_j),
     A_j = sum of gw_k w_k over the pairs k composited after j, gw = dL/dw;
     pairs past a ray's stop get only the raw-T term, since their w and
-    suffix are exactly 0."""
+    suffix are exactly 0.
+
+    cache: a `TracerCache` of these inputs, dense as
+    `forward_tiles_reference` encodes it (tile order; its pairs in any
+    float dtype), decoded in place of the replay's gates and products as
+    the kernel decodes it (pallas_backward.py:183-200,243-270): alpha =
+    |x|, the gradient gate x > 0, T_j = |y|, live y > 0, G = alpha /
+    max(opacity, 1e-12), and A_j = gw_total - (the prefix of gw w through
+    j), gw_total = sum_ch g_ch S_ch over the cache's totals; the
+    intersection's locals are recomputed.  As in the kernel, a ray stops at its first pair that is
+    not live, which gets only the raw-T term, and the pairs past it get
+    nothing."""
+    kernels.check_cache_order(exact, cache)
     f = _pairs(cnt, dirs, mind, t0, axes, plane, inv_scale, opac, exact)
-    w, t = f.w, f.t
+    alpha, t_excl, live, g_val = f.alpha, f.t_excl, f.live, f.g
+    gate = f.ok & (f.alpha_raw < geometry.ALPHA_MAX)
+    if cache is not None:
+        ac, te = cache.pairs.float().permute(3, 0, 2, 1)      # (T, R, K)
+        alpha, t_excl, live = ac.abs(), te.abs(), te > 0.0
+        reached = torch.cat([torch.ones_like(live[..., :1]),
+                             torch.cumprod(live.int(), -1)[..., :-1].bool()],
+                            -1)
+        live = live & reached
+        gate = (ac > 0.0) & reached
+        g_val = alpha / opac[:, None, :].clamp_min(1e-12)
+    w = torch.where(live, alpha * t_excl, 0.0)
+    t = f.t
     n = axes[:, 0]                                            # (T, 3, K)
     basis = sh_lib.basis(dirs, sh_lib.MAX_SH_DEGREE)          # (T, R, 16)
     c0, c1, c2 = (torch.matmul(basis, sh[:, ch]) for ch in range(3))
@@ -322,21 +386,24 @@ def backward_tiles_reference(cnt: Tensor, dirs: Tensor, mind: Tensor,
           + g[2] * (c2 + 0.5) + g[3] * t + g[4]
           + sg * (g[5] * n[:, 0:1] + g[6] * n[:, 1:2] + g[7] * n[:, 2:3]))
     gww = _in_order(gw * w, f.perm)
-    rev = torch.flip(torch.cumsum(torch.flip(gww, [-1]), -1), [-1])
-    suffix = _from_order(torch.nn.functional.pad(rev[..., 1:], (0, 1)),
-                         f.perm)                              # after j
-    one_m = (1.0 - f.alpha).clamp_min(1e-6)
+    if cache is None:
+        rev = torch.flip(torch.cumsum(torch.flip(gww, [-1]), -1), [-1])
+        suffix = _from_order(torch.nn.functional.pad(rev[..., 1:], (0, 1)),
+                             f.perm)                          # after j
+    else:
+        gw_total = (g_chans[:, :8] * cache.totals).sum(1)[..., None]
+        suffix = gw_total - torch.cumsum(gww, -1)
+    one_m = (1.0 - alpha).clamp_min(1e-6)
     t_out = fwd_chans[:, 8, :, None]
     t_raw = fwd_chans[:, 9, :, None]
-    live = f.live.to(w.dtype)
-    d_alpha = (gw * f.t_excl * live
-               - (suffix + g[8] * t_out * live + g[9] * t_raw) / one_m)
-    d_alpha = torch.where(f.ok & (f.alpha_raw < geometry.ALPHA_MAX),
-                          d_alpha, 0.0)
+    live = live.to(w.dtype)
+    d_alpha = (gw * t_excl * live
+               - ((suffix + g[8] * t_out) * live + g[9] * t_raw) / one_m)
+    d_alpha = torch.where(gate, d_alpha, 0.0)
 
     # alpha -> (opacity, G) -> (u, v) -> (a_u, a_v, 1/s, t) -> axes.
     inv_s0, inv_s1 = inv_scale[:, 0:1], inv_scale[:, 1:2]     # (T, 1, K)
-    d_gg = d_alpha * opac[:, None, :] * f.g
+    d_gg = d_alpha * opac[:, None, :] * g_val
     d_u = -d_gg * f.u
     d_v = -d_gg * f.v
     d_t = d_u * inv_s0 * f.b_u + d_v * inv_s1 * f.b_v + g[3] * w
@@ -358,7 +425,7 @@ def backward_tiles_reference(cnt: Tensor, dirs: Tensor, mind: Tensor,
     d_plane = torch.stack([(d_t / f.safe_qd).sum(1), d_au.sum(1),
                            d_av.sum(1)], dim=1)
     d_inv_scale = torch.stack([d_is0.sum(1), d_is1.sum(1)], dim=1)
-    d_opac = (d_alpha * f.g).sum(1)
+    d_opac = (d_alpha * g_val).sum(1)
     x0 = torch.where(col0_raw > 0.0, g[0] * w, 0.0)
     d_sh = torch.stack([over_rays(basis, x0), over_rays(basis, g[1] * w),
                         over_rays(basis, g[2] * w)], dim=1)
@@ -440,53 +507,68 @@ class _TracerCore(torch.autograd.Function):
     """The differentiable kernel boundary (counterpart of the reference's
     `_pallas_core` custom_vjp): the forward kernel, and the backward kernel
     as its VJP, both in tile order or (exact) per-ray depth order; on CPU
-    tensors their plain twins.  Gradients reach the candidate geometry,
+    tensors their plain twins.  With `cache` the forward's cache is saved
+    for the backward, which decodes it (autograd frees it with the other
+    saved tensors once the backward has run); `fast` selects the
+    backward's fast sums.  Gradients reach the candidate geometry,
     opacity, SH and t0; cnt, dirs, mind and sign get none, and accum
     (densify statistics only) passes no gradient back."""
 
     @staticmethod
-    def forward(ctx, exact, cnt, dirs, mind, t0, axes, plane, inv_scale,
-                opac, sign, sh):
+    def forward(ctx, exact, fast, cache, cnt, dirs, mind, t0, axes, plane,
+                inv_scale, opac, sign, sh):
         inputs = (cnt, dirs, mind, t0, axes, plane, inv_scale, opac, sign,
                   sh)
         if dirs.device.type == "cpu":
-            chans, accum = forward_tiles_reference(*inputs, exact=exact)
+            out = forward_tiles_reference(*inputs, exact=exact, cache=cache)
         else:
-            chans, accum = kernels.tracer_forward(*inputs, exact=exact)
-        ctx.exact = exact
-        ctx.save_for_backward(*inputs, chans)
+            out = kernels.tracer_forward(*inputs, exact=exact, cache=cache)
+        chans, accum = out[:2]
+        ctx.exact, ctx.fast = exact, fast
+        ctx.save_for_backward(*inputs, chans,
+                              *(out[2] if cache else (None, None)))
         ctx.mark_non_differentiable(accum)
         return chans, accum
 
     @staticmethod
     def backward(ctx, g_chans, _g_accum):
-        *inputs, chans = ctx.saved_tensors
+        *inputs, chans, pairs, totals = ctx.saved_tensors
+        cache = None if pairs is None else kernels.TracerCache(pairs, totals)
         g_chans = g_chans.contiguous()
         if g_chans.device.type == "cpu":
             grads = backward_tiles_reference(*inputs, chans, g_chans,
-                                             exact=ctx.exact)
+                                             exact=ctx.exact, cache=cache)
         else:
             grads = kernels.tracer_backward(*inputs, chans, g_chans,
-                                            exact=ctx.exact)
+                                            exact=ctx.exact, cache=cache,
+                                            fast=ctx.fast)
         d_axes, d_plane, d_inv_scale, d_opac, d_sh = grads
         d_t0 = None
-        if ctx.needs_input_grad[4]:                           # t0
+        if ctx.needs_input_grad[6]:                           # t0
             # Every channel row scales linearly in t0 (w = alpha T0
             # prod(1 - alpha)); the T_MIN cutoff's t0-dependence is a
             # measure-zero step, ignored as the reference does.
             d_t0 = ((g_chans[:, :10] * chans[:, :10]).sum(1)
                     / inputs[3].clamp_min(1e-12))
-        return (None, None, None, None, d_t0, d_axes, d_plane, d_inv_scale,
-                d_opac, None, d_sh)
+        return (None, None, None, None, None, None, d_t0, d_axes, d_plane,
+                d_inv_scale, d_opac, None, d_sh)
 
 
-def forward_tiles(inputs: TileInputs, exact: bool = False
+def forward_tiles(inputs: TileInputs, exact: bool = False,
+                  fast: bool = False, cache: bool = False
                   ) -> tuple[Tensor, Tensor]:
     """The forward tracer on one render's tiles, differentiable: the plain
     twins for CPU tensors, the CUDA kernels for CUDA tensors (which raise
     on failure; nothing falls back).  exact composites each ray's hits in
-    depth order, else in tile order."""
-    return _TracerCore.apply(exact, *inputs)
+    depth order, else in tile order.  cache (tile order; raises with
+    exact) has the forward keep its residuals for the backward, only when
+    a gradient will be taken: grad mode on and an input that requires
+    grad.  A render under no_grad, or of inputs that need none, allocates
+    no cache.  fast: the backward's fast sums."""
+    kernels.check_cache_order(exact, cache)
+    cache = cache and torch.is_grad_enabled() and any(
+        x.requires_grad for x in inputs)
+    return _TracerCore.apply(exact, fast, cache, *inputs)
 
 
 def trace_forward(bundle: SurfelBundle, grid: rays_lib.SensorGrid,
@@ -494,16 +576,17 @@ def trace_forward(bundle: SurfelBundle, grid: rays_lib.SensorGrid,
                   tile: TileConfig, assignment: TileAssignment | None = None,
                   exact: bool = False, min_depth: Tensor | None = None,
                   init_trans: Tensor | None = None, col_offset: int = 0,
-                  render_width: int | None = None
-                  ) -> tuple[Tensor, Tensor]:
+                  render_width: int | None = None, fast: bool = False,
+                  cache: bool = False) -> tuple[Tensor, Tensor]:
     """Kernel-path render of the column band (col_offset, render_width;
     default the whole scan) -> (channels (H, W_r, 10): 9 public channels +
-    raw transmittance, accum_weights (N,))."""
+    raw transmittance, accum_weights (N,)).  fast, cache: as
+    `forward_tiles`."""
     inputs, assignment = tile_inputs(bundle, grid, width, sensor2world,
                                      active_sh_degree, tile, assignment,
                                      min_depth, init_trans, col_offset,
                                      render_width)
-    chans, accum_tk = forward_tiles(inputs, exact)
+    chans, accum_tk = forward_tiles(inputs, exact, fast, cache)
     img = from_tiles(chans.transpose(1, 2), tile, grid.height,
                      width if render_width is None else render_width)
     return img[..., :10], scatter_accum(assignment, accum_tk,
@@ -515,14 +598,15 @@ def trace(bundle: SurfelBundle, grid: rays_lib.SensorGrid, width: int,
           active_sh_degree: int = 3, tile: TileConfig = TileConfig(),
           assignment: TileAssignment | None = None, exact: bool = False,
           min_depth: Tensor | None = None, init_trans: Tensor | None = None,
-          col_offset: int = 0, render_width: int | None = None
-          ) -> RenderOutputs:
+          col_offset: int = 0, render_width: int | None = None,
+          fast: bool = False, cache: bool = False) -> RenderOutputs:
     """Kernel-path counterpart of `ops.tracer.trace`'s torch engine (one
-    pass of one column band; the tail passes chain it)."""
+    pass of one column band; the tail passes chain it).  fast, cache: as
+    `forward_tiles`."""
     img, accum = trace_forward(bundle, grid, width, sensor2world,
                                active_sh_degree, tile, assignment, exact,
                                min_depth, init_trans, col_offset,
-                               render_width)
+                               render_width, fast, cache)
     final_t = img[..., 8:9]
     channels = torch.cat([img[..., 0:3] + final_t * background, img[..., 3:8],
                           final_t], dim=-1)

@@ -3,8 +3,12 @@
 Each kernel source under `csrc/` (`tracer_forward.cu`, `tracer_backward.cu`;
 both include `tracer_common.cuh`) is compiled with nvcc for sm_90a into its
 own shared library with a plain C entry point, loaded with ctypes, at first
-use.  Each library holds both modes of its kernel, tile order and exact
-(per-ray depth) order, chosen per launch.  The nvcc processes of all
+use.  Each library holds every mode of its kernel, chosen per launch:
+tile order and exact (per-ray depth) order; in tile order the forward may
+also write its per-pair residuals (the cache) and the backward decode
+them in place of a replay; the backward may take its d_sh sums in one
+TF32 product per term (fast) where float32 takes three.  The nvcc
+processes of all
 missing libraries start together.  The libraries go to
 `lidar_rt_tpu_torch/_build/`, keyed by a hash of every file under `csrc/`
 and the flags, so an edited source or header rebuilds and an unchanged
@@ -21,6 +25,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+from typing import NamedTuple
+
 import torch
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -33,22 +39,30 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # raising: tests/test_torch_kernels.py holds this table to the sources.
 ENTRY_POINTS = {
     "tracer_forward": {
-        "tracer_forward": [_P] * 12 + [_I] * 4 + [_P],
+        "tracer_forward": [_P] * 14 + [_I] * 4 + [_P],
         "tracer_forward_occupancy": [_I, _I, _P],
     },
     "tracer_backward": {
-        "tracer_backward": [_P] * 14 + [_I] * 4 + [_P],
+        "tracer_backward": [_P] * 16 + [_I] * 5 + [_P],
         "tracer_backward_occupancy": [_I, _I, _P],
     },
 }
 KERNELS = tuple(ENTRY_POINTS)
 # The device kernels of each library, in the index order of its
-# `<library>_occupancy` entry point.
+# `<library>_occupancy` entry point.  tracer_forward_kernel<cache>;
+# tracer_backward_kernel<source, fast>, source 0 the tile-order replay, 1
+# the exact walk's pairs, 2 the cache.
 DEVICE_KERNELS = {
-    "tracer_forward": ("tracer_forward_kernel", "tracer_forward_exact_kernel"),
-    "tracer_backward": ("tracer_backward_kernel",
+    "tracer_forward": ("tracer_forward_kernel<false>",
+                       "tracer_forward_exact_kernel",
+                       "tracer_forward_kernel<true>"),
+    "tracer_backward": ("tracer_backward_kernel<0,false>",
                         "tracer_backward_exact_kernel",
-                        "tracer_backward_kernel<true>"),
+                        "tracer_backward_kernel<1,false>",
+                        "tracer_backward_kernel<2,true>",
+                        "tracer_backward_kernel<1,true>",
+                        "tracer_backward_kernel<0,true>",
+                        "tracer_backward_kernel<2,false>"),
 }
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -62,20 +76,36 @@ GRAD_ROWS = 64     # rows of the backward kernel's (T, 64, K) output
 EXACT_MAX_K = 256
 
 # Launches of each kernel in each mode: raised by one per launch in
-# `tracer_forward` and `tracer_backward`, nowhere else.  Callers reset
-# them to count a run's launches.
+# `tracer_forward` and `tracer_backward`, nowhere else; each launch raises
+# exactly one.  Callers reset them to count a run's launches.
 forward_launches = 0           # tile order
-backward_launches = 0
+backward_launches = 0          # tile order, replayed (float32 or fast sums)
+forward_cache_launches = 0     # tile order, writing the cache
+backward_cache_launches = 0    # tile order, decoding the cache
 forward_exact_launches = 0     # exact (per-ray depth) order
-backward_exact_launches = 0
+backward_exact_launches = 0    # exact order, 3xTF32 sums
+backward_exact_fast_launches = 0   # exact order, 1xTF32 sums
 
 
 def reset_launches() -> None:
     """Set every launch count to 0."""
     global forward_launches, backward_launches
+    global forward_cache_launches, backward_cache_launches
     global forward_exact_launches, backward_exact_launches
+    global backward_exact_fast_launches
     forward_launches = backward_launches = 0
+    forward_cache_launches = backward_cache_launches = 0
     forward_exact_launches = backward_exact_launches = 0
+    backward_exact_fast_launches = 0
+
+
+def check_cache_order(exact: bool, cache) -> None:
+    """Raise ValueError for a cache with exact order: the forward caches
+    its residuals in tile order only (the exact backward walks each ray's
+    depth order again)."""
+    if exact and cache is not None and cache is not False:
+        raise ValueError("the forward's cache requires tile-order "
+                         "compositing (exact=False)")
 
 
 def check_exact_k(k: int) -> None:
@@ -230,17 +260,48 @@ def _launch(name: str, dev: torch.device, pointers, dims) -> None:
                            + lib.tracer_error_string(rc).decode())
 
 
+TOTAL_ROWS = 8     # rows of the cache's (T, 8, R) totals
+
+
+class TracerCache(NamedTuple):
+    """What the forward keeps for the backward in the cache mode.
+
+    pairs: (T, K, R, 2) bfloat16 (`cache_shape`), each (tile, candidate,
+      ray) step's signed gated alpha (negative where the ALPHA_MAX clamp
+      held, zero where a gate failed) and signed exclusive transmittance
+      (negative where the T_MIN test failed), written only at the steps
+      the forward kernel visits.
+    totals: (T, 8, R) float32, rows 0-7 of the channels summed with the
+      weights the backward decodes (bf16 alpha x bf16 transmittance).
+    """
+
+    pairs: torch.Tensor
+    totals: torch.Tensor
+
+
+def cache_shape(t: int, k: int, r: int) -> tuple[int, int, int, int]:
+    """The shape of a `TracerCache`'s pairs: (T, K, R, 2)."""
+    return (t, k, r, 2)
+
+
 def tracer_forward(cnt, dirs, mind, t0, axes, plane, inv_scale, opac, sign,
-                   sh, exact: bool = False
-                   ) -> tuple[torch.Tensor, torch.Tensor]:
+                   sh, exact: bool = False, cache: bool = False,
+                   cache_out: torch.Tensor | None = None
+                   ) -> tuple[torch.Tensor, ...]:
     """Launch the forward tracer kernel on the current stream, in tile order
     or (exact) in each ray's depth order.
 
     Inputs as `ops.cuda_tracer.TileInputs`, all contiguous CUDA tensors on
-    one device.  Returns (chans (T, 16, R), accum (T, K)).  Raises on any
-    input the kernel does not take (exact: K outside [1, EXACT_MAX_K]) and
-    on a failed launch."""
-    global forward_launches, forward_exact_launches
+    one device.  Returns (chans (T, 16, R), accum (T, K)), and with
+    `cache` (tile order only) a `TracerCache` for the backward, its pairs
+    written only at the (ray, candidate) steps the kernel visits, into a
+    new uninitialised tensor.  `cache_out` is there for the tests and
+    `chip_smoke.py` alone: a pairs buffer they fill with poison first,
+    to show that the backward reads only the steps written.
+    Raises on any input the kernel does not take (exact: K outside [1,
+    EXACT_MAX_K], or a cache) and on a failed launch."""
+    global forward_launches, forward_cache_launches, forward_exact_launches
+    check_cache_order(exact, cache)
     if exact:
         check_exact_k(axes.shape[-1])
     expected = _tile_shapes(cnt, dirs, mind, t0, axes, plane, inv_scale,
@@ -249,18 +310,35 @@ def tracer_forward(cnt, dirs, mind, t0, axes, plane, inv_scale, opac, sign,
     t, r, k = dirs.shape[0], dirs.shape[1], axes.shape[-1]
     chans = torch.empty((t, 16, r), dtype=torch.float32, device=dev)
     accum = torch.zeros((t, k), dtype=torch.float32, device=dev)
+    res = None
+    if cache:
+        pairs = cache_out
+        if pairs is None:
+            pairs = torch.empty(cache_shape(t, k, r), dtype=torch.bfloat16,
+                                device=dev)
+        _check("tracer_forward", {"dirs": expected["dirs"], "cache": (
+            pairs, cache_shape(t, k, r), torch.bfloat16)})
+        res = TracerCache(pairs, torch.empty((t, TOTAL_ROWS, r),
+                                             dtype=torch.float32, device=dev))
     _launch("tracer_forward", dev,
             [x.data_ptr() for x, _, _ in expected.values()]
-            + [chans.data_ptr(), accum.data_ptr()], (t, r, k, int(exact)))
+            + [chans.data_ptr(), accum.data_ptr()]
+            + ([None, None] if res is None
+               else [res.pairs.data_ptr(), res.totals.data_ptr()]),
+            (t, r, k, int(exact)))
     if exact:
         forward_exact_launches += 1
+    elif cache:
+        forward_cache_launches += 1
+        return chans, accum, res
     else:
         forward_launches += 1
     return chans, accum
 
 
 def tracer_backward(cnt, dirs, mind, t0, axes, plane, inv_scale, opac, sign,
-                    sh, fwd_chans, g_chans, exact: bool = False
+                    sh, fwd_chans, g_chans, exact: bool = False,
+                    cache: TracerCache | None = None, fast: bool = False
                     ) -> tuple[torch.Tensor, ...]:
     """Launch the backward tracer kernel on the current stream, in the
     forward's order (tile, or exact per-ray depth order: a walk kernel,
@@ -268,11 +346,16 @@ def tracer_backward(cnt, dirs, mind, t0, axes, plane, inv_scale, opac, sign,
 
     Inputs: the forward's, plus its channels `fwd_chans` and their upstream
     gradients `g_chans`, both (T, 16, R); all contiguous CUDA tensors on
-    one device.  Returns (d_axes (T, 3, 3, K), d_plane (T, 3, K),
-    d_inv_scale (T, 2, K), d_opac (T, K), d_sh (T, 3, 16, K)), each summed
-    over the tile's rays, as views of one (T, 64, K) buffer.  Raises on any
-    input the kernel does not take and on a failed launch."""
-    global backward_launches, backward_exact_launches
+    one device.  cache: the `TracerCache` that `tracer_forward(...,
+    cache=True)` made for these inputs (tile order only), decoded in place
+    of a replay.  fast: the d_sh sums in one TF32 product per term.  Returns
+    (d_axes (T, 3, 3, K), d_plane (T, 3, K), d_inv_scale (T, 2, K), d_opac
+    (T, K), d_sh (T, 3, 16, K)), each summed over the tile's rays, as
+    views of one (T, 64, K) buffer.  Raises on any input the kernel does
+    not take (a cache with exact order) and on a failed launch."""
+    global backward_launches, backward_cache_launches
+    global backward_exact_launches, backward_exact_fast_launches
+    check_cache_order(exact, cache)
     if exact:
         check_exact_k(axes.shape[-1])
     expected = _tile_shapes(cnt, dirs, mind, t0, axes, plane, inv_scale,
@@ -280,16 +363,28 @@ def tracer_backward(cnt, dirs, mind, t0, axes, plane, inv_scale, opac, sign,
     t, r, k = dirs.shape[0], dirs.shape[1], axes.shape[-1]
     expected["fwd_chans"] = (fwd_chans, (t, 16, r), torch.float32)
     expected["g_chans"] = (g_chans, (t, 16, r), torch.float32)
+    if cache is not None:
+        expected["cache"] = (cache.pairs, cache_shape(t, k, r),
+                             torch.bfloat16)
+        expected["totals"] = (cache.totals, (t, TOTAL_ROWS, r),
+                              torch.float32)
     dev = _check("tracer_backward", expected)
     grads = torch.zeros((t, GRAD_ROWS, k), dtype=torch.float32, device=dev)
     pairs = (torch.empty((t, k, r, 2), dtype=torch.float32, device=dev)
              if exact else None)
+    arrays = [x.data_ptr() for name, (x, _, _) in expected.items()
+              if name not in ("cache", "totals")]
     _launch("tracer_backward", dev,
-            [x.data_ptr() for x, _, _ in expected.values()]
-            + [None if pairs is None else pairs.data_ptr(),
-               grads.data_ptr()], (t, r, k, int(exact)))
-    if exact:
+            arrays + [None if pairs is None else pairs.data_ptr()]
+            + ([None, None] if cache is None
+               else [cache.pairs.data_ptr(), cache.totals.data_ptr()])
+            + [grads.data_ptr()], (t, r, k, int(exact), int(fast)))
+    if exact and fast:
+        backward_exact_fast_launches += 1
+    elif exact:
         backward_exact_launches += 1
+    elif cache is not None:
+        backward_cache_launches += 1
     else:
         backward_launches += 1
     return (grads[:, 0:9].view(t, 3, 3, k), grads[:, 9:12],

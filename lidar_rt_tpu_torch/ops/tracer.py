@@ -55,6 +55,22 @@ class TraceConfig:
     tail_passes: re-binned passes appended to the render, each past every
       truncated tile's K-th candidate range, carrying the per-ray raw
       transmittance; 0 = off.
+    fast_math: the "cuda" engine's backward takes its d_sh sums in one
+      TF32 product per term where float32 takes three (the reference's
+      one-pass bf16 contractions); the forward has no contraction and is
+      the same float32 either way.
+    cache_fwd: the forward keeps each (ray, candidate) step's gated alpha
+      and exclusive transmittance as bfloat16 and the backward decodes them
+      in place of a replay (the reference's residual cache); effective
+      only with fast_math and in tile order (`use_cache`), as in the
+      reference, so a config that sets it with exact_order still trains,
+      uncached.  The torch engine ignores both, as the reference's jax
+      engine does.
+
+    The reference defaults both modes on; here both default off, so that
+    TraceConfig() keeps the float32 semantics that every parity test of
+    the port is held to.  `train.options.trace_configs` turns them on from
+    a config's `tracer:` block for a trainer on a CUDA device.
     """
 
     tile: TileConfig = FLAGSHIP_TILE
@@ -62,6 +78,8 @@ class TraceConfig:
     tile_batch: int = 8
     engine: str = "cuda"
     tail_passes: int = 0
+    fast_math: bool = False
+    cache_fwd: bool = False
 
     def __post_init__(self):
         if self.engine not in ("cuda", "torch"):
@@ -71,6 +89,12 @@ class TraceConfig:
                              f"{self.tail_passes}")
         if self.engine == "cuda" and self.exact_order:
             kernels.check_exact_k(self.tile.max_per_tile)
+
+    @property
+    def use_cache(self) -> bool:
+        """Whether the "cuda" engine's forward keeps the cache for its
+        backward (lidar_rt_tpu/ops/tracer.py:252-256)."""
+        return self.cache_fwd and self.fast_math and not self.exact_order
 
 
 def _composite_tile(dirs: Tensor, frames_k: geometry.SurfelFrames,
@@ -172,7 +196,8 @@ def trace(bundle: SurfelBundle, grid: rays_lib.SensorGrid, width: int,
         return cuda_tracer.trace(bundle, grid, width, sensor2world,
                                  background, active_sh_degree, cfg.tile,
                                  assignment, cfg.exact_order, min_depth,
-                                 init_trans, col_offset, render_width)
+                                 init_trans, col_offset, render_width,
+                                 cfg.fast_math, cfg.use_cache)
 
     h = grid.height
     w_r = width if render_width is None else render_width

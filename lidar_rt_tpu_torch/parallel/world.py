@@ -63,11 +63,12 @@ def _rank_main(rank: int, world: int, dp: int, rays: int, backend: str,
         raise
 
 
-def run_world(fn, dp: int, rays: int, backend: str, device: str = "cpu",
+def run_world(fn, dp: int, rays: int, backend: str, device: str = "cuda",
               timeout_s: float = 120.0, args: tuple = ()) -> list:
     """Run fn(mesh, *args) on dp * rays ranks; returns their results in
-    rank order.  device: every rank's device ("cpu", "cuda:0" for ranks
-    sharing card 0, or "cuda" for card i on rank i).  Raises
+    rank order.  device: every rank's device ("cuda", the default, for
+    card i on rank i; "cuda:0" for ranks sharing card 0; "cpu" when the
+    caller asks for the CPU).  Raises
     RuntimeError with the first failing rank's traceback, or TimeoutError
     when the world has not finished within timeout_s; either way every
     rank is killed first."""

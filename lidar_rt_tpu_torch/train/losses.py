@@ -46,6 +46,17 @@ def bce_probs(preds: Tensor, labels: Tensor, eps: float = 1e-7) -> Tensor:
             ).mean()
 
 
+def binary_focal(preds: Tensor, labels: Tensor, alpha: float = 0.25,
+                 gamma: float = 2.0, eps: float = 1e-7) -> Tensor:
+    """Binary focal loss on probabilities (reference loss_utils.py:93-109)."""
+    labels = labels.to(preds.dtype)
+    loss_y1 = (-(1.0 - alpha) * (1.0 - preds) ** gamma
+               * torch.log(preds + eps) * labels)
+    loss_y0 = (-alpha * preds ** gamma * torch.log1p(-preds + eps)
+               * (1.0 - labels))
+    return (loss_y0 + loss_y1).mean()
+
+
 def dssim(pred: Tensor, gt: Tensor) -> Tensor:
     """1 - SSIM on a single-channel (H, W) image pair."""
     return 1.0 - ssim_lib.ssim(pred[None], gt[None])

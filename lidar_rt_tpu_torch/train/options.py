@@ -15,6 +15,8 @@ import copy
 import dataclasses
 from types import SimpleNamespace
 
+import torch
+
 from lidar_rt_tpu_torch.ops import tracer as tracer_lib
 from lidar_rt_tpu_torch.ops.binning import TileConfig
 
@@ -121,9 +123,13 @@ def rehearsal_options(dataset: str) -> SimpleNamespace:
     return ns
 
 
-# Keys of a `tracer` block that select TPU code paths or precision: the
-# port always bins with exact top-k and composites in float32.
-TPU_ONLY = ("approx_topk", "fast_math", "macro_cols", "ray_block")
+# Keys of a `tracer` block that select TPU code paths: the port always
+# bins with exact top-k, over whole rows of tiles, one thread per ray.
+TPU_ONLY = ("approx_topk", "macro_cols", "ray_block")
+# The reference's TraceConfig defaults of its two training modes, which a
+# `tracer` block without the key takes (lidar_rt_tpu/ops/tracer.py:85,93).
+REFERENCE_FAST_MATH = True
+REFERENCE_CACHE_FWD = True
 
 
 def tracer_block(args) -> dict:
@@ -135,16 +141,21 @@ def tracer_block(args) -> dict:
     return t.to_dict() if hasattr(t, "to_dict") else dict(vars(t))
 
 
-def trace_configs(args) -> tuple[tracer_lib.TraceConfig,
-                                 tracer_lib.TraceConfig | None, int | None]:
-    """(trace_cfg, warmup_cfg, warmup_until) from `args.tracer`: the
-    trainer's steady-state config and its larger warm-up budget, which
-    differs only in max_per_tile (None without `warmup_max_per_tile`).
-    A key the block lacks takes the flagship's value (`FLAGSHIP_TILE`,
-    `TraceConfig()`), as the reference's CLI does.  The `TPU_ONLY` keys
-    are read by nothing: the port always selects with exact top-k and
-    composites in float32."""
+def trace_configs(args, device: str | torch.device = "cuda"
+                  ) -> tuple[tracer_lib.TraceConfig,
+                             tracer_lib.TraceConfig | None, int | None]:
+    """(trace_cfg, warmup_cfg, warmup_until) from `args.tracer` for a
+    trainer on `device`: the trainer's steady-state config and its larger
+    warm-up budget, which differs only in max_per_tile (None without
+    `warmup_max_per_tile`).  A key the block lacks takes the flagship's
+    value (`FLAGSHIP_TILE`, `TraceConfig()`), as the reference's CLI does;
+    `fast_math` and `cache_fwd` take the reference's defaults (True).  As
+    the reference applies those two only where it runs its kernels (its
+    "auto" engine resolves to the float32 jax engine off the TPU,
+    lidar_rt_tpu/ops/tracer.py:110-118), they are on only for a CUDA
+    device.  The `TPU_ONLY` keys are read by nothing."""
     t = tracer_block(args)
+    card = torch.device(device).type == "cuda"
     ft, fd = tracer_lib.FLAGSHIP_TILE, tracer_lib.TraceConfig()
     tile = TileConfig(
         tile_h=int(t.get("tile_h", ft.tile_h)),
@@ -155,7 +166,9 @@ def trace_configs(args) -> tuple[tracer_lib.TraceConfig,
     cfg = tracer_lib.TraceConfig(
         tile=tile, exact_order=bool(t.get("exact_order", fd.exact_order)),
         tile_batch=int(t.get("tile_batch", fd.tile_batch)),
-        tail_passes=int(t.get("tail_passes", fd.tail_passes)))
+        tail_passes=int(t.get("tail_passes", fd.tail_passes)),
+        fast_math=card and bool(t.get("fast_math", REFERENCE_FAST_MATH)),
+        cache_fwd=card and bool(t.get("cache_fwd", REFERENCE_CACHE_FWD)))
     warmup_cfg = None
     if "warmup_max_per_tile" in t:
         warmup_cfg = dataclasses.replace(cfg, tile=dataclasses.replace(

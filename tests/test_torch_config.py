@@ -194,10 +194,13 @@ def test_args_view_and_default_experiment():
 def test_trace_configs_from_files(path, at_repo):
     """The tracer block read from the files gives the budgets the
     reference's `_trace_cfg` gives (K, tiles, binner, order, tail passes,
-    warm-up), with a missing block falling back to the flagship."""
+    warm-up), with a missing block falling back to the flagship.  On a
+    CUDA device the training modes (fast_math, cache_fwd, and the cache
+    in effect) are those the reference's kernel engine resolves
+    (`lidar_rt_tpu/ops/tracer.py:252-256`)."""
     from lidar_rt_tpu import cli as ref_cli
 
-    cfg, warm, until = options.trace_configs(config.parse(path))
+    cfg, warm, until = options.trace_configs(config.parse(path), "cuda")
     rcfg, rwarm, runtil = ref_cli._trace_cfg(ref_config.parse(path))
     for got, want in ((cfg, rcfg), (warm, rwarm)):
         assert (got is None) == (want is None)
@@ -208,6 +211,9 @@ def test_trace_configs_from_files(path, at_repo):
                 want.tile.tile_h, want.tile.tile_w, want.tile.max_per_tile,
                 want.tile.binner, want.tile.coarse_factor, want.exact_order,
                 want.tail_passes)
+            assert (got.fast_math, got.cache_fwd, got.use_cache) == (
+                want.fast_math, want.cache_fwd,
+                want.cache_fwd and want.fast_math and not want.exact_order)
     assert until == runtil
     flagship, _, _ = options.trace_configs(config.Args({}))
     assert flagship.tile == options.tracer_lib.FLAGSHIP_TILE

@@ -280,3 +280,74 @@ def test_lpips_weights_from_pth_files(tmp_path, monkeypatch):
     assert lpips.make_lpips_fn(device="cpu") is None
     monkeypatch.delenv(lpips.ENV_VAR)
     assert lpips.make_lpips_fn(device="cpu") is None
+
+
+def _lpips_images(seed):
+    rng = np.random.default_rng(seed)
+    gt = rng.uniform(0, 1, (32, 48)).astype(np.float32)
+    pred = np.clip(gt + rng.normal(0, 0.1, gt.shape), 0, 1).astype(
+        np.float32)
+    return pred, gt
+
+
+def test_lpips_weights_from_reference_npz(tmp_path, monkeypatch):
+    """$LIDAR_RT_LPIPS_WEIGHTS in the reference's form, one `.npz` written
+    by the reference's converter from fabricated state dicts: the port
+    reads it and gives the reference's LPIPS to 1e-6; a missing `.npz`
+    gives None, as in the reference."""
+    params, alex, lins = _lpips_pair()
+    out = str(tmp_path / "lpips.npz")
+    j_lpips.convert_torch_checkpoints(alex, lins, out)
+    monkeypatch.setenv(lpips.ENV_VAR, out)
+    fn = lpips.make_lpips_fn(device="cpu")
+    pred, gt = _lpips_images(2)
+    want = j_lpips.make_lpips_fn(weights_path=out)(pred, gt)
+    assert want > 0.0
+    assert fn(pred, gt) == pytest.approx(want, abs=1e-6)
+    assert lpips.make_lpips_fn(weights=out, device="cpu")(
+        pred, gt) == pytest.approx(want, abs=1e-6)
+    monkeypatch.setenv(lpips.ENV_VAR, str(tmp_path / "missing.npz"))
+    assert lpips.make_lpips_fn(device="cpu") is None
+    assert j_lpips.make_lpips_fn() is None
+
+
+@pytest.mark.parametrize("lin_keys", ["short", "long"])
+def test_lpips_converter_writes_the_reference_npz(tmp_path, lin_keys):
+    """The port's converter, from torch tensors in either key layout of
+    the lin heads, writes the reference's `.npz` layout: the same arrays as
+    the reference's converter, read by the reference to the same LPIPS
+    (1e-6)."""
+    params, alex, lins = _lpips_pair()
+    if lin_keys == "short":
+        lins = {f"{i}.1.weight": lins[f"lin{i}.model.1.weight"]
+                for i in range(5)}
+    ours, theirs = str(tmp_path / "port.npz"), str(tmp_path / "ref.npz")
+    lpips.convert_torch_checkpoints(
+        {k: torch.as_tensor(v) for k, v in alex.items()},
+        {"state_dict": {k: torch.as_tensor(v) for k, v in lins.items()}},
+        ours)
+    j_lpips.convert_torch_checkpoints(alex, lins, theirs)
+    with np.load(ours) as a, np.load(theirs) as b:
+        assert sorted(a.files) == sorted(b.files)
+        for key in b.files:
+            np.testing.assert_array_equal(a[key], b[key], err_msg=key)
+            assert a[key].dtype == b[key].dtype
+    pred, gt = _lpips_images(3)
+    want = j_lpips.make_lpips_fn(params=params)(pred, gt)
+    assert j_lpips.make_lpips_fn(weights_path=ours)(
+        pred, gt) == pytest.approx(want, abs=1e-6)
+    assert lpips.make_lpips_fn(weights=ours, device="cpu")(
+        pred, gt) == pytest.approx(want, abs=1e-6)
+
+
+def test_lpips_converter_command_line(tmp_path, capsys):
+    """`python -m lidar_rt_tpu_torch.eval.lpips alexnet.pth alex.pth
+    out.npz --device cpu` writes the file and prints its self-check."""
+    _, alex, lins = _lpips_pair()
+    a_pth, l_pth = tmp_path / "alexnet.pth", tmp_path / "alex.pth"
+    torch.save({k: torch.as_tensor(v) for k, v in alex.items()}, a_pth)
+    torch.save({k: torch.as_tensor(v) for k, v in lins.items()}, l_pth)
+    out = tmp_path / "lpips.npz"
+    lpips.main([str(a_pth), str(l_pth), str(out), "--device", "cpu"])
+    assert out.exists()
+    assert "self-check LPIPS" in capsys.readouterr().out

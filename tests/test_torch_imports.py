@@ -49,6 +49,8 @@ def test_port_imports_no_jax():
         "import lidar_rt_tpu_torch.parallel.train_step\n"
         "import lidar_rt_tpu_torch.parallel.trainer\n"
         "import lidar_rt_tpu_torch.parallel.world\n"
+        "import lidar_rt_tpu_torch.core.camera\n"
+        "import lidar_rt_tpu_torch.viewer\n"
         "from lidar_rt_tpu_torch.ops.tracer import (bin_tail_chain,\n"
         "                                           render_multi_return)\n"
         "from lidar_rt_tpu_torch.ops.kernels import check_exact_k\n"

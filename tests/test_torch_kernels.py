@@ -1,6 +1,7 @@
 """The hand-written CUDA kernels: their build key and input checks (here),
-and each kernel in each mode (tile order, exact per-ray depth order)
-against its plain twin (on a card).
+and each kernel in each mode (tile order, exact per-ray depth order; the
+forward's cache and the backward's decode of it; the fast sums) against
+its plain twin (on a card).
 
 This file imports torch and the port only, so the card tests run where
 jax is not installed:
@@ -22,7 +23,9 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import permuted_rays, street_soup
+from chip_smoke import (CHAN_ATOL, FAST_COS, FAST_REL, cache_check,
+                        check_cached_pair, permuted_rays, street_soup,
+                        totals_error)
 from lidar_rt_tpu_torch.core import rays as t_rays
 from lidar_rt_tpu_torch.ops import cuda_tracer, geometry, kernels
 from lidar_rt_tpu_torch.ops import tracer as t_tracer
@@ -116,8 +119,8 @@ def test_entry_point_argtypes_match_sources():
         assert found == kernels.ENTRY_POINTS[name], name
         assert all(None not in types for types in found.values())
     launcher = kernels.ENTRY_POINTS["tracer_backward"]["tracer_backward"]
-    assert launcher.count(ctypes.c_void_p) == 15     # 14 arrays, the stream
-    assert launcher.count(ctypes.c_int) == 4
+    assert launcher.count(ctypes.c_void_p) == 17     # 16 arrays, the stream
+    assert launcher.count(ctypes.c_int) == 5
 
 
 def test_signature_parser_counts_parameters():
@@ -666,3 +669,280 @@ def test_padded_normals_on_card(cuda_device):
                                torch.ones(40_000), rtol=0, atol=1e-5)
     assert bool(((center - torch.tensor(pts)) * got).sum(1).ge(0).all())
     assert float((got * principal).sum(1).abs().max()) < 1e-3
+
+
+def test_cache_refused_with_exact_order():
+    """The forward caches its residuals in tile order only: a cache with
+    exact order is refused at the kernel boundary, by the kernels' wrappers
+    and by their twins, before any launch (nothing falls back)."""
+    inputs = _case(128, 0, "cpu")
+    kernels.reset_launches()
+    chans, _, cache = cuda_tracer.forward_tiles_reference(*inputs,
+                                                          cache=True)
+    for call in (
+            lambda: kernels.tracer_forward(*inputs, exact=True, cache=True),
+            lambda: kernels.tracer_backward(*inputs, chans, chans,
+                                            exact=True, cache=cache),
+            lambda: cuda_tracer.forward_tiles_reference(*inputs, exact=True,
+                                                        cache=True),
+            lambda: cuda_tracer.backward_tiles_reference(
+                *inputs, chans, chans, exact=True, cache=cache),
+            lambda: cuda_tracer.forward_tiles(inputs, exact=True,
+                                              cache=True)):
+        with pytest.raises(ValueError, match="tile-order"):
+            call()
+    assert (kernels.forward_exact_launches, kernels.backward_exact_launches,
+            kernels.forward_cache_launches) == (0, 0, 0)
+
+
+def test_cache_check_counts():
+    """`cache_check` (the card checks' judge of the forward's cache)
+    passes the twin's own encoding cut to the steps its rays reach, and
+    counts a stray write, a missed step and a flipped sign."""
+    inputs = _case(128, 4, "cpu")
+    inputs = inputs._replace(opac=inputs.opac.clamp_min(0.9),
+                             t0=inputs.t0 * 0.01)
+    _, _, (cache, _) = cuda_tracer.forward_tiles_reference(*inputs,
+                                                           cache=True)
+    f = cuda_tracer._pairs(*inputs[:8])
+    live = f.live.transpose(1, 2)
+    reached = torch.cat([torch.ones_like(live[:, :1]),
+                         torch.cumprod(live.int(), 1)[:, :-1].bool()], 1)
+    assert bool((~reached).any())            # some rays stop
+    got = torch.where(reached[..., None], cache, float("nan")).to(
+        torch.bfloat16)
+    clean = cache_check(inputs, got)
+    assert clean["written"] == int(reached.sum())
+    assert (clean["stray"], clean["missed"], clean["magnitude"],
+            clean["sign"]) == (0, 0, 0, 0)
+    t, j, r = torch.nonzero(~reached)[0].tolist()
+    bad = got.clone()
+    bad[t, j, r] = cache[t, j, r]            # written past a stop
+    t2, j2, r2 = torch.nonzero(reached & (cache[..., 0].float() > 0)
+                               & (cache[..., 1].float() > 0))[0].tolist()
+    bad[t2, j2, r2, 1] = -bad[t2, j2, r2, 1]   # the live bit flipped
+    hit = torch.nonzero(reached & (cache[..., 0].float() != 0))[-1]
+    bad[tuple(hit.tolist())] = float("nan")    # a composited step dropped
+    counts = cache_check(inputs, bad)
+    assert (counts["stray"], counts["missed"], counts["sign"]) == (1, 1, 1)
+
+
+@pytest.mark.parametrize("fault", [None, "sign", "channels", "totals"])
+def test_check_cached_pair_passes_twins_and_catches_faults(monkeypatch,
+                                                           fault):
+    """`check_cached_pair` (the card checks' run of the cached pair) on
+    the CPU, with the kernels stood in for by the twins: the forward
+    writes the twin's encoding at the steps its rays reach into the
+    caller's NaN-filled buffer.  It passes them, and raises on a flipped
+    live bit, on channels a bit off the uncached forward's, or on totals
+    one pair's term off."""
+    inputs = _case(128, 4, "cpu")
+    inputs = inputs._replace(opac=inputs.opac.clamp_min(0.9),
+                             t0=inputs.t0 * 0.01)
+
+    def forward(*args, exact=False, cache=False, cache_out=None):
+        if not cache:
+            return cuda_tracer.forward_tiles_reference(*args)
+        chans, accum, twin = cuda_tracer.forward_tiles_reference(*args,
+                                                                 cache=True)
+        live = cuda_tracer._pairs(*args[:8]).live.transpose(1, 2)
+        reached = torch.cat([torch.ones_like(live[:, :1]),
+                             torch.cumprod(live.int(), 1)[:, :-1].bool()], 1)
+        cache_out.copy_(torch.where(reached[..., None], twin.pairs,
+                                    cache_out))
+        if fault == "sign":
+            t, j, r = torch.nonzero(reached & (twin.pairs[..., 1] > 0))[0]
+            cache_out[t, j, r, 1] = -cache_out[t, j, r, 1]
+        if fault == "channels":
+            chans = chans.clone()
+            chans[2, 0, 0] = torch.nextafter(chans[2, 0, 0],
+                                             torch.tensor(1e9))
+        totals = twin.totals
+        if fault == "totals":       # the heaviest hit counted twice
+            d = cache_out.float().nan_to_num(0.0)
+            w = torch.where(d[..., 1] > 0, d[..., 0].abs() * d[..., 1], 0.0)
+            t, j, r = np.unravel_index(int(w.argmax()), w.shape)
+            totals = totals.clone()
+            totals[t, 4, r] += w[t, j, r]
+        return chans, accum, kernels.TracerCache(cache_out, totals)
+
+    def backward(*args, exact=False, cache=None, fast=False):
+        if cache is not None:           # unwritten steps: past every stop
+            cache = kernels.TracerCache(cache.pairs.nan_to_num(0.0),
+                                        cache.totals)
+        return cuda_tracer.backward_tiles_reference(*args, exact=exact,
+                                                    cache=cache)
+
+    monkeypatch.setattr(kernels, "tracer_forward", forward)
+    monkeypatch.setattr(kernels, "tracer_backward", backward)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    chans, accum = cuda_tracer.forward_tiles_reference(*inputs)
+    g = _upstream(chans, 128)
+    lines = []
+    if fault is None:
+        out = check_cached_pair(inputs, chans, accum, g, "a small case",
+                                lines.append)
+        assert len(lines) == 3
+        assert out["fwd_err"] == 0.0 and out["bwd_err"] <= 1e-6
+    else:
+        with pytest.raises(RuntimeError, match="a small case"):
+            check_cached_pair(inputs, chans, accum, g, "a small case",
+                              lines.append)
+        assert lines               # reported before the check
+
+
+def _poisoned_cache(inputs, fill) -> torch.Tensor:
+    t, r = inputs.dirs.shape[:2]
+    return torch.full(kernels.cache_shape(t, inputs.axes.shape[-1], r), fill,
+                      dtype=torch.bfloat16, device=inputs.dirs.device)
+
+
+def _assert_fast_bars(got, ref):
+    for name, (cos, rel) in grad_errors(got, ref).items():
+        assert cos >= FAST_COS and rel <= FAST_REL, (name, cos, rel)
+
+
+CACHE_CASES = [pytest.param(*c, id="-".join(map(str, c)))
+               for c in [(128, 8, 128, 1.0), (256, 8, 128, 1.0),
+                         (512, 8, 128, 1.0), (200, 4, 48, 1.0),
+                         (256, 5, 96, 1.0), (256, 8, 128, 0.05)]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,tile_h,tile_w,fac", CACHE_CASES)
+def test_cached_kernels_match_twins_on_card(cuda_device, k, tile_h, tile_w,
+                                            fac):
+    """The forward writes its cache into a NaN-filled buffer at exactly the
+    steps the twin's rays reach that its box test leaves, with the twin's
+    encoding, and its channels are the uncached forward's bits.  The
+    backward decoding it (3xTF32) holds the twin's decode of the same
+    cache, its unwritten steps filled from the twin's, at the float32
+    gradient bars; with the fast sums, the twin's decode of the twin's own
+    cache (their bf16 values may be an ulp apart) and the float32 replay
+    at the cache bars.  Its totals are the twin's sums of its own decoded
+    weights, to the channels' bar.  At 1/20 of the opacity no ray stops
+    and row 9 gets an upstream gradient."""
+    inputs = _case(k, k + 2, cuda_device, tile_h, tile_w)
+    inputs = inputs._replace(opac=inputs.opac * fac)
+    with torch.no_grad():
+        chans, accum = kernels.tracer_forward(*inputs)
+        before = (kernels.forward_cache_launches, kernels.forward_launches)
+        poison = _poisoned_cache(inputs, float("nan"))
+        c_chans, c_accum, cache = kernels.tracer_forward(
+            *inputs, cache=True, cache_out=poison)
+        torch.cuda.synchronize()
+        assert cache.pairs is poison
+        assert (kernels.forward_cache_launches,
+                kernels.forward_launches) == (before[0] + 1, before[1])
+        assert torch.equal(c_chans, chans)
+        torch.testing.assert_close(c_accum, accum, rtol=1e-5, atol=0.0)
+        counts = cache_check(inputs, cache.pairs)
+        assert counts["written"] > 0, counts
+        assert (counts["stray"], counts["missed"], counts["magnitude"],
+                counts["sign"]) == (0, 0, 0, 0), counts
+        g = _upstream(chans, k, raw_t=fac < 1.0)
+        replay = kernels.tracer_backward(*inputs, chans, g)
+        before = kernels.backward_cache_launches
+        exact32 = kernels.tracer_backward(*inputs, chans, g, cache=cache)
+        fast = kernels.tracer_backward(*inputs, chans, g, cache=cache,
+                                       fast=True)
+        torch.cuda.synchronize()
+        assert kernels.backward_cache_launches == before + 2
+        _, _, twin_cache = cuda_tracer.forward_tiles_reference(*inputs,
+                                                               cache=True)
+        assert totals_error(inputs, cache) <= CHAN_ATOL
+        twin = cuda_tracer.backward_tiles_reference(*inputs, chans, g,
+                                                    cache=twin_cache)
+        same = cuda_tracer.backward_tiles_reference(
+            *inputs, chans, g, cache=kernels.TracerCache(
+                torch.where(cache.pairs.isnan(), twin_cache.pairs,
+                            cache.pairs), cache.totals))
+    _assert_grad_bars(exact32, same)
+    _assert_fast_bars(fast, twin)
+    _assert_fast_bars(fast, replay)
+    for x in fast:
+        assert bool(torch.isfinite(x).all()) and bool(x[0].eq(0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["dense", "k256", "k512"])
+def test_cached_backward_reads_only_written_steps_on_card(cuda_device, case):
+    """The backward reads only the steps the forward wrote: the same
+    forward's cache in a buffer filled with NaN (a read decodes as a stop)
+    and in one filled with a live, composited pair (a read would add a
+    pair) gives the same gradients.  The sums are taken with atomics in no
+    fixed order, so two runs on one buffer part in the last bits: the bar
+    is four times that spread or 1e-5 of the field's largest magnitude,
+    where a read of the filled pair would move a candidate's sum by a
+    whole pair's term.  A buffer filled with zeros would decode as a stop,
+    as NaN does, and could not tell the two apart."""
+    inputs = (_dense_case(cuda_device) if case == "dense"
+              else _case(int(case[1:]), 9, cuda_device))
+    grads = {}
+    with torch.no_grad():
+        chans, _ = kernels.tracer_forward(*inputs)
+        g = _upstream(chans, 5)
+        for fill in ("nan", 0.5):
+            poison = _poisoned_cache(inputs, float(fill))
+            _, _, cache = kernels.tracer_forward(*inputs, cache=True,
+                                                 cache_out=poison)
+            grads[fill] = [kernels.tracer_backward(
+                *inputs, chans, g, cache=cache, fast=True) for _ in range(2)]
+        torch.cuda.synchronize()
+    for a, b, c in zip(grads["nan"][0], grads["nan"][1], grads[0.5][0]):
+        spread = float((a - b).abs().max())
+        bar = max(4.0 * spread, 1e-5 * float(a.abs().max()))
+        assert bool(torch.isfinite(a).all())
+        assert float((a - c).abs().max()) <= bar, (spread, bar)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [128, 256])
+def test_exact_fast_sums_on_card(cuda_device, k):
+    """The exact order's sums at one TF32 product per term against the
+    twin and the 3xTF32 sums, at the cache bars."""
+    inputs = _case(k, k + 3, cuda_device)
+    with torch.no_grad():
+        chans, _ = kernels.tracer_forward(*inputs, exact=True)
+        g = _upstream(chans, k)
+        before = (kernels.backward_exact_fast_launches,
+                  kernels.backward_exact_launches)
+        fast = kernels.tracer_backward(*inputs, chans, g, exact=True,
+                                       fast=True)
+        full = kernels.tracer_backward(*inputs, chans, g, exact=True)
+        torch.cuda.synchronize()
+        assert (kernels.backward_exact_fast_launches,
+                kernels.backward_exact_launches) == (before[0] + 1,
+                                                     before[1] + 1)
+        twin = cuda_tracer.backward_tiles_reference(*inputs, chans, g,
+                                                    exact=True)
+    _assert_grad_bars(full, twin)
+    _assert_fast_bars(fast, twin)
+    _assert_fast_bars(fast, full)
+
+
+@pytest.mark.cuda
+def test_cached_training_step_on_card(cuda_device):
+    """Autograd through the kernel boundary in the training modes: the
+    cached forward and the decoding backward launch once each, the cache
+    is allocated only under grad, and the gradients hold the float32
+    replay's at the cache bars."""
+    inputs = _case(256, 12, cuda_device)
+    kernels.reset_launches()
+    with torch.no_grad():
+        cuda_tracer.forward_tiles(inputs, fast=True, cache=True)
+    assert (kernels.forward_launches, kernels.forward_cache_launches) == (
+        1, 0)
+    got = {}
+    for cache in (True, False):
+        diff = [x.clone().requires_grad_(x.is_floating_point())
+                for x in inputs]
+        chans, _ = cuda_tracer.forward_tiles(cuda_tracer.TileInputs(*diff),
+                                             fast=cache, cache=cache)
+        (chans * _upstream(chans, 3)).sum().backward()
+        got[cache] = [diff[i].grad for i in (4, 5, 6, 7, 9)]
+    torch.cuda.synchronize()
+    assert (kernels.forward_cache_launches, kernels.backward_cache_launches,
+            kernels.forward_launches, kernels.backward_launches) == (
+        1, 1, 2, 1)
+    _assert_fast_bars(got[True], got[False])

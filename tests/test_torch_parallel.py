@@ -88,7 +88,8 @@ GRID = dict(height=H, bounds=(-0.3, 0.1))
 
 
 def _world(fn, dp, rays, *args):
-    return run_world(fn, dp, rays, "gloo", timeout_s=DEADLINE, args=args)
+    return run_world(fn, dp, rays, "gloo", device="cpu", timeout_s=DEADLINE,
+                     args=args)
 
 
 def test_trace_ray_sharded_matches_reference():
@@ -289,10 +290,11 @@ def test_mesh_factorization_and_failing_ranks():
     with pytest.raises(RuntimeError, match=r"dp=3 \* rays=1 != 2 ranks"):
         _world(workers.refuse_mesh, 1, 2, 3, 1)
     with pytest.raises(RuntimeError, match="band 1 fails"):
-        run_world(workers.fail_on_band, 1, 2, "gloo", timeout_s=60.0,
-                  args=(1,))
+        run_world(workers.fail_on_band, 1, 2, "gloo", device="cpu",
+                  timeout_s=60.0, args=(1,))
     with pytest.raises(TimeoutError):
-        run_world(workers.stall, 1, 2, "gloo", timeout_s=3.0, args=(60.0,))
+        run_world(workers.stall, 1, 2, "gloo", device="cpu", timeout_s=3.0,
+                  args=(60.0,))
     with pytest.raises(ValueError, match="backend"):
-        run_world(workers.stall, 1, 1, "mpi", args=(0.0,))
+        run_world(workers.stall, 1, 1, "mpi", device="cpu", args=(0.0,))
     assert Mesh(dp=2, rays=3).size == 6

@@ -91,6 +91,33 @@ def test_options_hold_the_experiment_config():
         options.experiment_options(bogus=1)
 
 
+def test_trace_configs_by_device():
+    """`trace_configs` reads fast_math and cache_fwd (missing: the
+    reference's default, True) and turns them on for a CUDA device only,
+    as the reference's engine applies them only where it runs its
+    kernels; the TPU-only keys stay unread."""
+    from types import SimpleNamespace
+
+    def resolve(block, device):
+        ns = options.experiment_options()
+        ns.tracer = SimpleNamespace(**block)
+        return options.trace_configs(ns, device)[0]
+
+    cpu = resolve({"fast_math": True}, "cpu")
+    assert (cpu.fast_math, cpu.cache_fwd, cpu.use_cache) == (False, False,
+                                                             False)
+    card = resolve({"fast_math": True}, torch.device("cuda", 0))
+    assert (card.fast_math, card.cache_fwd, card.use_cache) == (True, True,
+                                                                True)
+    assert resolve({}, "cuda").use_cache
+    off = resolve({"fast_math": True, "cache_fwd": False}, "cuda")
+    assert off.fast_math and not off.use_cache
+    assert not resolve({"fast_math": False}, "cuda").fast_math
+    exact = resolve({"exact_order": True}, "cuda")
+    assert exact.fast_math and not exact.use_cache
+    assert options.TPU_ONLY == ("approx_topk", "macro_cols", "ray_block")
+
+
 # -- losses, SSIM, Chamfer -----------------------------------------------
 
 
