@@ -472,7 +472,7 @@ def bound(inputs, work: dict, backward: bool, culled: bool = True,
     the kernel culls yet: a floor), or, with `culled` False, every pair a
     ray reaches and no box test.  With `cache` the forward also writes,
     and the backward reads, CACHE_BYTES per pair its rays reach at a
-    visited step, and its (T, 8, R) float totals; the backward's pairs
+    visited step, and each ray's int32 last index; the backward's pairs
     cost CACHE_PAIR_FLOPS."""
     t, r = inputs.dirs.shape[:2]
     k = inputs.axes.shape[-1]
@@ -482,7 +482,7 @@ def bound(inputs, work: dict, backward: bool, culled: bool = True,
              if culled else work["all_pairs"] * pair_flops)
     nbytes = 4 * (t + 5 * t * r + 64 * t * k)   # cnt, dirs/mind/t0, candidates
     if cache:
-        nbytes += CACHE_BYTES * work["pairs"] + 4 * 8 * t * r
+        nbytes += CACHE_BYTES * work["pairs"] + 4 * t * r
     tf32_flops = 0
     if backward:
         nbytes += 4 * (2 * 16 * t * r + 64 * t * k)   # channels, grads in/out
@@ -495,6 +495,23 @@ def bound(inputs, work: dict, backward: bool, culled: bool = True,
     by_ops = (flops / PEAK_F32_FLOPS + tf32_flops / PEAK_TF32_FLOPS) * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
                                                            "operations")
+
+
+def _reached(f) -> tuple[torch.Tensor, torch.Tensor]:
+    """Of the twin's pairs `f` in tile order: the (T, R, K) steps each ray
+    reaches (its stop included), and the (T, R) rays whose transmittance
+    at a step they reach comes within LIVE_GATE_REL of T_MIN, where the
+    kernel's running product may stop a ray a step apart from the twin's
+    cumulative one."""
+    from lidar_rt_tpu_torch.ops import geometry
+
+    reached = torch.cat([torch.ones_like(f.live[..., :1]),
+                         torch.cumprod(f.live.int(), -1)[..., :-1].bool()],
+                        -1)
+    t_incl = f.t_excl * (1.0 - f.alpha)
+    border = (reached & ((t_incl - geometry.T_MIN).abs()
+                         <= LIVE_GATE_REL * geometry.T_MIN)).any(-1)
+    return reached, border
 
 
 def cache_check(inputs, got: torch.Tensor) -> dict[str, int]:
@@ -515,20 +532,15 @@ def cache_check(inputs, got: torch.Tensor) -> dict[str, int]:
 
     with torch.no_grad():
         f = cuda_tracer._pairs(*inputs[:8])
-        want = cuda_tracer.encode_cache(f, inputs.dirs, inputs.axes,
-                                        inputs.sign, inputs.sh).pairs
+        want = cuda_tracer.encode_cache(f, inputs.cnt).pairs
 
         def ckr(x):                                  # (T, R, K) -> (T, K, R)
             return x.transpose(1, 2)
 
-        live = ckr(f.live)
-        t, k, r = live.shape
-        reached = torch.cat([torch.ones_like(live[:, :1]),
-                             torch.cumprod(live.int(), 1)[:, :-1].bool()], 1)
-        t_incl = ckr(f.t_excl * (1.0 - f.alpha))
-        border = (reached & ((t_incl - geometry.T_MIN).abs()
-                             <= LIVE_GATE_REL * geometry.T_MIN)
-                  ).any(1, keepdim=True).expand_as(live)
+        reached, border = _reached(f)
+        reached = ckr(reached)
+        t, k, r = reached.shape
+        border = border[:, None, :].expand_as(reached)
         ulp = ALPHA_GATE_ULPS * torch.finfo(torch.float32).eps
         # Before the ALPHA_MAX clamp, which sets every clamped pair to the
         # threshold itself.
@@ -558,23 +570,21 @@ def cache_check(inputs, got: torch.Tensor) -> dict[str, int]:
             "steps": t * k * r}
 
 
-def totals_error(inputs, cache) -> float:
-    """The largest absolute difference between the forward's `totals`
-    (`cache.totals`) and rows 0-7 of the twin's channel sums taken with
-    the kernel's own decoded weights: |alpha| x T at each step it wrote
-    with a positive T, zero elsewhere.  This holds the sums apart from the
-    encoding, which `cache_check` holds to the twin's (to one bfloat16 ulp
-    a value: a weight's two ulps would move a total by up to 2^-6 of its
-    terms' magnitude, past any useful bar), so the channels' bar applies."""
+def last_index_check(inputs, last: torch.Tensor) -> dict[str, int]:
+    """The forward kernel's last index of each ray (`TracerCache.last`,
+    (T, R) int32) against the twin's (`cuda_tracer.last_index`: the
+    candidate at which the float32 replay stops the ray, else cnt - 1).
+    Counts of rays: `differ`, another index than the twin's; `borderline`,
+    another index on a ray whose twin transmittance comes within
+    LIVE_GATE_REL of T_MIN (excused, as in `cache_check`)."""
     from lidar_rt_tpu_torch.ops import cuda_tracer
 
     with torch.no_grad():
         f = cuda_tracer._pairs(*inputs[:8])
-        d = cache.pairs.float().transpose(1, 2)            # (T, R, K, 2)
-        w = torch.where(d[..., 1] > 0.0, d[..., 0].abs() * d[..., 1], 0.0)
-        want = torch.stack(cuda_tracer._channel_sums(
-            w, f, inputs.dirs, inputs.axes, inputs.sign, inputs.sh), 1)
-        return (cache.totals - want).abs().max().item()
+        _, border = _reached(f)
+        differ = last != cuda_tracer.last_index(f.live, inputs.cnt)
+        return {"rays": last.numel(), "differ": int((differ & ~border).sum()),
+                "borderline": int((differ & border).sum())}
 
 
 def check_cached_pair(inputs, chans, accum, g, what: str,
@@ -584,12 +594,18 @@ def check_cached_pair(inputs, chans, accum, g, what: str,
     forward writing its cache into a NaN-filled buffer (channels to the
     uncached forward's bits, accum within 1e-5 relative; channels and
     accum against the twin; the cache against the twin's encoding,
-    `cache_check`; the totals by `totals_error`), then the decoding
-    backward with the fast sums against its twin (decoding the twin's
-    cache) and the float32 replay, at FAST_COS and FAST_REL.  Each finding goes to `report` before it is
-    checked; every failed check raises, naming `what`.  Returns the
-    largest errors against the twins (`fwd_err`, `bwd_err`) and both
-    caches (`cache`, `twin_cache`)."""
+    `cache_check`; the last indices by `last_index_check`), then the
+    decoding backward with the fast sums against its twin (decoding the
+    twin's cache) and the float32 replay, at FAST_COS and FAST_REL; and
+    the same forward's cache written into a buffer filled with a live pair
+    (a read of an unwritten step decodes as a stop from the NaN-filled
+    buffer and as a composited pair from this one; zeros would decode as a
+    stop too): the gradients from both buffers apart by no more than 4 x
+    the spread of two runs of one buffer (sums with atomics in no fixed
+    order) or 1e-5 x the field's largest magnitude.  Each finding goes to
+    `report` before it is checked; every failed check raises, naming
+    `what`.  Returns the largest errors against the twins (`fwd_err`,
+    `bwd_err`) and both caches (`cache`, `twin_cache`)."""
     from lidar_rt_tpu_torch.ops import cuda_tracer, kernels
 
     t, r = inputs.dirs.shape[:2]
@@ -611,13 +627,7 @@ def check_cached_pair(inputs, chans, accum, g, what: str,
     written = ~cache.pairs[..., 0].isnan()
     cache_err = (cache.pairs.float()
                  - p_cache.pairs.float())[written].abs().max().item()
-    totals_err = totals_error(inputs, cache)
-    # For the record: each row's largest gap from the twin's totals, whose
-    # weights are the twin's own bfloat16 values, beside the row's largest
-    # magnitude.
-    totals_gap = [f"{a:.2e}/{b:.2e}" for a, b in zip(
-        (cache.totals - p_cache.totals).abs().amax((0, 2)).tolist(),
-        p_cache.totals.abs().amax((0, 2)).tolist())]
+    last = last_index_check(inputs, cache.last)
     cache_mib = sum(x.numel() * x.element_size() for x in cache) / 2 ** 20
     report(f"forward {what}, T={t} R={r} K={k}, cache {cache_mib:.1f} MiB: "
            f"channels {'bit-identical' if same else 'DIFFER'} to the "
@@ -625,33 +635,49 @@ def check_cached_pair(inputs, chans, accum, g, what: str,
            f"bar 1e-05); vs twin channels {fwd_err:.3e} (bar {CHAN_ATOL}), "
            f"accum {acc_err:.3e}; cache steps {counts} (bars: stray, "
            f"missed, magnitude and sign 0), written values within "
-           f"{cache_err:.3e} of the twin's; totals within {totals_err:.3e} "
-           f"of the twin's sums with the kernel's decoded weights (bar "
-           f"{CHAN_ATOL}); from the twin's totals, per row, largest gap / "
-           f"largest magnitude {totals_gap} (no bar)")
+           f"{cache_err:.3e} of the twin's; last indices {last} (bar: "
+           f"differ 0)")
     _check(same, f"{what}: cached forward channels vs the uncached "
            "forward's bits")
     _check(acc_rel <= 1e-5, f"{what}: cached forward accum vs the uncached "
            "forward")
     _check(fwd_err <= CHAN_ATOL and acc_ok, f"{what}: cached forward vs its "
            "twin")
-    _check(totals_err <= CHAN_ATOL, f"{what}: cached forward's totals vs "
-           "the twin's sums of its decoded weights")
+    _check(last["differ"] == 0, f"{what}: cached forward's last indices vs "
+           f"the twin's: {last}")
     _check(counts["written"] > 0 and counts["stray"] == counts["missed"]
            == counts["magnitude"] == counts["sign"] == 0,
            f"{what}: the forward's cache against its twin's encoding: "
            f"{counts}")
-    del poisoned, p_chans, p_accum, written
+    del p_chans, p_accum, written
     with torch.no_grad():
         replay = kernels.tracer_backward(*inputs, chans, g)
         got = kernels.tracer_backward(*inputs, chans, g, cache=cache,
                                       fast=True)
+        again = kernels.tracer_backward(*inputs, chans, g, cache=cache,
+                                        fast=True)
         twin = cuda_tracer.backward_tiles_reference(*inputs, chans, g,
                                                     cache=p_cache)
+        _, _, live_cache = kernels.tracer_forward(
+            *inputs, cache=True, cache_out=torch.full_like(poisoned, 0.5))
+        live = kernels.tracer_backward(*inputs, chans, g, cache=live_cache,
+                                       fast=True)
         torch.cuda.synchronize()
+    del poisoned, live_cache
+    rows, poison_ok = [], True
+    for name, a, b, c in zip(TWIN_GRADS, got, again, live):
+        spread = (a - b).abs().max().item()
+        diff = (a - c).abs().max().item()
+        poison_ok &= diff <= max(4.0 * spread, 1e-5 * a.abs().max().item())
+        rows.append(f"{name} {diff:.3e} (two runs of one buffer "
+                    f"{spread:.3e})")
+    report(f"poison {what}: gradients from the cache in a NaN-filled vs a "
+           f"live-pair-filled buffer: {', '.join(rows)}; bar 4 x the spread "
+           f"or 1e-5 x max")
     for x in got:
         _check(bool(torch.isfinite(x).all()), f"{what}: cached backward "
                "finite")
+    _check(poison_ok, f"{what}: poisoned caches: {rows}")
     for label, ref in (("its twin", twin), ("the float32 replay", replay)):
         errs = _grad_errors(got, ref, TWIN_GRADS)
         report(f"backward {what}, T={t} R={r} K={k}, cache decoded, fast "
@@ -1686,7 +1712,8 @@ EXACT_FAST_STEPS = 5       # exact-order training steps with the fast sums
 
 
 def cache_phase(card: str, dev, t_inputs, g_train, x_inputs, x_chans,
-                g_exact, make_trainer, serve, replay_step_ms: float) -> dict:
+                g_exact, make_trainer, serve, replay_step_ms: float,
+                ptxas: dict[str, str]) -> dict:
     """Phase 16: the tracer's training modes (the reference's fast_math
     and cache_fwd) at the flagship shape, on phase 8's training render
     (`t_inputs`, upstream `g_train`) and phase 9's exact-order case.
@@ -1695,13 +1722,13 @@ def cache_phase(card: str, dev, t_inputs, g_train, x_inputs, x_chans,
     bit) and its twin's encoding (`cache_check`); (b) the decoding
     backward with the fast sums against its twin (decoding the twin's
     cache) and the float32 replay, at the cache bars (FAST_COS,
-    FAST_REL), as phases 13 and 15 do on the assembled Waymo scene at
-    both budgets and on a band; (c) the same forward's cache in a
-    NaN-filled buffer and in one filled with a live pair (a read of an
-    unwritten step decodes as a stop in the first and as a composited
-    pair in the second; zeros would decode as a stop too); (d) the exact
+    FAST_REL), and (c) the same forward's cache in a NaN-filled buffer and
+    in one filled with a live pair, as phases 13 and 15 do on the
+    assembled Waymo scene at both budgets and on a band; (d) the exact
     order's sums at one TF32 product against its twin and the 3xTF32
-    sums; (e) CUDA-event times of each mode beside the other; (f)
+    sums; (e) CUDA-event times of each mode beside the other, and the
+    ptxas report (`ptxas`, by device kernel) of the cached pair and the
+    replayed kernels; (f)
     `Trainer` replayed in float32, in the cached mode and in exact order
     with the fast sums, and a serving render's peak memory in the cached
     configuration.
@@ -1714,11 +1741,7 @@ def cache_phase(card: str, dev, t_inputs, g_train, x_inputs, x_chans,
     shape = f"T={t} R={r} K={k}"
     out = {}
 
-    def poisoned(fill):
-        return torch.full(kernels.cache_shape(t, k, r), fill,
-                          dtype=torch.bfloat16, device=dev)
-
-    # (a), (b)
+    # (a), (b), (c)
     with torch.no_grad():
         chans, accum = kernels.tracer_forward(*t_inputs)
     pair = check_cached_pair(
@@ -1727,34 +1750,6 @@ def cache_phase(card: str, dev, t_inputs, g_train, x_inputs, x_chans,
     out["fwd_c_err"], out["bwd_c_err"] = pair["fwd_err"], pair["bwd_err"]
     cache, p_cache = pair["cache"], pair["twin_cache"]
     del pair
-
-    # (c)
-    grads = {}
-    with torch.no_grad():
-        for label, fill in (("nan", float("nan")), ("live", 0.5)):
-            _, _, buf = kernels.tracer_forward(
-                *t_inputs, cache=True, cache_out=poisoned(fill))
-            grads[label] = [kernels.tracer_backward(
-                *t_inputs, chans, g_train, cache=buf, fast=True)
-                for _ in range(2)]
-            del buf
-        torch.cuda.synchronize()
-    nan_a, nan_b = grads["nan"]
-    live = grads["live"][0]
-    rows = []
-    for name, a, b, c in zip(TWIN_GRADS, nan_a, nan_b, live):
-        spread = (a - b).abs().max().item()
-        diff = (a - c).abs().max().item()
-        bar = max(4.0 * spread, 1e-5 * a.abs().max().item())
-        rows.append(f"{name} {'bit-identical' if torch.equal(a, c) else ''}"
-                    f"{'' if torch.equal(a, c) else f'{diff:.3e}'} (two runs "
-                    f"of one buffer {spread:.3e})")
-        _check(bool(torch.isfinite(a).all()) and diff <= bar,
-               f"poisoned caches: {name} {diff:.3e} > {bar:.3e}")
-    print(f"[cache] poison: gradients from the cache in a NaN-filled vs a "
-          f"live-pair-filled buffer: {', '.join(rows)}; sums with atomics "
-          f"in no fixed order: bar 4 x the spread or 1e-5 x max")
-    del grads, nan_a, nan_b, live
 
     # (d)
     with torch.no_grad():
@@ -1778,7 +1773,8 @@ def cache_phase(card: str, dev, t_inputs, g_train, x_inputs, x_chans,
 
     # (e)
     with torch.no_grad():
-        buf = poisoned(0.0)
+        buf = torch.zeros(kernels.cache_shape(t, k, r), dtype=torch.bfloat16,
+                          device=dev)
         ms = {
             "forward": _event_ms(lambda: kernels.tracer_forward(*t_inputs),
                                  20),
@@ -1809,6 +1805,16 @@ def cache_phase(card: str, dev, t_inputs, g_train, x_inputs, x_chans,
     print(f"[cache-times] {card}: {shape} (phase 8's training render) and "
           f"the exact case of phase 9, CUDA events: "
           + ", ".join(f"{key} {v:.3f} ms" for key, v in ms.items()))
+    print(f"[cache-times] cached forward {ms['forward_cache']:.3f} ms = "
+          f"{ms['forward_cache'] / ms['forward']:.3f} x the uncached "
+          f"forward's; cached backward {ms['backward_cache']:.3f} ms = "
+          f"{ms['backward_cache'] / ms['backward_fast']:.3f} x the replayed "
+          f"fast backward's; ptxas: " + "; ".join(
+              f"{kernel}: {ptxas[kernel]}" for kernel in (
+                  "tracer_forward_kernel<false>",
+                  "tracer_forward_kernel<true>",
+                  "tracer_backward_kernel<0,true>",
+                  "tracer_backward_cache_kernel<true>")))
     del cache, p_cache, chans, accum
 
     # (f) The replayed float32 trainer beside the cached one, from the same
@@ -1878,18 +1884,182 @@ def cache_phase(card: str, dev, t_inputs, g_train, x_inputs, x_chans,
     return out
 
 
+def sensor(dev):
+    """The flagship scan's sensor: its grid, the pose of frame 0 (2 m up)
+    and the N_FRAMES poses 1 m apart along x."""
+    from lidar_rt_tpu_torch.core import rays as rays_lib
+
+    grid = rays_lib.SensorGrid.from_bounds(H, (-0.31, 0.04), pixel_offset=0.5,
+                                           device=dev)
+    s2w = torch.eye(4, device=dev)
+    s2w[2, 3] = 2.0
+    poses = s2w.repeat(N_FRAMES, 1, 1)
+    poses[:, 0, 3] = torch.arange(N_FRAMES, device=dev, dtype=torch.float32)
+    return grid, s2w, poses
+
+
+def ground_truth(scene, grid, poses):
+    """The scene's renders at the poses as recorded frames (phase 8)."""
+    from lidar_rt_tpu_torch import sim
+    from lidar_rt_tpu_torch.data.frames import LiDARFrames
+
+    with torch.no_grad():
+        gt = [sim.render_scan(scene, grid, W, poses[f], f)
+              for f in range(N_FRAMES)]
+    depth = torch.stack([o["depth"] * (o["channels"][..., 4] > 0.5)
+                         for o in gt])
+    return LiDARFrames(grid, W, poses.clone(), depth,
+                       torch.stack([o["intensity"] for o in gt]))
+
+
+TIMES_ROUNDS, TIMES_LAUNCHES = 5, 20
+
+
+def kernel_times(seed: int, save: str | None, against: str | None) -> None:
+    """`--times`: the kernels of the tree this script lies in, built and
+    timed without the checks, so that a copy of the script run from a
+    checkout of another commit times that commit's kernels the same way:
+    run both in one call, in turns.  Prints the ptxas report and occupancy,
+    then CUDA-event ms of every kernel mode, TIMES_ROUNDS rounds of
+    TIMES_LAUNCHES launches each, all modes in turn within a round (median,
+    min and max over the rounds): the tile-order modes at phase 8's
+    training inputs (the trainer's tile inputs at pose 0 after 30 steps),
+    the exact ones at phase 3's serving inputs.  The kernels' outputs on
+    the serving inputs (deterministic; each backward run twice, for the
+    atomics' spread) go to `save`; with `against`, a file that another
+    tree saved, they are held to it: the channels to the bit, accum and
+    every gradient within 4 x the larger spread of two runs or 1e-5 of the
+    field's largest magnitude."""
+    from lidar_rt_tpu_torch.ops import cuda_tracer, kernels, tracer
+    from lidar_rt_tpu_torch.scene import compose, scene_from_numpy
+    from lidar_rt_tpu_torch.train import loop, options
+
+    card = _card()
+    print(card, flush=True)
+    dev = torch.device("cuda", 0)
+    libs = kernels.build()
+    for name, lib in libs.items():
+        for kernel, report in ptxas_report(
+                lib.with_suffix(".log").read_text()):
+            print(f"[times-build] {name} ptxas: {kernel}: {report}")
+    k = tracer.TraceConfig().tile.max_per_tile
+    print(f"[times-build] K={k}, resident blocks per SM x threads per "
+          "block: " + ", ".join(f"{kernel} {b} x {n}" for kernel, (b, n)
+                                in kernels.occupancy(k).items()))
+    scene = scene_from_numpy(scene_arrays(seed), dev)
+    grid, s2w, poses = sensor(dev)
+    cfg = tracer.TraceConfig()
+    trainer = loop.Trainer(
+        scene_from_numpy(perturbed(scene_arrays(seed), seed + 2), dev),
+        ground_truth(scene, grid, poses), options.experiment_options(
+            seed=seed), cfg)
+    trainer.run(TRAIN_STEPS + 10, log_every=TRAIN_STEPS + 10)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    with torch.no_grad():
+        bundle, _ = compose(scene, 0)
+        serve, _ = cuda_tracer.tile_inputs(
+            bundle, grid, W, s2w, scene.background.active_sh_degree, cfg.tile)
+        bundle, _ = compose(trainer.state.scene, 0)
+        train, _ = cuda_tracer.tile_inputs(
+            bundle, grid, W, poses[0],
+            trainer.state.scene.background.active_sh_degree, cfg.tile)
+        del trainer, bundle
+        chans, accum = kernels.tracer_forward(*serve)
+        x_chans, x_accum = kernels.tracer_forward(*serve, exact=True)
+        t_chans, _ = kernels.tracer_forward(*train)
+        g_serve, g_exact, g_train = (
+            torch.randn(c.shape, generator=gen, device=dev)
+            for c in (chans, x_chans, t_chans))
+        for g in (g_serve, g_exact, g_train):
+            g[:, 9:] = 0.0       # raw T: never read by the training loss
+        buf = torch.zeros(kernels.cache_shape(train.dirs.shape[0], k,
+                                              train.dirs.shape[1]),
+                          dtype=torch.bfloat16, device=dev)
+        _, _, cache = kernels.tracer_forward(*train, cache=True,
+                                             cache_out=buf)
+        fns = {
+            "forward": lambda: kernels.tracer_forward(*train),
+            "forward_cache": lambda: kernels.tracer_forward(
+                *train, cache=True, cache_out=buf),
+            "backward": lambda: kernels.tracer_backward(*train, t_chans,
+                                                        g_train),
+            "backward_fast": lambda: kernels.tracer_backward(
+                *train, t_chans, g_train, fast=True),
+            "backward_cache": lambda: kernels.tracer_backward(
+                *train, t_chans, g_train, cache=cache, fast=True),
+            "backward_cache_3xtf32": lambda: kernels.tracer_backward(
+                *train, t_chans, g_train, cache=cache),
+            "forward_serving": lambda: kernels.tracer_forward(*serve),
+            "exact_forward": lambda: kernels.tracer_forward(*serve,
+                                                            exact=True),
+            "exact_backward": lambda: kernels.tracer_backward(
+                *serve, x_chans, g_exact, exact=True),
+            "exact_backward_fast": lambda: kernels.tracer_backward(
+                *serve, x_chans, g_exact, exact=True, fast=True)}
+        ms = {name: [] for name in fns}
+        for _ in range(TIMES_ROUNDS):
+            for name, fn in fns.items():
+                ms[name].append(_event_ms(fn, TIMES_LAUNCHES))
+    print(f"[times] {card}: CUDA events, {TIMES_ROUNDS} rounds of "
+          f"{TIMES_LAUNCHES} launches, median (min-max): " + ", ".join(
+              f"{name} {statistics.median(v):.4f} ({min(v):.4f}-"
+              f"{max(v):.4f}) ms" for name, v in ms.items()), flush=True)
+    with torch.no_grad():
+        outs = {"chans": chans, "accum": accum, "exact_chans": x_chans,
+                "exact_accum": x_accum}
+        for label, kw in (("replay", {}), ("replay_fast", {"fast": True}),
+                          ("exact", {"exact": True}),
+                          ("exact_fast", {"exact": True, "fast": True})):
+            c, g = (x_chans, g_exact) if kw.get("exact") else (chans,
+                                                                g_serve)
+            runs = [kernels.tracer_backward(*serve, c, g, **kw)
+                    for _ in range(2)]
+            for name, *fields in zip(TWIN_GRADS, *runs):
+                outs[f"{label} {name}"] = fields
+        torch.cuda.synchronize()
+    if save:
+        torch.save(outs, save)
+    if not against:
+        return
+    other = torch.load(against, map_location=dev)
+    for key in ("chans", "exact_chans"):
+        same = torch.equal(outs[key], other[key])
+        print(f"[times-against] {key}: {'bit-identical' if same else 'DIFFER'}")
+        _check(same, f"{key} against {against}")
+    for key in [key for key in outs if "chans" not in key]:
+        mine = outs[key] if isinstance(outs[key], list) else [outs[key]] * 2
+        theirs = (other[key] if isinstance(other[key], list)
+                  else [other[key]] * 2)
+        spread = max((mine[0] - mine[1]).abs().max().item(),
+                      (theirs[0] - theirs[1]).abs().max().item())
+        diff = (mine[0] - theirs[0]).abs().max().item()
+        bar = max(4.0 * spread, 1e-5 * theirs[0].abs().max().item())
+        print(f"[times-against] {key}: max abs diff {diff:.3e}, spread of "
+              f"two runs {spread:.3e} (bar {bar:.3e})")
+        _check(diff <= bar, f"{key} against {against}")
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--times", action="store_true",
+                        help="only build and time this tree's kernels "
+                        "(kernel_times)")
+    parser.add_argument("--save", help="with --times: save the kernels' "
+                        "outputs on the serving inputs to this file")
+    parser.add_argument("--against", help="with --times: hold them to "
+                        "another tree's saved outputs")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device: "
                          "torch.cuda.is_available() is False")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.times:
+        kernel_times(args.seed, args.save, args.against)
+        return
 
     from lidar_rt_tpu_torch import sim
-    from lidar_rt_tpu_torch.core import rays as rays_lib
     from lidar_rt_tpu_torch.ops import cuda_tracer, geometry, kernels, tracer
     from lidar_rt_tpu_torch.scene import compose, scene_from_numpy
 
@@ -1903,10 +2073,12 @@ def main() -> None:
     build_s = time.perf_counter() - t
     print(f"[build] {build_s:.2f} s -> "
           + ", ".join(p.name for p in libs.values()))
+    ptxas = {}
     for name, lib in libs.items():
         for kernel, report in ptxas_report(
                 lib.with_suffix(".log").read_text()):
             print(f"[build] {name} ptxas: {kernel}: {report}")
+            ptxas[kernel] = report
     k_flagship = tracer.TraceConfig().tile.max_per_tile
     print(f"[occupancy] K={k_flagship}, resident blocks per SM x threads "
           "per block: " + ", ".join(
@@ -1920,10 +2092,7 @@ def main() -> None:
     print(f"[scene] {scene.background.capacity} background + "
           f"{scene.num_actors}x{scene.actors.capacity} actor surfels, "
           f"{scene.num_frames} frames, {time.perf_counter() - t:.2f} s")
-    grid = rays_lib.SensorGrid.from_bounds(H, (-0.31, 0.04), pixel_offset=0.5,
-                                           device=dev)
-    s2w = torch.eye(4, device=dev)
-    s2w[2, 3] = 2.0
+    grid, s2w, poses = sensor(dev)
     cfg = tracer.TraceConfig()
     degree = scene.background.active_sh_degree
 
@@ -1953,8 +2122,6 @@ def main() -> None:
     _check(kacc_ok, "kernel accum vs plain twin")
 
     # 4. The slice: serve requests through the port's entry points.
-    poses = s2w.repeat(N_FRAMES, 1, 1)
-    poses[:, 0, 3] = torch.arange(N_FRAMES, device=dev, dtype=torch.float32)
     torch.cuda.reset_peak_memory_stats(dev)
     kernels.reset_launches()
     scan = sim.render_scan(scene, grid, W, s2w, 0)
@@ -2084,17 +2251,9 @@ def main() -> None:
     _check_grads(rgrad_err, "render gradients")
 
     # 8. Training at full width.
-    from lidar_rt_tpu_torch.data.frames import LiDARFrames
     from lidar_rt_tpu_torch.train import loop, options
 
-    with torch.no_grad():
-        gt = [sim.render_scan(scene, grid, W, poses[f], f)
-              for f in range(N_FRAMES)]
-    depth = torch.stack([o["depth"] * (o["channels"][..., 4] > 0.5)
-                         for o in gt])
-    frames = LiDARFrames(grid, W, poses.clone(), depth,
-                         torch.stack([o["intensity"] for o in gt]))
-    del gt
+    frames = ground_truth(scene, grid, poses)
     opts = options.experiment_options(seed=args.seed)
     trainer = loop.Trainer(
         scene_from_numpy(perturbed(scene_arrays(args.seed), args.seed + 2),
@@ -2511,7 +2670,7 @@ def main() -> None:
             scene_arrays(args.seed), args.seed + 2), dev), frames, opts,
             cfg),
         lambda cfg: sim.render_scan(scene, grid, W, s2w, 0, cfg),
-        replay_step_ms)
+        replay_step_ms, ptxas)
     kern_err = max(kern_err, data["fwd_err"], sharded["fwd_err"])
     bwd_abs = max(bwd_abs, data["bwd_err"], sharded["bwd_err"])
     exact_fwd_err = max(exact_fwd_err, sharded["fwd_x_err"])

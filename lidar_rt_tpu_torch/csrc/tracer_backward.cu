@@ -10,8 +10,8 @@
 // (lidar_rt_tpu/ops/pallas_sort.py, called at pallas_backward.py:279-292
 // and 377-425).  In tile order each pair's values come from a replay of
 // the forward (float32), or with the cache (the reference's cache_fwd,
-// pallas_backward.py:183-200,243-270) from the forward's bf16 residuals;
-// see "Cache" below.  The boundary is the Pallas kernel's: the forward's
+// pallas_backward.py:183-200,243-270) from the forward's bf16 residuals,
+// in tracer_backward_cache_kernel; see "Cache" below.  The boundary is the Pallas kernel's: the forward's
 // inputs
 // plus the forward channels and their upstream gradients, both
 // channel-major (T, 16, R); the output is one
@@ -23,7 +23,8 @@
 // The math (per ray, per candidate j composited front to back):
 //   gw_j     = dL/dw_j = sum_ch g_ch c_ch,j  (channels 0-7 of the forward)
 //   A_j      = sum_{k>j} gw_k w_k = gw_total - prefix_j, with gw_total =
-//              sum_ch g_ch S_ch from the forward's totals
+//              sum_ch g_ch S_ch from the forward's channels (the cache
+//              decode sums A_j itself, walking back to front)
 //   dL/da_j  = gw_j T_j - (A_j + g_8 T_out + g_9 T_raw) / max(1 - a_j, 1e-6)
 // zero where a gate failed or the ALPHA_MAX clamp held, then
 //   a -> (opacity, G) -> (u, v) -> (a_u, a_v, 1/s, t) -> (p, n.d, w1.d,
@@ -102,28 +103,46 @@
 // warps per SM) with 63 shared-memory atomics per hit on random columns:
 // ~10x slower.
 //
-// Cache (tile order): tracer_backward_kernel<kFromCache, ...> reads, for
-// each step it visits of a live ray, the (signed gated alpha, signed
-// exclusive transmittance) pair that tracer_forward_kernel<true> wrote
-// there, and decodes it as pallas_backward.py:183-200,243-270 does: alpha
-// = |x|, the gradient gate is x > 0 (a gate failed at 0, the ALPHA_MAX
-// clamp held below 0), T_excl = |y|, the live bit is y > 0, and G = alpha
-// / max(opacity, 1e-12) in place of the exp.  The ray stops at the first
-// pair whose live bit is off, and that pair gets only the raw-T term, as
-// in the replay (the reference zeroes a stopped ray's pairs per
-// 128-candidate chunk only).  The intersection's locals that the gradient
-// chain consumes (t, u, v, n.d, w1.d, w2.d) are recomputed, and the
-// running prefix of gw * w is kept as in the replay; what the decode saves
-// is the exp, the gates and the transmittance product.  gw_total, from
-// which each pair's suffix is taken, comes from the forward's `totals`
-// (its channel sums with the decoded weights, tracer_forward.cu), so that
-// the total and the decoded prefix agree.  The cache is
-// written only at the steps the forward visits, so this kernel must visit
-// no other: the same box test (rounded alike in both translation units,
-// tracer_common.cuh), candidate 0 always, and each ray stopped where the
-// forward stopped it, by the live bit the forward wrote.  A block's stop
-// (no ray alive) may come at an earlier staging boundary here (64
-// candidates against the forward's 128), which reads less, never more.
+// Cache (tile order): tracer_backward_cache_kernel reads, for each step
+// it visits, the (signed gated alpha, signed exclusive transmittance) pair
+// that tracer_forward_kernel<true> wrote there, and decodes it as
+// pallas_backward.py:183-200,243-270 does: alpha = |x|, the gradient gate
+// is x > 0 (a gate failed at 0, the ALPHA_MAX clamp held below 0), T_excl
+// = |y|, the live bit is y > 0, and G = alpha / max(opacity, 1e-12) in
+// place of the exp.  A pair whose live bit is off is the ray's stop, and
+// gets only the raw-T term, as in the replay (the reference zeroes a
+// stopped ray's pairs per 128-candidate chunk only).  The intersection's
+// locals that the gradient chain consumes (t, u, v, n.d, w1.d, w2.d) are
+// recomputed (splat_locals: with no gate left to decide, the range takes
+// the fast division).  Each ray is walked back to front, from the last
+// index the forward stored (the candidate that stopped it, or the tile's
+// last) down to candidate 0, chunks, steps and bits in reverse, and A_j
+// is the sum of the gw w of the pairs already walked: no gw_total and no
+// prefix, so no second set of the forward's sums is needed to make the
+// two agree.  The cache is written only at the steps the forward visits,
+// so this kernel must visit no other: the same box test (rounded alike in
+// both translation units, tracer_common.cuh), candidate 0 always, and no
+// step above the ray's last index.  A block stages no chunk above its
+// rays' largest last index, so it reads no more than a walk to the stop.
+//
+// What bounds it on this card (PERF.md, chip_smoke.py): as the replay,
+// the instructions of each visited step, plus the load of the step's pair
+// from device memory, which the chain waits for (the cache, 168 MiB at
+// the flagship training shape, is over three times L2; the first,
+// front-to-back design took 0.420 ms where the replay takes 0.344, and
+// loading each pair at its step, with the rest of this design, 0.399).
+// What the design does about it: each pair is loaded two steps ahead (two
+// registers in turn; a rotated queue waits on its moves), the decode drops
+// the exp, the gates and the transmittance product, the candidates are
+// staged whole in rows of kQuads + 1 float4 slots (constant offsets for
+// every read; the swizzled rows of the forwards cost an index computation
+// each, 6% here), and the SH basis, which the colour contraction already
+// keeps in shared memory, is read from there in rows of kBasisRow floats
+// per lane (constant offsets again) rather than held in 16 registers (80
+// registers; 8 bytes of spill stores with the fast sums, as the replay's).
+// Together 0.42 -> 0.33 ms, under the replay.
+// Staging a chunk's pairs on chip (cp.async, TMA) does not fit: the 6
+// blocks per SM leave ~0.4 KB of shared memory per block.
 //
 // fast (the reference's fast_math, pallas_backward.py:127-135, its d_sh
 // contraction in one bf16 pass): colour_sums takes each d_sh product as
@@ -145,14 +164,20 @@ constexpr int kSumChunk = 64;  // candidates the sums kernel stages per round
 constexpr int kWarps = kThreads / 32;
 constexpr int kSlots = 8;      // candidates per colour contraction
 constexpr int kWalkRays = 256;  // rays per exact walk block
-constexpr int kTotalRows = 8;   // rows of the cache's (T, 8, R) totals
+// The cache kernel: candidates staged per round, in rows of kCacheStride
+// float4 slots (60 x 17 x 16 bytes, where 64 would cost a block per SM),
+// and its shared basis layout (basis_word).
+constexpr int kCacheChunk = 60;
+constexpr int kCacheStride = kQuads + 1;
+constexpr int kBasisRow = 17;
 
 // Where tracer_backward_kernel takes each pair's values: a replay of the
-// forward (tile order), the exact walk's (dL/dalpha, w) pairs, or the
-// forward's cached residuals (tile order).
-enum PairSource { kReplay = 0, kFromPairs = 1, kFromCache = 2 };
+// forward (tile order) or the exact walk's (dL/dalpha, w) pairs.
+enum PairSource { kReplay = 0, kFromPairs = 1 };
 
 static_assert(kSumChunk <= kThreads, "each thread stages one candidate");
+static_assert(kCacheChunk <= 64 && kCacheChunk <= kThreads,
+              "the cache kernel's 64-bit step masks; one candidate a thread");
 static_assert(kWalkRays % 32 == 0, "whole warps");
 
 // One butterfly step: a lane keeps the half of its kHalf * 2 live values
@@ -195,6 +220,26 @@ __device__ __forceinline__ int lane_word(int r, int l) {
   return r * 32 + ((l + 4 * r) & 31);
 }
 
+// Where a warp's shared copy of its lanes' SH basis keeps lane l's value
+// s: with kRow = 0 at lane_word(s, l); else in a row of kRow >= 16 floats
+// per lane, at l kRow + s, so that a lane reads its own values at constant
+// offsets (kRow = 17: each of a warp's 32 rows starts in another bank).
+template <int kRow>
+__device__ __forceinline__ int basis_word(int s, int l) {
+  return kRow == 0 ? lane_word(s, l) : l * kRow + s;
+}
+
+// Lane l's SH basis read as an array from its warp's shared copy: the
+// cache kernel keeps no copy in registers.
+template <int kRow>
+struct SharedBasis {
+  const float* s_basis;
+  int lane;
+  __device__ __forceinline__ float operator[](int s) const {
+    return s_basis[basis_word<kRow>(s, lane)];
+  }
+};
+
 // x as hi + lo for the TF32 tensor cores, which read only the top 19
 // bits of an operand: hi is x with its low 13 mantissa bits cleared and lo
 // = x - hi (exact), so hi + lo, as read, is x to within 2^-20 |x|.  Two
@@ -232,7 +277,7 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
 // takes one, of the operands rounded to TF32.  Every lane of the warp
 // calls it.  Not inlined: its fragments would otherwise share the
 // candidate loop's registers and spill the loop's state.
-template <bool kFast>
+template <bool kFast, int kRow = 0>
 __device__ __noinline__ void colour_sums(const float* s_basis,
                                          const float* s_x, int pending,
                                          int slot_cand,
@@ -244,10 +289,10 @@ __device__ __noinline__ void colour_sums(const float* s_basis,
 #pragma unroll
   for (int q = 0; q < 4; ++q) {  // lanes [8 q, 8 q + 8)
     const int l0 = 8 * q + tig, l1 = l0 + 4;
-    const float a[4] = {s_basis[lane_word(grp, l0)],
-                        s_basis[lane_word(grp + 8, l0)],
-                        s_basis[lane_word(grp, l1)],
-                        s_basis[lane_word(grp + 8, l1)]};
+    const float a[4] = {s_basis[basis_word<kRow>(grp, l0)],
+                        s_basis[basis_word<kRow>(grp + 8, l0)],
+                        s_basis[basis_word<kRow>(grp, l1)],
+                        s_basis[basis_word<kRow>(grp + 8, l1)]};
     unsigned ah[4], al[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -294,16 +339,14 @@ __device__ __noinline__ void colour_sums(const float* s_basis,
 }
 
 // A ray's inputs: its direction, min range and t0, the upstream gradients
-// of its 10 channel rows, gw_total = sum_ch g_ch S_ch over the totals of
-// rows 0-7 in `sums` (the forward's channels, or the cache's totals), its
-// T_out and g_9 T_raw.
+// of its 10 channel rows, gw_total = sum_ch g_ch S_ch over rows 0-7 of the
+// forward's channels `fwd`, its T_out and g_9 T_raw.
 __device__ __forceinline__ void load_ray(
     long long ray_at, int rays, const float* __restrict__ dirs,
     const float* __restrict__ mind, const float* __restrict__ t0,
-    const float* __restrict__ fwd, const float* __restrict__ sums,
-    const float* __restrict__ up, float& dx, float& dy, float& dz,
-    float& min_t, float& trans0, float (&g)[10], float& gw_total,
-    float& t_out, float& g_raw) {
+    const float* __restrict__ fwd, const float* __restrict__ up, float& dx,
+    float& dy, float& dz, float& min_t, float& trans0, float (&g)[10],
+    float& gw_total, float& t_out, float& g_raw) {
   dx = dirs[ray_at * 3 + 0];
   dy = dirs[ray_at * 3 + 1];
   dz = dirs[ray_at * 3 + 2];
@@ -312,42 +355,54 @@ __device__ __forceinline__ void load_ray(
 #pragma unroll
   for (int c = 0; c < 10; ++c) g[c] = up[c * rays];
 #pragma unroll
-  for (int c = 0; c < 8; ++c) gw_total += g[c] * sums[c * rays];
+  for (int c = 0; c < 8; ++c) gw_total += g[c] * fwd[c * rays];
   t_out = fwd[8 * rays];
   g_raw = g[9] * fwd[9 * rays];
 }
 
-// The terms of one pair of a ray in compositing order, from its gated
-// alpha, the transmittance before it, its live bit (the forward's T_MIN
-// test) and its gradient gate (every gate passed and the ALPHA_MAX clamp
-// off): the hit's weight w, dL/dalpha and the colour terms x_ch of the SH
-// gradient, which the caller zeroes; advances the running prefix of gw *
-// w.  A pair that is not live is the stop hit, seen by the raw-T row
-// only.
-template <typename Rows>
+// The terms of one pair of a ray, from its gated alpha, the
+// transmittance before it, its live bit (the forward's T_MIN test) and
+// its gradient gate (every gate passed and the ALPHA_MAX clamp off): the
+// hit's weight w, dL/dalpha and the colour terms x_ch of the SH gradient,
+// which the caller zeroes.  `running` is the ray's running sum of gw * w:
+// walking in compositing order (kSuffix false) the prefix, which this
+// pair joins before A_j = gw_total - prefix is taken; walking back to
+// front (kSuffix true) A_j itself, the sum over the pairs after this one,
+// which this pair joins after it is used.  A pair that is not live is the
+// stop hit, seen by the raw-T row only.  `geo` reads the candidate's
+// geometry, `shc` its SH values (RowCand and RowSh, or a QuadCand for
+// both), `basis` the ray's SH basis (as shade_cand).
+template <bool kSuffix, typename Geo, typename Sh, typename Basis>
 __device__ __forceinline__ void pair_terms(
-    float alpha, float trans, bool live, bool grad_gate, float t, Rows s_geo,
-    Rows s_sh, int j, const float basis[16], const float (&g)[10],
-    float gw_total, float t_out, float g_raw, float& prefix, float& d_alpha,
-    float& w, float& x0, float& x1, float& x2) {
+    float alpha, float trans, bool live, bool grad_gate, float t,
+    const Geo& geo, const Sh& shc, const Basis& basis,
+    const float (&g)[10], float gw_total, float t_out, float g_raw,
+    float& running, float& d_alpha, float& w, float& x0, float& x1,
+    float& x2) {
   const float one_m = fmaxf(1.0f - alpha, 1e-6f);
   if (!live) {
     if (grad_gate) d_alpha = -__fdividef(g_raw, one_m);
   } else if (alpha > 0.0f) {
     w = alpha * trans;
     float c0, c1, c2;
-    shade(basis, s_sh, j, c0, c1, c2);
+    shade_cand(basis, shc, c0, c1, c2);
     const float col0 = c0 + 0.5f;
-    const float sg = s_geo[kSign][j];
+    const float sg = geo.back().m.w;
+    const float3 n = geo.normal();
     const float gw = g[0] * fmaxf(col0, 0.0f) + g[1] * (c1 + 0.5f)
                      + g[2] * (c2 + 0.5f) + g[3] * t + g[4]
-                     + sg * (g[5] * s_geo[kNx][j] + g[6] * s_geo[kNy][j]
-                             + g[7] * s_geo[kNz][j]);
-    prefix += gw * w;
+                     + sg * (g[5] * n.x + g[6] * n.y + g[7] * n.z);
+    float after;  // A_j
+    if (kSuffix) {
+      after = running;
+      running += gw * w;
+    } else {
+      running += gw * w;
+      after = gw_total - running;
+    }
     if (grad_gate) {
-      const float suffix = gw_total - prefix;
       d_alpha = gw * trans
-                - __fdividef(suffix + g[8] * t_out + g_raw, one_m);
+                - __fdividef(after + g[8] * t_out + g_raw, one_m);
     }
     x0 = col0 > 0.0f ? g[0] * w : 0.0f;
     x1 = g[1] * w;
@@ -365,9 +420,10 @@ __device__ __forceinline__ void replay_hit(
     float& x0, float& x1, float& x2) {
   const float next = next_trans(trans, h.alpha);
   const bool live = !(next < kTMin);
-  pair_terms(h.alpha, trans, live, h.alpha > 0.0f && h.alpha_raw < kAlphaMax,
-             h.t, s_geo, s_sh, j, basis, g, gw_total, t_out, g_raw, prefix,
-             d_alpha, w, x0, x1, x2);
+  pair_terms<false>(h.alpha, trans, live,
+                    h.alpha > 0.0f && h.alpha_raw < kAlphaMax, h.t,
+                    RowCand<Rows>{s_geo, j}, RowSh<Rows>{s_sh, j}, basis, g,
+                    gw_total, t_out, g_raw, prefix, d_alpha, w, x0, x1, x2);
   if (!live) {
     alive = false;
   } else if (h.alpha > 0.0f) {
@@ -375,27 +431,47 @@ __device__ __forceinline__ void replay_hit(
   }
 }
 
-// Decodes the forward's cached residuals `res` (signed gated alpha, signed
-// exclusive transmittance) of candidate j (see "Cache" above) in place of
-// a replay: h gets the intersection's locals and G = alpha / opacity;
-// then pair_terms; clears alive at the stop.
-template <typename Rows>
+// The intersection's locals that the gradient chain consumes (n.d, t,
+// w1.d, w2.d, u, v) of a pair that passed every gate in the forward: the
+// decode decides no gate, so none is tested, and t takes the fast
+// division (2 ulp; the forward's IEEE t decided the range gate).
+template <typename Cand>
+__device__ __forceinline__ Hit splat_locals(const Cand& cand, float dx,
+                                            float dy, float dz) {
+  Hit h = {};
+  const float3 n = cand.normal();
+  const GeoBack b = cand.back();
+  h.qd = dot3_rn(dx, dy, dz, n.x, n.y, n.z);
+  h.t = __fdividef(cand.p(), h.qd);
+  h.bu = dot3_rn(dx, dy, dz, b.w1.x, b.w1.y, b.w1.z);
+  h.bv = dot3_rn(dx, dy, dz, b.w2.x, b.w2.y, b.w2.z);
+  h.u = __fmul_rn(__fadd_rn(b.w1.w, __fmul_rn(h.t, h.bu)), b.m.x);
+  h.v = __fmul_rn(__fadd_rn(b.w2.w, __fmul_rn(h.t, h.bv)), b.m.y);
+  return h;
+}
+
+// Decodes the forward's cached residuals `res`, the bits of one
+// __nv_bfloat162 (signed gated alpha in the low half, signed exclusive
+// transmittance in the high), of candidate `cand` (see "Cache" above) in
+// place of a replay: h gets the intersection's locals and G = alpha /
+// opacity; then pair_terms, walking back to front (`suffix`, A_j).
+template <typename Cand, typename Basis>
 __device__ __forceinline__ void decode_hit(
-    float2 res, Rows s_geo, Rows s_sh, int j, float dx, float dy, float dz,
-    float min_t, const float basis[16], const float (&g)[10],
-    float gw_total, float t_out, float g_raw, float& prefix, bool& alive,
-    Hit& h, float& d_alpha, float& w, float& x0, float& x1, float& x2) {
-  const float alpha = fabsf(res.x);
-  const bool live = res.y > 0.0f;
+    unsigned res, const Cand& cand, float dx, float dy, float dz,
+    const Basis& basis, const float (&g)[10], float t_out,
+    float g_raw, float& suffix, Hit& h, float& d_alpha, float& w, float& x0,
+    float& x1, float& x2) {
+  const float x = __uint_as_float(res << 16);
+  const float y = __uint_as_float(res & 0xffff0000u);
+  const float alpha = fabsf(x);
   if (alpha > 0.0f) {
-    h = intersect<false>(s_geo, j, dx, dy, dz, min_t);
+    h = splat_locals(cand, dx, dy, dz);
     h.alpha = alpha;
-    h.g = __fdividef(alpha, fmaxf(s_geo[kOpac][j], 1e-12f));
+    h.g = __fdividef(alpha, fmaxf(cand.back().m.z, 1e-12f));
   }
-  pair_terms(alpha, fabsf(res.y), live, res.x > 0.0f, h.t, s_geo, s_sh, j,
-             basis, g, gw_total, t_out, g_raw, prefix, d_alpha, w, x0, x1,
-             x2);
-  if (!live) alive = false;
+  pair_terms<true>(alpha, fabsf(y), y > 0.0f, x > 0.0f, h.t, cand, cand,
+                   basis, g, 0.0f, t_out, g_raw, suffix, d_alpha, w, x0, x1,
+                   x2);
 }
 
 // The chain of one pair from dL/dalpha and its weight w to the candidate's
@@ -405,14 +481,15 @@ struct PairGrad {
   float d_qd, d_bu, d_bv, d_p, d_au, d_av, d_is0, d_is1, d_op, sw;
 };
 
-template <typename Rows>
-__device__ __forceinline__ PairGrad pair_grad(Rows s_geo, int j,
-                                              const Hit& h, float d_alpha,
-                                              float w, float g3) {
+template <typename Cand>
+__device__ __forceinline__ PairGrad pair_grad(const Cand& cand, const Hit& h,
+                                              float d_alpha, float w,
+                                              float g3) {
   PairGrad p;
-  const float is0 = s_geo[kInvS0][j], is1 = s_geo[kInvS1][j];
+  const GeoBack b = cand.back();
+  const float is0 = b.m.x, is1 = b.m.y;
   p.d_op = d_alpha * h.g;
-  const float d_gg = d_alpha * s_geo[kOpac][j] * h.g;
+  const float d_gg = d_alpha * b.m.z * h.g;
   const float d_u = -d_gg * h.u;
   const float d_v = -d_gg * h.v;
   const float d_t = d_u * is0 * h.bu + d_v * is1 * h.bv + g3 * w;
@@ -420,27 +497,74 @@ __device__ __forceinline__ PairGrad pair_grad(Rows s_geo, int j,
   p.d_qd = -p.d_p * h.t;
   p.d_au = d_u * is0;
   p.d_av = d_v * is1;
-  p.d_is0 = d_u * (s_geo[kAu][j] + h.t * h.bu);
-  p.d_is1 = d_v * (s_geo[kAv][j] + h.t * h.bv);
+  p.d_is0 = d_u * (b.w1.w + h.t * h.bu);
+  p.d_is1 = d_v * (b.w2.w + h.t * h.bv);
   p.d_bu = p.d_au * h.t;
   p.d_bv = p.d_av * h.t;
-  p.sw = s_geo[kSign][j] * w;
+  p.sw = b.m.w * w;
   return p;
+}
+
+// The sums of one (warp, candidate) step in which some lane has a pair
+// (`active`: dL/dalpha or w nonzero; the others pass zeros): rows 0-14 for
+// each lane's pair, summed at once in each half-warp into candidate
+// `cand`'s columns, then, if some lane composited it, its colour terms
+// into the warp's next slot, and every kSlots slots colour_sums.  Every
+// lane of the warp calls it.
+template <bool kFast, int kRow = 0, typename Cand>
+__device__ __forceinline__ void step_sums(
+    const Cand& geo, const Hit& h, bool active, float d_alpha, float w,
+    float x0, float x1, float x2, const float (&g)[10], float dx, float dy,
+    float dz, int lane, int cand, long long tile, int k,
+    float* __restrict__ grads, const float* s_basis, float* s_x,
+    int& pending, int& slot_cand) {
+  {
+    float v[16];
+    PairGrad p = {};
+    if (active) p = pair_grad(geo, h, d_alpha, w, g[3]);
+    v[0] = dx * p.d_qd + p.sw * g[5];
+    v[1] = dy * p.d_qd + p.sw * g[6];
+    v[2] = dz * p.d_qd + p.sw * g[7];
+    v[3] = dx * p.d_bu;
+    v[4] = dy * p.d_bu;
+    v[5] = dz * p.d_bu;
+    v[6] = dx * p.d_bv;
+    v[7] = dy * p.d_bv;
+    v[8] = dz * p.d_bv;
+    v[9] = p.d_p;
+    v[10] = p.d_au;
+    v[11] = p.d_av;
+    v[12] = p.d_is0;
+    v[13] = p.d_is1;
+    v[14] = p.d_op;
+    v[15] = 0.0f;
+    const float sum = half_warp_transpose_sum(v, lane);
+    if ((lane & 15) < 15) add_row(grads, tile, lane & 15, k, cand, sum);
+  }
+  if (!__any_sync(0xffffffffu, w != 0.0f)) return;
+  s_x[lane_word(pending, lane)] = x0;
+  s_x[lane_word(kSlots + pending, lane)] = x1;
+  s_x[lane_word(2 * kSlots + pending, lane)] = x2;
+  if (lane == pending) slot_cand = cand;
+  if (++pending == kSlots) {
+    colour_sums<kFast, kRow>(s_basis, s_x, pending, slot_cand, grads, tile,
+                             k, lane);
+    pending = 0;
+  }
 }
 
 // The sums over rays, one thread per ray.  kSrc = kReplay: tile order,
 // the walk replayed here.  kFromPairs: exact order, each pair's
 // (dL/dalpha, w) read from `pairs` (T, K, R), written by
-// tracer_backward_exact_kernel.  kFromCache: tile order, each visited
-// pair decoded from the forward's `cache` (T, K, R).  kFast: the d_sh
-// sums in one TF32 product per term.  A warp visits only the candidates
+// tracer_backward_exact_kernel.  kFast: the d_sh sums in one TF32 product
+// per term.  A warp visits only the candidates
 // that its cone of rays may hit (cone_misses, tested 32 candidates at a
 // time, one per lane): the others have alpha = 0 for all its rays, which the
 // replay would pass over without a change, except candidate 0, where a
 // ray whose t0 is already below T_MIN stops.  Of a visited candidate with
 // a pair in the warp, rows 0-14 are summed at once in each half-warp; the
 // colour terms go to the warp's next slot, and every kSlots candidates
-// colour_sums takes the d_sh rows of all of them.
+// colour_sums takes the d_sh rows of all of them (step_sums).
 template <int kSrc, bool kFast>
 __global__ void __launch_bounds__(kThreads, 6) tracer_backward_kernel(
     const int* __restrict__ cnt, const float* __restrict__ dirs,
@@ -449,9 +573,7 @@ __global__ void __launch_bounds__(kThreads, 6) tracer_backward_kernel(
     const float* __restrict__ inv_scale, const float* __restrict__ opac,
     const float* __restrict__ sign, const float* __restrict__ sh,
     const float* __restrict__ fwd_chans, const float* __restrict__ g_chans,
-    const float2* __restrict__ pairs,
-    const __nv_bfloat162* __restrict__ cache,
-    const float* __restrict__ totals, float* __restrict__ grads, int rays,
+    const float2* __restrict__ pairs, float* __restrict__ grads, int rays,
     int k) {
   constexpr bool kPairs = kSrc == kFromPairs;
   __shared__ float s_geo[kGeo][kSumChunk];
@@ -479,12 +601,8 @@ __global__ void __launch_bounds__(kThreads, 6) tracer_backward_kernel(
   float gw_total = 0.0f, t_out = 0.0f, g_raw = 0.0f;
   if (has_ray) {
     const long long at = tile * kOutRows * rays + ray;
-    const float* sums = kSrc == kFromCache
-                            ? totals + tile * kTotalRows * rays + ray
-                            : fwd_chans + at;
-    load_ray(ray_at, rays, dirs, mind, t0, fwd_chans + at, sums,
-             g_chans + at, dx, dy, dz, min_t, trans0, g, gw_total, t_out,
-             g_raw);
+    load_ray(ray_at, rays, dirs, mind, t0, fwd_chans + at, g_chans + at, dx,
+             dy, dz, min_t, trans0, g, gw_total, t_out, g_raw);
   }
   float basis[16];
   sh_basis(dx, dy, dz, basis);
@@ -547,14 +665,6 @@ __global__ void __launch_bounds__(kThreads, 6) tracer_backward_kernel(
               x2 = g[2] * w;
             }
           }
-        } else if (kSrc == kFromCache) {
-          if (alive) {  // a step the forward wrote: see "Cache" above
-            const float2 res = __bfloat1622float2(
-                cache[(tile * k + base + j) * rays + ray]);
-            decode_hit(res, s_geo, s_sh, j, dx, dy, dz, min_t, basis, g,
-                       gw_total, t_out, g_raw, prefix, alive, h, d_alpha, w,
-                       x0, x1, x2);
-          }
         } else if (alive) {
           // Replay: the same gates, stop and shading as the forward.
           h = intersect(s_geo, j, dx, dy, dz, min_t);
@@ -563,50 +673,174 @@ __global__ void __launch_bounds__(kThreads, 6) tracer_backward_kernel(
         }
         const bool active = d_alpha != 0.0f || w != 0.0f;
         if (!__any_sync(0xffffffffu, active)) continue;
-        const int cand = base + j;
-
-        // Rows 0-14 for this lane's pair (zeros where it has none).
-        {
-          float v[16];
-          PairGrad p = {};
-          if (active) p = pair_grad(s_geo, j, h, d_alpha, w, g[3]);
-          v[0] = dx * p.d_qd + p.sw * g[5];
-          v[1] = dy * p.d_qd + p.sw * g[6];
-          v[2] = dz * p.d_qd + p.sw * g[7];
-          v[3] = dx * p.d_bu;
-          v[4] = dy * p.d_bu;
-          v[5] = dz * p.d_bu;
-          v[6] = dx * p.d_bv;
-          v[7] = dy * p.d_bv;
-          v[8] = dz * p.d_bv;
-          v[9] = p.d_p;
-          v[10] = p.d_au;
-          v[11] = p.d_av;
-          v[12] = p.d_is0;
-          v[13] = p.d_is1;
-          v[14] = p.d_op;
-          v[15] = 0.0f;
-          const float sum = half_warp_transpose_sum(v, lane);
-          if ((lane & 15) < 15) add_row(grads, tile, lane & 15, k, cand, sum);
-        }
-
-        // The colour terms, summed kSlots candidates at a time.
-        if (!__any_sync(0xffffffffu, w != 0.0f)) continue;
-        s_x[lane_word(pending, lane)] = x0;
-        s_x[lane_word(kSlots + pending, lane)] = x1;
-        s_x[lane_word(2 * kSlots + pending, lane)] = x2;
-        if (lane == pending) slot_cand = cand;
-        if (++pending == kSlots) {
-          colour_sums<kFast>(s_basis, s_x, pending, slot_cand, grads, tile,
-                             k, lane);
-          pending = 0;
-        }
+        step_sums<kFast>(RowCand<float (*)[kSumChunk]>{s_geo, j}, h, active,
+                         d_alpha, w, x0, x1, x2, g, dx, dy, dz, lane,
+                         base + j, tile, k, grads, s_basis, s_x, pending,
+                         slot_cand);
       }
     }
   }
   if (pending > 0) {
     colour_sums<kFast>(s_basis, s_x, pending, slot_cand, grads, tile, k,
                        lane);
+  }
+}
+
+// The cache decode (tile order; see "Cache" above): the sums over rays,
+// one thread per ray, each pair decoded from the forward's `cache` (T, K,
+// R) and each ray walked from its `last` index (T, R) down to candidate
+// 0.  A chunk's kCacheChunk candidates are staged whole and box-tested at
+// once, two per lane, into a 64-bit mask of the warp's steps (none above
+// its rays' largest last index), walked from the top bit down, each pair
+// loaded two steps ahead.  A lane reads only the steps at or below its
+// own last index.  The rows and colour terms of each step are summed as
+// in tracer_backward_kernel (step_sums).
+template <bool kFast>
+__global__ void __launch_bounds__(kThreads, 6) tracer_backward_cache_kernel(
+    const int* __restrict__ cnt, const float* __restrict__ dirs,
+    const float* __restrict__ mind, const float* __restrict__ t0,
+    const float* __restrict__ axes, const float* __restrict__ plane,
+    const float* __restrict__ inv_scale, const float* __restrict__ opac,
+    const float* __restrict__ sign, const float* __restrict__ sh,
+    const float* __restrict__ fwd_chans, const float* __restrict__ g_chans,
+    const __nv_bfloat162* __restrict__ cache, const int* __restrict__ last,
+    float* __restrict__ grads, int rays, int k) {
+  __shared__ float4 s_cand[kCacheChunk * kCacheStride];
+  __shared__ float s_basis_all[kWarps][32 * (kBasisRow ? kBasisRow : 16)];
+  __shared__ float s_x_all[kWarps][3 * kSlots * 32];
+  __shared__ Cone s_cone[kWarps];
+
+  const long long tile = gridDim.y - 1 - blockIdx.y;  // last-first
+  const int ray = blockIdx.x * kThreads + threadIdx.x;
+  const bool has_ray = ray < rays;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x / 32;
+  const long long ray_at = tile * rays + ray;
+  float* s_basis = s_basis_all[warp];
+  float* s_x = s_x_all[warp];
+
+  float dx = 0.0f, dy = 0.0f, dz = 0.0f, min_t = 0.0f, trans0 = 0.0f;
+  float g[10] = {};
+  float gw_total = 0.0f, t_out = 0.0f, g_raw = 0.0f;
+  int top = -1;  // this ray's last index: no step above it is read
+  if (has_ray) {
+    const long long at = tile * kOutRows * rays + ray;
+    load_ray(ray_at, rays, dirs, mind, t0, fwd_chans + at, g_chans + at, dx,
+             dy, dz, min_t, trans0, g, gw_total, t_out, g_raw);
+    top = last[ray_at];
+  }
+  {
+    float basis[16];
+    sh_basis(dx, dy, dz, basis);
+#pragma unroll
+    for (int s = 0; s < 16; ++s) {
+      s_basis[basis_word<kBasisRow>(s, lane)] = basis[s];
+    }
+  }
+  const SharedBasis<kBasisRow> basis{s_basis, lane};
+#pragma unroll
+  for (int r = 0; r < 3 * kSlots; ++r) s_x[lane_word(r, lane)] = 0.0f;
+  {
+    const Cone cone = warp_cone(dx, dy, dz, has_ray);
+    if (lane == 0) s_cone[warp] = cone;
+    __syncwarp();
+  }
+  const Cone& cone = s_cone[warp];
+  const int warp_top = __reduce_max_sync(0xffffffffu, top);
+  // This ray's pairs, candidate c at c * rays.
+  const unsigned* steps = reinterpret_cast<const unsigned*>(cache)
+                          + tile * k * rays + ray;
+
+  float suffix = 0.0f;  // A_j: the sum of gw * w over the pairs walked
+  int pending = 0;      // filled colour slots, the same in every lane
+  int slot_cand = 0;    // lane p < pending: slot p's candidate
+
+  const int count = min(max(cnt[tile], 0), k);
+  for (int base = max(count - 1, 0) / kCacheChunk * kCacheChunk; base >= 0;
+       base -= kCacheChunk) {
+    // Barrier before shared memory is overwritten; a chunk above every
+    // ray's last index is not staged.
+    if (!__syncthreads_or(top >= base)) continue;
+    const int n = min(kCacheChunk, count - base);
+    if (threadIdx.x < n) {
+      stage_quads<kCacheStride>(s_cand, threadIdx.x, tile, k,
+                                base + threadIdx.x, axes, plane, inv_scale,
+                                opac, sign, sh);
+    }
+    __syncthreads();
+    if (warp_top < base) continue;  // warp-uniform
+
+    // The steps the forward visited (candidate 0 always), bit c for
+    // candidate base + c.
+    unsigned long long todo = 0ull;
+#pragma unroll
+    for (int half = 0; half < (kCacheChunk + 31) / 32; ++half) {
+      const int mine = 32 * half + lane;
+      const bool visit =
+          mine < n && base + mine <= warp_top
+          && ((base == 0 && mine == 0)
+              || !cone_misses_cand(quad_cand<kCacheStride>(s_cand, mine),
+                                   cone));
+      todo |= static_cast<unsigned long long>(
+                  __ballot_sync(0xffffffffu, visit)) << (32 * half);
+    }
+    // The next step down (-1 past the last), taken off the mask, and its
+    // pair, loaded where this lane reads it.
+    const auto pop = [&todo]() {
+      if (todo == 0ull) return -1;
+      const int c = 63 - __clzll(todo);
+      todo ^= 1ull << c;
+      return c;
+    };
+    const auto load = [&](int c) {
+      return c >= 0 && base + c <= top
+                 ? __ldcs(steps + static_cast<long long>(base + c) * rays)
+                 : 0u;
+    };
+    // Step j's sums, from its pair `res`.
+    const auto step = [&](int j, unsigned res) {
+      const QuadCand cand = quad_cand<kCacheStride>(s_cand, j);
+      Hit h = {};
+      float d_alpha = 0.0f, w = 0.0f, x0 = 0.0f, x1 = 0.0f, x2 = 0.0f;
+      if (base + j <= top) {
+        decode_hit(res, cand, dx, dy, dz, basis, g, t_out, g_raw, suffix, h,
+                   d_alpha, w, x0, x1, x2);
+      }
+      const bool active = d_alpha != 0.0f || w != 0.0f;
+      if (__any_sync(0xffffffffu, active)) {
+        step_sums<kFast, kBasisRow>(cand, h, active, d_alpha, w, x0, x1, x2,
+                                    g, dx, dy, dz, lane, base + j, tile, k,
+                                    grads, s_basis, s_x, pending, slot_cand);
+      }
+    };
+    // The steps go in turn through two registers, each refilled with the
+    // pair two steps down as its step starts, so that a load runs under
+    // two steps' work.  (One register loaded one step ahead was 1% slower;
+    // a longer queue in an array, rotated each step, no faster: moving a
+    // register whose load is in flight waits for the load.)
+    int ja = pop(), jb = pop();
+    unsigned ra = load(ja), rb = load(jb);
+    while (ja >= 0) {
+      {
+        const int j = ja;
+        const unsigned res = ra;
+        ja = pop();
+        ra = load(ja);
+        step(j, res);
+      }
+      if (jb < 0) break;
+      {
+        const int j = jb;
+        const unsigned res = rb;
+        jb = pop();
+        rb = load(jb);
+        step(j, res);
+      }
+    }
+  }
+  if (pending > 0) {
+    colour_sums<kFast, kBasisRow>(s_basis, s_x, pending, slot_cand, grads,
+                                  tile, k, lane);
   }
 }
 
@@ -646,9 +880,8 @@ __global__ void __launch_bounds__(kWalkRays) tracer_backward_exact_kernel(
   float2* mine = pairs + tile * k * rays + ray;  // candidate j at j * rays
   if (has_ray) {
     const long long at = tile * kOutRows * rays + ray;
-    load_ray(ray_at, rays, dirs, mind, t0, fwd_chans + at, fwd_chans + at,
-             g_chans + at, dx, dy, dz, min_t, trans0, g, gw_total, t_out,
-             g_raw);
+    load_ray(ray_at, rays, dirs, mind, t0, fwd_chans + at, g_chans + at, dx,
+             dy, dz, min_t, trans0, g, gw_total, t_out, g_raw);
     // Zero this ray's pairs here, where the coalesced stores overlap the
     // walk's arithmetic: a memset of the buffer would be a pass of its own
     // over the same bytes, slower on the card (PERF.md).
@@ -693,8 +926,13 @@ using SumsKernel = void (*)(const int*, const float*, const float*,
                             const float*, const float*, const float*,
                             const float*, const float*, const float*,
                             const float*, const float*, const float*,
-                            const float2*, const __nv_bfloat162*,
-                            const float*, float*, int, int);
+                            const float2*, float*, int, int);
+using CacheKernel = void (*)(const int*, const float*, const float*,
+                             const float*, const float*, const float*,
+                             const float*, const float*, const float*,
+                             const float*, const float*, const float*,
+                             const __nv_bfloat162*, const int*, float*, int,
+                             int);
 
 // The sums kernel of a pair source and precision.
 SumsKernel sums_kernel(int src, bool fast) {
@@ -702,10 +940,13 @@ SumsKernel sums_kernel(int src, bool fast) {
     case 2 * kReplay: return tracer_backward_kernel<kReplay, false>;
     case 2 * kReplay + 1: return tracer_backward_kernel<kReplay, true>;
     case 2 * kFromPairs: return tracer_backward_kernel<kFromPairs, false>;
-    case 2 * kFromPairs + 1: return tracer_backward_kernel<kFromPairs, true>;
-    case 2 * kFromCache: return tracer_backward_kernel<kFromCache, false>;
-    default: return tracer_backward_kernel<kFromCache, true>;
+    default: return tracer_backward_kernel<kFromPairs, true>;
   }
+}
+
+CacheKernel cache_kernel(bool fast) {
+  return fast ? tracer_backward_cache_kernel<true>
+              : tracer_backward_cache_kernel<false>;
 }
 
 }  // namespace
@@ -714,9 +955,9 @@ SumsKernel sums_kernel(int src, bool fast) {
 // `exact` is nonzero; returns the first CUDA error of the launches.  grads
 // (tiles, 64, k) must be zero.  pairs: exact order's (tiles, k, rays)
 // float2 buffer, uninitialised (the walk writes what the sums read);
-// unused in tile order.  cache, totals: null (replay), or in tile order
-// the forward's (tiles, k, rays) __nv_bfloat162 residuals and (tiles, 8,
-// rays) float totals, as tracer_forward wrote them for these inputs.
+// unused in tile order.  cache, last: null (replay), or in tile order the
+// forward's (tiles, k, rays) __nv_bfloat162 residuals and (tiles, rays)
+// int32 last indices, as tracer_forward wrote them for these inputs.
 // fast: the d_sh sums in one TF32 product per term.
 extern "C" int tracer_backward(const void* cnt, const void* dirs,
                                const void* mind, const void* t0,
@@ -725,11 +966,11 @@ extern "C" int tracer_backward(const void* cnt, const void* dirs,
                                const void* sign, const void* sh,
                                const void* fwd_chans, const void* g_chans,
                                void* pairs, const void* cache,
-                               const void* totals, void* grads, int tiles,
+                               const void* last, void* grads, int tiles,
                                int rays, int k, int exact, int fast,
                                void* stream) {
   if ((exact && cache != nullptr)
-      || ((cache == nullptr) != (totals == nullptr))) {
+      || ((cache == nullptr) != (last == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (tiles == 0 || rays == 0) return static_cast<int>(cudaSuccess);
@@ -748,8 +989,6 @@ extern "C" int tracer_backward(const void* cnt, const void* dirs,
   const auto fc = static_cast<const float*>(fwd_chans);
   const auto gc = static_cast<const float*>(g_chans);
   const auto pr = static_cast<float2*>(pairs);
-  const auto cc = static_cast<const __nv_bfloat162*>(cache);
-  const auto tt = static_cast<const float*>(totals);
   const auto gr = static_cast<float*>(grads);
   if (exact) {
     const int smem = walk_smem(k);
@@ -764,24 +1003,30 @@ extern "C" int tracer_backward(const void* cnt, const void* dirs,
     if (err != cudaSuccess) return static_cast<int>(err);
     const SumsKernel sums = sums_kernel(kFromPairs, fast != 0);
     sums<<<grid, kThreads, 0, s>>>(c, d, md, tr, ax, pl, is, op, sg, shc, fc,
-                                   gc, pr, nullptr, nullptr, gr, rays, k);
+                                   gc, pr, gr, rays, k);
+  } else if (cache != nullptr) {
+    const CacheKernel decode = cache_kernel(fast != 0);
+    decode<<<grid, kThreads, 0, s>>>(
+        c, d, md, tr, ax, pl, is, op, sg, shc, fc, gc,
+        static_cast<const __nv_bfloat162*>(cache),
+        static_cast<const int*>(last), gr, rays, k);
   } else {
-    const SumsKernel sums =
-        sums_kernel(cc != nullptr ? kFromCache : kReplay, fast != 0);
+    const SumsKernel sums = sums_kernel(kReplay, fast != 0);
     sums<<<grid, kThreads, 0, s>>>(c, d, md, tr, ax, pl, is, op, sg, shc, fc,
-                                   gc, nullptr, cc, tt, gr, rays, k);
+                                   gc, nullptr, gr, rays, k);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 // Resident blocks per SM (out[0]) and threads per block (out[1]) of device
 // kernel `which` at k candidates per tile: 0 the tile-order kernel, 1 the
-// exact walk, 2 the exact sums, 3 the tile-order kernel decoding the cache
-// with fast sums, 4 the exact sums fast, 5 tile order fast, 6 the cache
-// decode at 3xTF32.  Returns the first CUDA error.
+// exact walk, 2 the exact sums, 3 the cache decode with fast sums, 4 the
+// exact sums fast, 5 tile order fast, 6 the cache decode at 3xTF32.
+// Returns the first CUDA error.
 extern "C" int tracer_backward_occupancy(int which, int k, int* out) {
   int blocks = 0;
-  cudaError_t err;
+  cudaError_t err = cudaErrorInvalidValue;
+  out[1] = kThreads;
   if (which == 1) {
     const int smem = walk_smem(k);
     err = cudaFuncSetAttribute(tracer_backward_exact_kernel,
@@ -792,16 +1037,14 @@ extern "C" int tracer_backward_occupancy(int which, int k, int* out) {
           &blocks, tracer_backward_exact_kernel, kWalkRays, smem);
     }
     out[1] = kWalkRays;
-  } else {
-    const int src[] = {kReplay, 0, kFromPairs, kFromCache, kFromPairs,
-                       kReplay, kFromCache};
-    const bool fast[] = {false, false, false, true, true, true, false};
-    err = cudaErrorInvalidValue;
-    if (which >= 0 && which < 7) {
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &blocks, sums_kernel(src[which], fast[which]), kThreads, 0);
-    }
-    out[1] = kThreads;
+  } else if (which == 3 || which == 6) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, cache_kernel(which == 3), kThreads, 0);
+  } else if (which >= 0 && which < 7) {
+    const int src[] = {kReplay, 0, kFromPairs, 0, kFromPairs, kReplay};
+    const bool fast[] = {false, false, false, false, true, true};
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, sums_kernel(src[which], fast[which]), kThreads, 0);
   }
   out[0] = blocks;
   return static_cast<int>(err);

@@ -1,7 +1,8 @@
 // Shared by the forward and backward surfel tracer kernels for Hopper
 // (tracer_forward.cu, tracer_backward.cu): the gate constants, the SH
 // basis, the ray/surfel intersection with every gate, the transmittance
-// update, the per-hit shading, candidate staging, the per-warp box test
+// update, the per-hit shading, candidate staging (rows of scalars, or
+// whole candidates as float4 groups: `QuadCand`), the per-warp box test
 // that rules out candidates no ray of a warp can hit (`warp_cone`,
 // `cone_misses`), and the exact mode's depth-order walk (`nearest_hits`).
 //
@@ -18,8 +19,8 @@
 // grazing incidence: the same explicit forms keep the kernels within
 // rounding of the plain PyTorch twins.  The intersection, the box test
 // and the shading read a candidate through an accessor (RowCand and RowSh
-// for staged rows of scalars, the forward's QuadCand for candidates staged
-// whole): the values, and so every gate and bit, are the same either way.
+// for staged rows of scalars, QuadCand for candidates staged whole): the
+// values, and so every gate and bit, are the same either way.
 
 #pragma once
 
@@ -137,12 +138,70 @@ struct RowStage {
   }
 };
 
+// Candidates staged whole, as kQuads float4 groups: the four that RowCand
+// reads as rows (n and p; w1 and a_u; w2 and a_v; 1/s0, 1/s1, opacity,
+// sign), then its 48 SH values, channel-major, four coefficients to a
+// group.  A warp reads any group of one candidate with one 16-byte load (a
+// broadcast in tile order), where rows of scalars took four.  The 8 lanes
+// of a quarter-warp stage 8 consecutive candidates at once, which must
+// land in 8 different bank groups: in rows of kQuads slots, group q of
+// candidate c sits at slot q ^ (c & 7) of its row (each read computes
+// that slot); in rows of kQuads + 1 slots (one of padding), at slot q (a
+// read's offset is a constant).
+constexpr int kQuads = 16;
+
+struct QuadCand {
+  const float4* row;  // the candidate's kQuads slots
+  int swz;            // its slot swizzle, c & 7
+  __device__ __forceinline__ float4 quad(int q) const { return row[q ^ swz]; }
+  __device__ __forceinline__ float3 normal() const {
+    const float4 f = quad(0);
+    return make_float3(f.x, f.y, f.z);
+  }
+  __device__ __forceinline__ float p() const { return quad(0).w; }
+  __device__ __forceinline__ GeoBack back() const {
+    return {quad(1), quad(2), quad(3)};
+  }
+  __device__ __forceinline__ float4 sh4(int q) const { return quad(4 + q); }
+};
+
+// Staged candidate c of s_cand, in rows of kStride (kQuads or kQuads + 1)
+// slots.
+template <int kStride = kQuads>
+__device__ __forceinline__ QuadCand quad_cand(const float4* s_cand, int c) {
+  static_assert(kStride == kQuads || kStride == kQuads + 1, "row layout");
+  return {s_cand + c * kStride, kStride == kQuads ? c & 7 : 0};
+}
+
+// Stage candidate c of `tile` at row `slot` of s_cand, rows of kStride
+// slots.  Inputs are (T, rows, K) row-major.
+template <int kStride = kQuads>
+__device__ __forceinline__ void stage_quads(
+    float4* s_cand, int slot, long long tile, int k, long long c,
+    const float* __restrict__ axes, const float* __restrict__ plane,
+    const float* __restrict__ inv_scale, const float* __restrict__ opac,
+    const float* __restrict__ sign, const float* __restrict__ sh) {
+  float4* row = s_cand + slot * kStride;
+  const int swz = kStride == kQuads ? slot & 7 : 0;
+  const float* ax = axes + tile * 9 * k + c;
+  const float* pl = plane + tile * 3 * k + c;
+  const float* sc = inv_scale + tile * 2 * k + c;
+  row[0 ^ swz] = make_float4(ax[0], ax[k], ax[2 * k], pl[0]);
+  row[1 ^ swz] = make_float4(ax[3 * k], ax[4 * k], ax[5 * k], pl[k]);
+  row[2 ^ swz] = make_float4(ax[6 * k], ax[7 * k], ax[8 * k], pl[2 * k]);
+  row[3 ^ swz] = make_float4(sc[0], sc[k], opac[tile * k + c],
+                             sign[tile * k + c]);
+  const float* s = sh + tile * kSh * k + c;
+#pragma unroll
+  for (int q = 0; q < kSh / 4; ++q) {
+    row[(4 + q) ^ swz] = make_float4(s[4 * q * k], s[(4 * q + 1) * k],
+                                     s[(4 * q + 2) * k], s[(4 * q + 3) * k]);
+  }
+}
+
 // The intersection and gates of lidar_rt_tpu/ops/geometry.py for one
-// candidate (back() only where t >= min_t).  kGates = false stops at the
-// splat coordinates: no exp, g = alpha = alpha_raw = 0 (the cached
-// backward decodes the gates and alpha from the forward's residuals, and
-// needs only the locals of the gradient chain).
-template <bool kGates = true, typename Cand>
+// candidate (back() only where t >= min_t).
+template <typename Cand>
 __device__ __forceinline__ Hit intersect_cand(const Cand& cand, float dx,
                                               float dy, float dz,
                                               float min_t) {
@@ -157,22 +216,20 @@ __device__ __forceinline__ Hit intersect_cand(const Cand& cand, float dx,
       h.bv = dot3_rn(dx, dy, dz, b.w2.x, b.w2.y, b.w2.z);
       h.u = __fmul_rn(__fadd_rn(b.w1.w, __fmul_rn(h.t, h.bu)), b.m.x);
       h.v = __fmul_rn(__fadd_rn(b.w2.w, __fmul_rn(h.t, h.bv)), b.m.y);
-      if (kGates) {
-        h.g = expf(__fmul_rn(-0.5f, __fadd_rn(__fmul_rn(h.u, h.u),
-                                              __fmul_rn(h.v, h.v))));
-        h.alpha_raw = fminf(kAlphaMax, __fmul_rn(b.m.z, h.g));
-        if (h.alpha_raw >= kAlphaMin) h.alpha = h.alpha_raw;
-      }
+      h.g = expf(__fmul_rn(-0.5f, __fadd_rn(__fmul_rn(h.u, h.u),
+                                            __fmul_rn(h.v, h.v))));
+      h.alpha_raw = fminf(kAlphaMax, __fmul_rn(b.m.z, h.g));
+      if (h.alpha_raw >= kAlphaMin) h.alpha = h.alpha_raw;
     }
   }
   return h;
 }
 
 // The same for candidate j of the staged rows s_geo (kGeo rows).
-template <bool kGates = true, typename Rows>
+template <typename Rows>
 __device__ __forceinline__ Hit intersect(Rows s_geo, int j, float dx,
                                          float dy, float dz, float min_t) {
-  return intersect_cand<kGates>(RowCand<Rows>{s_geo, j}, dx, dy, dz, min_t);
+  return intersect_cand(RowCand<Rows>{s_geo, j}, dx, dy, dz, min_t);
 }
 
 // Transmittance after a hit: T * (1 - alpha).  A ray stops at the first
@@ -183,11 +240,12 @@ __device__ __forceinline__ float next_trans(float trans, float alpha) {
 
 // Per-hit SH values c_ch = basis . sh[ch] of a candidate (before the +0.5
 // shift).  cand.sh4(q) reads group q of its 48 SH values, channel-major,
-// four coefficients to a group: RowSh from staged rows, the forward's
-// QuadCand from a candidate staged whole.  Every multiply-add is rounded
-// explicitly, in the same order for both.
-template <typename Cand>
-__device__ __forceinline__ void shade_cand(const float basis[16],
+// four coefficients to a group: RowSh from staged rows, QuadCand from a
+// candidate staged whole.  basis[s] reads the ray's basis value s (an
+// array in registers, or a kernel's copy in shared memory).  Every
+// multiply-add is rounded explicitly, in the same order for all.
+template <typename Basis, typename Cand>
+__device__ __forceinline__ void shade_cand(const Basis& basis,
                                            const Cand& cand, float& c0,
                                            float& c1, float& c2) {
   c0 = 0.0f;
@@ -196,19 +254,20 @@ __device__ __forceinline__ void shade_cand(const float basis[16],
 #pragma unroll
   for (int g = 0; g < 4; ++g) {
     const float4 a = cand.sh4(g), b = cand.sh4(4 + g), d = cand.sh4(8 + g);
-    const float* bs = basis + 4 * g;
-    c0 = __fmaf_rn(bs[0], a.x, c0);
-    c1 = __fmaf_rn(bs[0], b.x, c1);
-    c2 = __fmaf_rn(bs[0], d.x, c2);
-    c0 = __fmaf_rn(bs[1], a.y, c0);
-    c1 = __fmaf_rn(bs[1], b.y, c1);
-    c2 = __fmaf_rn(bs[1], d.y, c2);
-    c0 = __fmaf_rn(bs[2], a.z, c0);
-    c1 = __fmaf_rn(bs[2], b.z, c1);
-    c2 = __fmaf_rn(bs[2], d.z, c2);
-    c0 = __fmaf_rn(bs[3], a.w, c0);
-    c1 = __fmaf_rn(bs[3], b.w, c1);
-    c2 = __fmaf_rn(bs[3], d.w, c2);
+    const float b0 = basis[4 * g], b1 = basis[4 * g + 1];
+    const float b2 = basis[4 * g + 2], b3 = basis[4 * g + 3];
+    c0 = __fmaf_rn(b0, a.x, c0);
+    c1 = __fmaf_rn(b0, b.x, c1);
+    c2 = __fmaf_rn(b0, d.x, c2);
+    c0 = __fmaf_rn(b1, a.y, c0);
+    c1 = __fmaf_rn(b1, b.y, c1);
+    c2 = __fmaf_rn(b1, d.y, c2);
+    c0 = __fmaf_rn(b2, a.z, c0);
+    c1 = __fmaf_rn(b2, b.z, c1);
+    c2 = __fmaf_rn(b2, d.z, c2);
+    c0 = __fmaf_rn(b3, a.w, c0);
+    c1 = __fmaf_rn(b3, b.w, c1);
+    c2 = __fmaf_rn(b3, d.w, c2);
   }
 }
 

@@ -90,17 +90,26 @@
 // float32 T_MIN live test failed (the stop).  Both are rounded to
 // nearest, as astype(bfloat16) rounds.  Laid out (T, K, R), a visited step
 // is one coalesced 128-byte store across the warp (the reference's (T, R,
-// K) suits the TPU's lanes).  Steps the walk skips are never written: the
-// cached backward (tracer_backward.cu) visits the same steps, through the
-// same box test and the same stop, and reads only those.  With the cache
-// the kernel also sums rows 0-7 of the channels a second time, with each
-// hit's weight as the backward decodes it (the bf16 alpha times the bf16
-// transmittance), into a (T, 8, R) `totals` array: the backward forms each
-// pair's suffix A_j = gw_total - (prefix of gw w through j) from these,
-// so that its decoded prefix and its total agree (the reference takes
-// gw_total from the float32 channels, and their gap, about 2^-9 gw_total,
-// reaches dL/dalpha divided by 1 - alpha).  The channels and accum are
-// the same bits with or without the cache.  The reference's
+// K) suits the TPU's lanes).  Steps the walk skips are never written.
+// Each ray's last index, (T, R) int32, is the candidate that stopped it,
+// or the tile's last candidate (count - 1: -1 for an empty tile) where no
+// candidate did: the steps written are exactly those the box test leaves
+// at or below it.  The cached backward (tracer_backward.cu) walks each
+// ray from its last index down to candidate 0 through the same box test,
+// reads only those steps, and sums each pair's suffix of gw w as it goes,
+// so nothing else is kept (the reference's backward takes gw_total from
+// the float32 channels, whose gap from the decoded weights' sums, about
+// 2^-9 gw_total, reaches dL/dalpha divided by 1 - alpha).  A ray's index
+// is stored once, at its stop or at the end of its walk, so the cache
+// holds no register through the walk but the store's.  What the cache
+// costs on this card is the store (its instructions and 47 MB of lines
+// through L2 at the flagship training shape; with the store left out the
+// instantiation ran as fast as the uncached one): it is a streaming store
+// (st.global.cs), and this instantiation stages its candidates in rows of
+// kQuads + 1 slots, where each read has a constant offset, in place of
+// the swizzled rows (PERF.md; the uncached kernel keeps the layout it was
+// measured with).  The channels and accum are the same bits with or
+// without the cache.  The reference's
 // fast_math relaxes its channel contractions to one bf16 pass; here the
 // channel sums are each thread's own float32 FMAs, with no contraction
 // to relax, so fast_math leaves the forward as it is.
@@ -117,40 +126,10 @@ constexpr int kChunk = 128;      // candidates staged per round (<= kThreads)
 constexpr int kWarps = kThreads / 32;
 constexpr int kExactRays = 256;  // rays per exact-order block
 constexpr int kExactWarps = kExactRays / 32;
-constexpr int kTotalRows = 8;    // rows of the cache's (T, 8, R) totals
 
 static_assert(kChunk <= kThreads && kChunk % 32 == 0,
               "each thread stages at most one candidate; whole groups");
 static_assert(kExactRays % 32 == 0, "whole warps");
-
-// Both kernels stage each candidate whole, as kQuads float4 groups: the
-// four that RowCand reads as rows (n and p; w1 and a_u; w2 and a_v; 1/s0,
-// 1/s1, opacity, sign), then its 48 SH values, channel-major, four
-// coefficients to a group.  Group q of staged candidate c sits at slot q
-// ^ (c & 7) of c's row: the 8 lanes of a quarter-warp that stage 8
-// consecutive candidates then write 8 different bank groups, and a warp
-// reads any group of one candidate with one 16-byte load (a broadcast in
-// tile order), where rows of scalars took four.
-constexpr int kQuads = 16;
-
-struct QuadCand {
-  const float4* row;  // the candidate's kQuads slots
-  int swz;            // its slot swizzle, c & 7
-  __device__ __forceinline__ float4 quad(int q) const { return row[q ^ swz]; }
-  __device__ __forceinline__ float3 normal() const {
-    const float4 f = quad(0);
-    return make_float3(f.x, f.y, f.z);
-  }
-  __device__ __forceinline__ float p() const { return quad(0).w; }
-  __device__ __forceinline__ GeoBack back() const {
-    return {quad(1), quad(2), quad(3)};
-  }
-  __device__ __forceinline__ float4 sh4(int q) const { return quad(4 + q); }
-};
-
-__device__ __forceinline__ QuadCand quad_cand(const float4* s_cand, int c) {
-  return {s_cand + c * kQuads, c & 7};
-}
 
 // The staged candidates, as nearest_hits reads them.
 struct QuadStage {
@@ -159,31 +138,6 @@ struct QuadStage {
     return quad_cand(cands, j);
   }
 };
-
-// Stage candidate c of `tile` at row `slot` of s_cand.  Inputs are (T,
-// rows, K) row-major.
-__device__ __forceinline__ void stage_quads(
-    float4* s_cand, int slot, long long tile, int k, long long c,
-    const float* __restrict__ axes, const float* __restrict__ plane,
-    const float* __restrict__ inv_scale, const float* __restrict__ opac,
-    const float* __restrict__ sign, const float* __restrict__ sh) {
-  float4* row = s_cand + slot * kQuads;
-  const int swz = slot & 7;
-  const float* ax = axes + tile * 9 * k + c;
-  const float* pl = plane + tile * 3 * k + c;
-  const float* sc = inv_scale + tile * 2 * k + c;
-  row[0 ^ swz] = make_float4(ax[0], ax[k], ax[2 * k], pl[0]);
-  row[1 ^ swz] = make_float4(ax[3 * k], ax[4 * k], ax[5 * k], pl[k]);
-  row[2 ^ swz] = make_float4(ax[6 * k], ax[7 * k], ax[8 * k], pl[2 * k]);
-  row[3 ^ swz] = make_float4(sc[0], sc[k], opac[tile * k + c],
-                             sign[tile * k + c]);
-  const float* s = sh + tile * kSh * k + c;
-#pragma unroll
-  for (int q = 0; q < kSh / 4; ++q) {
-    row[(4 + q) ^ swz] = make_float4(s[4 * q * k], s[(4 * q + 1) * k],
-                                     s[(4 * q + 2) * k], s[(4 * q + 3) * k]);
-  }
-}
 
 // The (T, 16, R) output rows of one ray.
 __device__ __forceinline__ void store_channels(
@@ -204,40 +158,8 @@ __device__ __forceinline__ void store_channels(
   for (int r = 10; r < kOutRows; ++r) out[r * rays] = 0.0f;
 }
 
-// The channel sums of rows 0-7 (store_channels' first eight rows).
-struct ChannelSums {
-  float c0 = 0.0f, c1 = 0.0f, c2 = 0.0f, t = 0.0f, w = 0.0f;
-  float n0 = 0.0f, n1 = 0.0f, n2 = 0.0f;
-  __device__ __forceinline__ void add(float wt, float col0, float col1,
-                                      float col2, float depth, float sgn,
-                                      float3 nv) {
-    const float sw = wt * sgn;
-    c0 += wt * fmaxf(col0 + 0.5f, 0.0f);
-    c1 += wt * col1;
-    c2 += wt * col2;
-    t += wt * depth;
-    w += wt;
-    n0 += sw * nv.x;
-    n1 += sw * nv.y;
-    n2 += sw * nv.z;
-  }
-  // Rows 0-7 of the (T, rows, R) output `out` of one ray.
-  __device__ __forceinline__ void store(float* __restrict__ out,
-                                        int rays) const {
-    out[0 * rays] = c0;
-    out[1 * rays] = c1 + 0.5f * w;
-    out[2 * rays] = c2 + 0.5f * w;
-    out[3 * rays] = t;
-    out[4 * rays] = w;
-    out[5 * rays] = n0;
-    out[6 * rays] = n1;
-    out[7 * rays] = n2;
-  }
-};
-
 // kCache: also write the backward's residuals to `cache` (T, K, R) and
-// the decoded weights' channel sums to `totals` (T, 8, R), see the file
-// comment.
+// each ray's last index to `last` (T, R), see the file comment.
 template <bool kCache>
 __global__ void __launch_bounds__(kThreads, 6) tracer_forward_kernel(
     const int* __restrict__ cnt, const float* __restrict__ dirs,
@@ -246,9 +168,12 @@ __global__ void __launch_bounds__(kThreads, 6) tracer_forward_kernel(
     const float* __restrict__ inv_scale, const float* __restrict__ opac,
     const float* __restrict__ sign, const float* __restrict__ sh,
     float* __restrict__ chans, float* __restrict__ accum,
-    __nv_bfloat162* __restrict__ cache, float* __restrict__ totals, int rays,
+    __nv_bfloat162* __restrict__ cache, int* __restrict__ last, int rays,
     int k) {
-  __shared__ float4 s_cand[kChunk * kQuads];
+  // The cache's instantiation stages in padded rows (quad_cand); the
+  // other keeps the swizzled rows it was measured with.
+  constexpr int kStride = kCache ? kQuads + 1 : kQuads;
+  __shared__ float4 s_cand[kChunk * kStride];
   // Each warp's box, kept in shared memory: it is read once per 32
   // candidates, and registers are what limits this kernel's occupancy.
   __shared__ Cone s_cone[kWarps];
@@ -283,7 +208,9 @@ __global__ void __launch_bounds__(kThreads, 6) tracer_forward_kernel(
   bool alive = has_ray;
   float acc_c0 = 0.0f, acc_c1 = 0.0f, acc_c2 = 0.0f, acc_t = 0.0f;
   float acc_w = 0.0f, acc_n0 = 0.0f, acc_n1 = 0.0f, acc_n2 = 0.0f;
-  ChannelSums decoded;  // kCache: the sums with the decoded weights
+  // kCache: this ray's steps of the (T, K, R) cache, candidate c at c rays.
+  __nv_bfloat162* const cache_ray =
+      kCache ? cache + tile * k * rays + ray : nullptr;
 
   const int count = min(max(cnt[tile], 0), k);
   for (int base = 0; base < count; base += kChunk) {
@@ -292,8 +219,8 @@ __global__ void __launch_bounds__(kThreads, 6) tracer_forward_kernel(
     if (!__syncthreads_or(alive)) break;
     const int n = min(kChunk, count - base);
     if (threadIdx.x < n) {
-      stage_quads(s_cand, threadIdx.x, tile, k, base + threadIdx.x, axes,
-                  plane, inv_scale, opac, sign, sh);
+      stage_quads<kStride>(s_cand, threadIdx.x, tile, k, base + threadIdx.x,
+                           axes, plane, inv_scale, opac, sign, sh);
     }
     __syncthreads();
 
@@ -304,7 +231,8 @@ __global__ void __launch_bounds__(kThreads, 6) tracer_forward_kernel(
       const int mine = group + lane;
       const bool visit = mine < n && ((base == 0 && mine == 0)
                                       || !cone_misses_cand(
-                                          quad_cand(s_cand, mine), cone));
+                                          quad_cand<kStride>(s_cand, mine),
+                                          cone));
       unsigned todo = __ballot_sync(0xffffffffu, visit);
       float own = 0.0f;  // lane l: the warp's sum of w on candidate group + l
       while (todo != 0u) {
@@ -312,15 +240,17 @@ __global__ void __launch_bounds__(kThreads, 6) tracer_forward_kernel(
         todo &= todo - 1u;
         float w = 0.0f;
         if (alive) {
-          const QuadCand cand = quad_cand(s_cand, j);
+          const QuadCand cand = quad_cand<kStride>(s_cand, j);
           const Hit h = intersect_cand(cand, dx, dy, dz, min_t);
           const float next = next_trans(trans, h.alpha);
-          __nv_bfloat162 res;
           if (kCache) {
             const bool clamped = h.alpha > 0.0f && h.alpha_raw >= kAlphaMax;
-            res = __floats2bfloat162_rn(clamped ? -h.alpha : h.alpha,
-                                        next < kTMin ? -trans : trans);
-            cache[(tile * k + base + j) * rays + ray] = res;
+            const __nv_bfloat162 res = __floats2bfloat162_rn(
+                clamped ? -h.alpha : h.alpha, next < kTMin ? -trans : trans);
+            __stcs(reinterpret_cast<unsigned*>(
+                       cache_ray + static_cast<long long>(base + j) * rays),
+                   reinterpret_cast<const unsigned&>(res));
+            if (next < kTMin) last[ray_at] = base + j;
           }
           if (next < kTMin) {
             alive = false;  // the live prefix ends before this hit
@@ -340,11 +270,6 @@ __global__ void __launch_bounds__(kThreads, 6) tracer_forward_kernel(
             acc_n0 += sw * nv.x;
             acc_n1 += sw * nv.y;
             acc_n2 += sw * nv.z;
-            if (kCache) {  // the weight as the backward decodes it
-              const float2 d = __bfloat1622float2(res);
-              decoded.add(fabsf(d.x) * d.y, c0, c1, c2, h.t, cand.quad(3).w,
-                          nv);
-            }
           }
         }
         if (__any_sync(0xffffffffu, w != 0.0f)) {
@@ -360,7 +285,7 @@ __global__ void __launch_bounds__(kThreads, 6) tracer_forward_kernel(
     store_channels(chans + tile * kOutRows * rays + ray, rays, acc_c0,
                    acc_c1, acc_c2, acc_t, acc_w, acc_n0, acc_n1, acc_n2,
                    trans0, trans);
-    if (kCache) decoded.store(totals + tile * kTotalRows * rays + ray, rays);
+    if (kCache && alive) last[ray_at] = count - 1;  // no candidate stopped it
   }
 }
 
@@ -493,17 +418,17 @@ int exact_smem(int k) {
 // (tiles, 16, rays) need not be initialised; accum (tiles, k) must be zero.
 // cache: null, or the (tiles, k, rays) __nv_bfloat162 residuals to write
 // (tile order only), uninitialised: only the visited steps are written;
-// totals then the (tiles, 8, rays) float decoded sums, uninitialised.
+// last then the (tiles, rays) int32 last indices, uninitialised.
 extern "C" int tracer_forward(const void* cnt, const void* dirs,
                               const void* mind, const void* t0,
                               const void* axes, const void* plane,
                               const void* inv_scale, const void* opac,
                               const void* sign, const void* sh, void* chans,
-                              void* accum, void* cache, void* totals,
+                              void* accum, void* cache, void* last,
                               int tiles, int rays, int k, int exact,
                               void* stream) {
   if ((exact && cache != nullptr)
-      || ((cache == nullptr) != (totals == nullptr))) {
+      || ((cache == nullptr) != (last == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (tiles == 0 || rays == 0) return static_cast<int>(cudaSuccess);
@@ -535,7 +460,7 @@ extern "C" int tracer_forward(const void* cnt, const void* dirs,
     if (cc != nullptr) {
       tracer_forward_kernel<true><<<grid, kThreads, 0, s>>>(
           c, d, md, tr, ax, pl, is, op, sg, shc, ch, ac, cc,
-          static_cast<float*>(totals), rays, k);
+          static_cast<int*>(last), rays, k);
     } else {
       tracer_forward_kernel<false><<<grid, kThreads, 0, s>>>(
           c, d, md, tr, ax, pl, is, op, sg, shc, ch, ac, nullptr, nullptr,

@@ -29,8 +29,9 @@ background term and the ray-drop head stay outside the kernels.
 The reference's two training modes (`ops.tracer.TraceConfig`): with
 `cache` (tile order) the forward also returns each (ray, candidate) step's
 signed gated alpha and signed exclusive transmittance as bfloat16, (T, K,
-R, 2) (`kernels.cache_shape`), and the backward decodes them in place of a
-replay; `fast` takes the kernels' d_sh sums in one TF32 product per term.
+R, 2) (`kernels.cache_shape`), and each ray's last index (`last_index`);
+the backward decodes them in place of a replay; `fast` takes the kernels'
+d_sh sums in one TF32 product per term.
 The twins decode the same encoding and stay float32 otherwise.  A render
 that takes no gradient never asks for the cache (`forward_tiles`).
 """
@@ -270,45 +271,30 @@ def _pairs(cnt: Tensor, dirs: Tensor, mind: Tensor, t0: Tensor,
                   t_excl, live, w, t_incl[..., -1], perm)
 
 
-def _channel_sums(w: Tensor, f: _Pairs, dirs: Tensor, axes: Tensor,
-                  sign: Tensor, sh: Tensor) -> list[Tensor]:
-    """Rows 0-7 of the forward's channels for per-pair weights w (T, R,
-    K), each (T, R)."""
-    n = axes[:, 0]
-    basis = sh_lib.basis(dirs, sh_lib.MAX_SH_DEGREE)          # (T, R, 16)
-    col0 = (torch.matmul(basis, sh[:, 0]) + 0.5).clamp_min(0.0)
-    sum_w = w.sum(-1)
-    return [
-        (w * col0).sum(-1),
-        (basis * torch.matmul(w, sh[:, 1].transpose(1, 2))).sum(-1)
-        + 0.5 * sum_w,
-        (basis * torch.matmul(w, sh[:, 2].transpose(1, 2))).sum(-1)
-        + 0.5 * sum_w,
-        (w * f.t).sum(-1),
-        sum_w,
-        *torch.matmul(w, (sign[:, None] * n).transpose(1, 2)).unbind(-1),
-    ]
+def last_index(live: Tensor, cnt: Tensor) -> Tensor:
+    """Each ray's last index, (T, R) int32, from its pairs' live bits (T,
+    R, K) in tile order: the first candidate that is not live (the T_MIN
+    test stops the ray there), else the tile's last candidate, cnt - 1 (-1
+    in an empty tile)."""
+    k = live.shape[-1]
+    stop = torch.where((~live).any(-1), (~live).int().argmax(-1), k)
+    return torch.minimum(stop, cnt.clamp(0, k)[:, None] - 1).int()
 
 
-def encode_cache(f: _Pairs, dirs: Tensor, axes: Tensor, sign: Tensor,
-                 sh: Tensor) -> kernels.TracerCache:
+def encode_cache(f: _Pairs, cnt: Tensor) -> kernels.TracerCache:
     """The forward's cache of `f`'s pairs as the kernel makes it: pairs
     as the reference encodes them (pallas_tracer.py:286-296), (T, K, R,
     2) bfloat16, the gated alpha, negative where the ALPHA_MAX clamp held
     (zero where a gate failed), and the exclusive transmittance, negative
-    where the float32 T_MIN live test failed; and totals (T, 8, R), the
-    channels' rows 0-7 summed with the decoded weights (bf16 alpha x bf16
-    transmittance).  Dense: the kernel writes only the steps it visits,
+    where the float32 T_MIN live test failed; and each ray's last index
+    (`last_index`).  Dense: the kernel writes only the steps it visits,
     here every pair is encoded."""
     clamped = f.ok & (f.alpha_raw >= geometry.ALPHA_MAX)
     ac = torch.where(clamped, -f.alpha, f.alpha)
     te = torch.where(f.live, f.t_excl, -f.t_excl)
     pairs = torch.stack([ac, te], -1).to(torch.bfloat16)       # (T, R, K, 2)
-    decoded = pairs.float()
-    w = torch.where(f.live & f.ok, decoded[..., 0].abs() * decoded[..., 1],
-                    0.0)
-    totals = torch.stack(_channel_sums(w, f, dirs, axes, sign, sh), dim=1)
-    return kernels.TracerCache(pairs.transpose(1, 2).contiguous(), totals)
+    return kernels.TracerCache(pairs.transpose(1, 2).contiguous(),
+                               last_index(f.live, cnt))
 
 
 def forward_tiles_reference(cnt: Tensor, dirs: Tensor, mind: Tensor,
@@ -324,11 +310,26 @@ def forward_tiles_reference(cnt: Tensor, dirs: Tensor, mind: Tensor,
     kernels.check_cache_order(exact, cache)
     f = _pairs(cnt, dirs, mind, t0, axes, plane, inv_scale, opac, exact)
     w = f.w
-    rows = _channel_sums(w, f, dirs, axes, sign, sh)
-    chans = torch.stack(rows + [t0 - rows[4], f.t_raw], dim=1)  # (T, 10, R)
+    n = axes[:, 0]
+    basis = sh_lib.basis(dirs, sh_lib.MAX_SH_DEGREE)          # (T, R, 16)
+    col0 = (torch.matmul(basis, sh[:, 0]) + 0.5).clamp_min(0.0)
+    sum_w = w.sum(-1)
+    rows = [
+        (w * col0).sum(-1),
+        (basis * torch.matmul(w, sh[:, 1].transpose(1, 2))).sum(-1)
+        + 0.5 * sum_w,
+        (basis * torch.matmul(w, sh[:, 2].transpose(1, 2))).sum(-1)
+        + 0.5 * sum_w,
+        (w * f.t).sum(-1),
+        sum_w,
+        *torch.matmul(w, (sign[:, None] * n).transpose(1, 2)).unbind(-1),
+        t0 - sum_w,
+        f.t_raw,
+    ]
+    chans = torch.stack(rows, dim=1)                          # (T, 10, R)
     chans = torch.nn.functional.pad(chans, (0, 0, 0, NUM_OUT_ROWS - 10))
     if cache:
-        return chans, w.sum(1), encode_cache(f, dirs, axes, sign, sh)
+        return chans, w.sum(1), encode_cache(f, cnt)
     return chans, w.sum(1)
 
 
@@ -356,23 +357,22 @@ def backward_tiles_reference(cnt: Tensor, dirs: Tensor, mind: Tensor,
     float dtype), decoded in place of the replay's gates and products as
     the kernel decodes it (pallas_backward.py:183-200,243-270): alpha =
     |x|, the gradient gate x > 0, T_j = |y|, live y > 0, G = alpha /
-    max(opacity, 1e-12), and A_j = gw_total - (the prefix of gw w through
-    j), gw_total = sum_ch g_ch S_ch over the cache's totals; the
-    intersection's locals are recomputed.  As in the kernel, a ray stops at its first pair that is
-    not live, which gets only the raw-T term, and the pairs past it get
-    nothing."""
+    max(opacity, 1e-12), and A_j the same reversed cumulative sum of the
+    decoded gw w; the intersection's locals are recomputed.  As in the
+    kernel, a ray reads no pair past its last index; the pair there, if
+    not live, is its stop and gets only the raw-T term."""
     kernels.check_cache_order(exact, cache)
     f = _pairs(cnt, dirs, mind, t0, axes, plane, inv_scale, opac, exact)
     alpha, t_excl, live, g_val = f.alpha, f.t_excl, f.live, f.g
     gate = f.ok & (f.alpha_raw < geometry.ALPHA_MAX)
     if cache is not None:
-        ac, te = cache.pairs.float().permute(3, 0, 2, 1)      # (T, R, K)
+        k = axes.shape[-1]
+        reached = (torch.arange(k, device=dirs.device)
+                   <= cache.last[..., None])                  # (T, R, K)
+        ac, te = (torch.where(reached, x, 0.0)
+                  for x in cache.pairs.float().permute(3, 0, 2, 1))
         alpha, t_excl, live = ac.abs(), te.abs(), te > 0.0
-        reached = torch.cat([torch.ones_like(live[..., :1]),
-                             torch.cumprod(live.int(), -1)[..., :-1].bool()],
-                            -1)
-        live = live & reached
-        gate = (ac > 0.0) & reached
+        gate = ac > 0.0
         g_val = alpha / opac[:, None, :].clamp_min(1e-12)
     w = torch.where(live, alpha * t_excl, 0.0)
     t = f.t
@@ -386,13 +386,9 @@ def backward_tiles_reference(cnt: Tensor, dirs: Tensor, mind: Tensor,
           + g[2] * (c2 + 0.5) + g[3] * t + g[4]
           + sg * (g[5] * n[:, 0:1] + g[6] * n[:, 1:2] + g[7] * n[:, 2:3]))
     gww = _in_order(gw * w, f.perm)
-    if cache is None:
-        rev = torch.flip(torch.cumsum(torch.flip(gww, [-1]), -1), [-1])
-        suffix = _from_order(torch.nn.functional.pad(rev[..., 1:], (0, 1)),
-                             f.perm)                          # after j
-    else:
-        gw_total = (g_chans[:, :8] * cache.totals).sum(1)[..., None]
-        suffix = gw_total - torch.cumsum(gww, -1)
+    rev = torch.flip(torch.cumsum(torch.flip(gww, [-1]), -1), [-1])
+    suffix = _from_order(torch.nn.functional.pad(rev[..., 1:], (0, 1)),
+                         f.perm)                              # after j
     one_m = (1.0 - alpha).clamp_min(1e-6)
     t_out = fwd_chans[:, 8, :, None]
     t_raw = fwd_chans[:, 9, :, None]
@@ -532,8 +528,8 @@ class _TracerCore(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_chans, _g_accum):
-        *inputs, chans, pairs, totals = ctx.saved_tensors
-        cache = None if pairs is None else kernels.TracerCache(pairs, totals)
+        *inputs, chans, pairs, last = ctx.saved_tensors
+        cache = None if pairs is None else kernels.TracerCache(pairs, last)
         g_chans = g_chans.contiguous()
         if g_chans.device.type == "cpu":
             grads = backward_tiles_reference(*inputs, chans, g_chans,

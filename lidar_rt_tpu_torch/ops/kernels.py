@@ -51,7 +51,8 @@ KERNELS = tuple(ENTRY_POINTS)
 # The device kernels of each library, in the index order of its
 # `<library>_occupancy` entry point.  tracer_forward_kernel<cache>;
 # tracer_backward_kernel<source, fast>, source 0 the tile-order replay, 1
-# the exact walk's pairs, 2 the cache.
+# the exact walk's pairs; tracer_backward_cache_kernel<fast>, the cache
+# decode.
 DEVICE_KERNELS = {
     "tracer_forward": ("tracer_forward_kernel<false>",
                        "tracer_forward_exact_kernel",
@@ -59,10 +60,10 @@ DEVICE_KERNELS = {
     "tracer_backward": ("tracer_backward_kernel<0,false>",
                         "tracer_backward_exact_kernel",
                         "tracer_backward_kernel<1,false>",
-                        "tracer_backward_kernel<2,true>",
+                        "tracer_backward_cache_kernel<true>",
                         "tracer_backward_kernel<1,true>",
                         "tracer_backward_kernel<0,true>",
-                        "tracer_backward_kernel<2,false>"),
+                        "tracer_backward_cache_kernel<false>"),
 }
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -260,9 +261,6 @@ def _launch(name: str, dev: torch.device, pointers, dims) -> None:
                            + lib.tracer_error_string(rc).decode())
 
 
-TOTAL_ROWS = 8     # rows of the cache's (T, 8, R) totals
-
-
 class TracerCache(NamedTuple):
     """What the forward keeps for the backward in the cache mode.
 
@@ -271,12 +269,14 @@ class TracerCache(NamedTuple):
       held, zero where a gate failed) and signed exclusive transmittance
       (negative where the T_MIN test failed), written only at the steps
       the forward kernel visits.
-    totals: (T, 8, R) float32, rows 0-7 of the channels summed with the
-      weights the backward decodes (bf16 alpha x bf16 transmittance).
+    last: (T, R) int32, each ray's last index: the candidate at which the
+      T_MIN test stopped it, else the tile's last candidate (count - 1; -1
+      in an empty tile).  The backward walks each ray from it down to
+      candidate 0 and reads no step above it.
     """
 
     pairs: torch.Tensor
-    totals: torch.Tensor
+    last: torch.Tensor
 
 
 def cache_shape(t: int, k: int, r: int) -> tuple[int, int, int, int]:
@@ -318,13 +318,13 @@ def tracer_forward(cnt, dirs, mind, t0, axes, plane, inv_scale, opac, sign,
                                 device=dev)
         _check("tracer_forward", {"dirs": expected["dirs"], "cache": (
             pairs, cache_shape(t, k, r), torch.bfloat16)})
-        res = TracerCache(pairs, torch.empty((t, TOTAL_ROWS, r),
-                                             dtype=torch.float32, device=dev))
+        res = TracerCache(pairs, torch.empty((t, r), dtype=torch.int32,
+                                             device=dev))
     _launch("tracer_forward", dev,
             [x.data_ptr() for x, _, _ in expected.values()]
             + [chans.data_ptr(), accum.data_ptr()]
             + ([None, None] if res is None
-               else [res.pairs.data_ptr(), res.totals.data_ptr()]),
+               else [res.pairs.data_ptr(), res.last.data_ptr()]),
             (t, r, k, int(exact)))
     if exact:
         forward_exact_launches += 1
@@ -366,18 +366,17 @@ def tracer_backward(cnt, dirs, mind, t0, axes, plane, inv_scale, opac, sign,
     if cache is not None:
         expected["cache"] = (cache.pairs, cache_shape(t, k, r),
                              torch.bfloat16)
-        expected["totals"] = (cache.totals, (t, TOTAL_ROWS, r),
-                              torch.float32)
+        expected["last"] = (cache.last, (t, r), torch.int32)
     dev = _check("tracer_backward", expected)
     grads = torch.zeros((t, GRAD_ROWS, k), dtype=torch.float32, device=dev)
     pairs = (torch.empty((t, k, r, 2), dtype=torch.float32, device=dev)
              if exact else None)
     arrays = [x.data_ptr() for name, (x, _, _) in expected.items()
-              if name not in ("cache", "totals")]
+              if name not in ("cache", "last")]
     _launch("tracer_backward", dev,
             arrays + [None if pairs is None else pairs.data_ptr()]
             + ([None, None] if cache is None
-               else [cache.pairs.data_ptr(), cache.totals.data_ptr()])
+               else [cache.pairs.data_ptr(), cache.last.data_ptr()])
             + [grads.data_ptr()], (t, r, k, int(exact), int(fast)))
     if exact and fast:
         backward_exact_fast_launches += 1

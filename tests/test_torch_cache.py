@@ -81,14 +81,26 @@ def test_trace_config_resolves_the_cache():
     assert not t_tracer.TraceConfig(exact_order=True, **FAST).use_cache
 
 
+def _stops(live, cnt):
+    """Each ray's last index the long way: the first candidate below cnt
+    at which the float32 replay's T_MIN test fails, else cnt - 1."""
+    live, cnt = live.numpy(), cnt.numpy()
+    out = np.empty(live.shape[:2], np.int32)
+    for t in range(live.shape[0]):
+        for r in range(live.shape[1]):
+            stops = np.flatnonzero(~live[t, r, :cnt[t]])
+            out[t, r] = stops[0] if stops.size else cnt[t] - 1
+    return out
+
+
 @pytest.mark.parametrize("k", [128, 256])
 def test_cached_forward_is_the_uncached_forward(k):
     """The forward twin with the cache gives the uncached channels and
     accum to the bit, and encodes each pair's gates in the cache's sign
     bits: a negative alpha where the ALPHA_MAX clamp held, zero where a
     gate failed, a negative transmittance where the T_MIN test failed.
-    Its totals are the channels' rows 0-7 with the decoded weights, within
-    the bf16 rounding of the float32 rows."""
+    Its last index is, for every ray, the candidate at which the float32
+    replay stops it, or the tile's last candidate where none does."""
     inputs, _ = _tile_case(k, seed=k + 1)
     inputs = inputs._replace(opac=(inputs.opac * 1.5).clamp_max(0.999))
     chans, accum = cuda_tracer.forward_tiles_reference(*inputs)
@@ -98,10 +110,13 @@ def test_cached_forward_is_the_uncached_forward(k):
     t, r = inputs.dirs.shape[:2]
     assert cache.pairs.dtype == torch.bfloat16
     assert tuple(cache.pairs.shape) == kernels.cache_shape(t, k, r)
-    assert tuple(cache.totals.shape) == (t, kernels.TOTAL_ROWS, r)
-    np.testing.assert_allclose(cache.totals.numpy(), chans[:, :8].numpy(),
-                               rtol=2 ** -6, atol=1e-3)
+    assert cache.last.dtype == torch.int32
+    assert tuple(cache.last.shape) == (t, r)
     f = cuda_tracer._pairs(*inputs[:8])
+    want = _stops(f.live, inputs.cnt)
+    np.testing.assert_array_equal(cache.last.numpy(), want)
+    last_cand = inputs.cnt.numpy()[:, None] - 1
+    assert (want < last_cand).any() and (want == last_cand).any()
     ac, te = cache.pairs.float().permute(3, 0, 2, 1)
     clamped = f.ok & (f.alpha_raw >= 0.99)
     assert bool(clamped.any()) and bool((~f.live).any())
@@ -138,7 +153,8 @@ def test_float32_cache_decodes_to_the_replay(k, fac):
     exact = kernels.TracerCache(
         torch.stack([torch.where(clamped, -f.alpha, f.alpha),
                      torch.where(f.live, f.t_excl, -f.t_excl)],
-                    -1).transpose(1, 2), chans[:, :8])
+                    -1).transpose(1, 2),
+        torch.tensor(_stops(f.live, inputs.cnt)))
     decoded = cuda_tracer.backward_tiles_reference(*inputs, chans, g,
                                                    cache=exact)
     for name, a, b in zip(GRAD_FIELDS, decoded, replay):
@@ -157,9 +173,10 @@ def test_bf16_cache_against_the_replay(k, fac, atol, cos):
     dL/dalpha_j through A_j / (1 - alpha_j), up to 100 x at the clamp
     (measured here: up to 1.9e-2 of d_plane's largest magnitude, cosine
     >= 0.99992): the bars there are 3e-2 and the fast mode's cosine on the
-    TPU (PARITY_r03.json, 0.9996).  The port's totals make A_j's two terms
-    agree (the reference takes gw_total from the float32 channels, which
-    gave up to 6e-2 and cosine 0.99899 on these tiles)."""
+    TPU (PARITY_r03.json, 0.9996).  The port sums A_j from the decoded
+    weights themselves, back to front (the reference takes gw_total from
+    the float32 channels less a prefix of decoded weights, which gave up
+    to 6e-2 and cosine 0.99899 on these tiles)."""
     inputs, chans, g, replay = _cases(k, fac)
     _, _, cache = cuda_tracer.forward_tiles_reference(*inputs, cache=True)
     rounded = cuda_tracer.backward_tiles_reference(*inputs, chans, g,

@@ -23,9 +23,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (CHAN_ATOL, FAST_COS, FAST_REL, cache_check,
-                        check_cached_pair, permuted_rays, street_soup,
-                        totals_error)
+from chip_smoke import (FAST_COS, FAST_REL, cache_check, check_cached_pair,
+                        last_index_check, permuted_rays, street_soup)
 from lidar_rt_tpu_torch.core import rays as t_rays
 from lidar_rt_tpu_torch.ops import cuda_tracer, geometry, kernels
 from lidar_rt_tpu_torch.ops import tracer as t_tracer
@@ -702,8 +701,9 @@ def test_cache_check_counts():
     inputs = _case(128, 4, "cpu")
     inputs = inputs._replace(opac=inputs.opac.clamp_min(0.9),
                              t0=inputs.t0 * 0.01)
-    _, _, (cache, _) = cuda_tracer.forward_tiles_reference(*inputs,
-                                                           cache=True)
+    _, _, (cache, last) = cuda_tracer.forward_tiles_reference(*inputs,
+                                                              cache=True)
+    assert int(inputs.cnt[0]) == 0 and bool((last[0] == -1).all())
     f = cuda_tracer._pairs(*inputs[:8])
     live = f.live.transpose(1, 2)
     reached = torch.cat([torch.ones_like(live[:, :1]),
@@ -727,15 +727,15 @@ def test_cache_check_counts():
     assert (counts["stray"], counts["missed"], counts["sign"]) == (1, 1, 1)
 
 
-@pytest.mark.parametrize("fault", [None, "sign", "channels", "totals"])
+@pytest.mark.parametrize("fault", [None, "sign", "channels", "last"])
 def test_check_cached_pair_passes_twins_and_catches_faults(monkeypatch,
                                                            fault):
     """`check_cached_pair` (the card checks' run of the cached pair) on
     the CPU, with the kernels stood in for by the twins: the forward
     writes the twin's encoding at the steps its rays reach into the
     caller's NaN-filled buffer.  It passes them, and raises on a flipped
-    live bit, on channels a bit off the uncached forward's, or on totals
-    one pair's term off."""
+    live bit, on channels a bit off the uncached forward's, or on one
+    stopped ray's last index a candidate past its stop."""
     inputs = _case(128, 4, "cpu")
     inputs = inputs._replace(opac=inputs.opac.clamp_min(0.9),
                              t0=inputs.t0 * 0.01)
@@ -757,19 +757,17 @@ def test_check_cached_pair_passes_twins_and_catches_faults(monkeypatch,
             chans = chans.clone()
             chans[2, 0, 0] = torch.nextafter(chans[2, 0, 0],
                                              torch.tensor(1e9))
-        totals = twin.totals
-        if fault == "totals":       # the heaviest hit counted twice
-            d = cache_out.float().nan_to_num(0.0)
-            w = torch.where(d[..., 1] > 0, d[..., 0].abs() * d[..., 1], 0.0)
-            t, j, r = np.unravel_index(int(w.argmax()), w.shape)
-            totals = totals.clone()
-            totals[t, 4, r] += w[t, j, r]
-        return chans, accum, kernels.TracerCache(cache_out, totals)
+        last = twin.last
+        if fault == "last":
+            t, r = torch.nonzero(last < args[0][:, None] - 1)[0]
+            last = last.clone()
+            last[t, r] += 1
+        return chans, accum, kernels.TracerCache(cache_out, last)
 
     def backward(*args, exact=False, cache=None, fast=False):
         if cache is not None:           # unwritten steps: past every stop
             cache = kernels.TracerCache(cache.pairs.nan_to_num(0.0),
-                                        cache.totals)
+                                        cache.last)
         return cuda_tracer.backward_tiles_reference(*args, exact=exact,
                                                     cache=cache)
 
@@ -782,7 +780,7 @@ def test_check_cached_pair_passes_twins_and_catches_faults(monkeypatch,
     if fault is None:
         out = check_cached_pair(inputs, chans, accum, g, "a small case",
                                 lines.append)
-        assert len(lines) == 3
+        assert len(lines) == 4
         assert out["fwd_err"] == 0.0 and out["bwd_err"] <= 1e-6
     else:
         with pytest.raises(RuntimeError, match="a small case"):
@@ -819,9 +817,9 @@ def test_cached_kernels_match_twins_on_card(cuda_device, k, tile_h, tile_w,
     cache, its unwritten steps filled from the twin's, at the float32
     gradient bars; with the fast sums, the twin's decode of the twin's own
     cache (their bf16 values may be an ulp apart) and the float32 replay
-    at the cache bars.  Its totals are the twin's sums of its own decoded
-    weights, to the channels' bar.  At 1/20 of the opacity no ray stops
-    and row 9 gets an upstream gradient."""
+    at the cache bars.  Its last index is the twin's at every ray.  At
+    1/20 of the opacity no ray stops and row 9 gets an upstream
+    gradient."""
     inputs = _case(k, k + 2, cuda_device, tile_h, tile_w)
     inputs = inputs._replace(opac=inputs.opac * fac)
     with torch.no_grad():
@@ -850,13 +848,14 @@ def test_cached_kernels_match_twins_on_card(cuda_device, k, tile_h, tile_w,
         assert kernels.backward_cache_launches == before + 2
         _, _, twin_cache = cuda_tracer.forward_tiles_reference(*inputs,
                                                                cache=True)
-        assert totals_error(inputs, cache) <= CHAN_ATOL
+        last = last_index_check(inputs, cache.last)
+        assert last["differ"] == 0, last
         twin = cuda_tracer.backward_tiles_reference(*inputs, chans, g,
                                                     cache=twin_cache)
         same = cuda_tracer.backward_tiles_reference(
             *inputs, chans, g, cache=kernels.TracerCache(
                 torch.where(cache.pairs.isnan(), twin_cache.pairs,
-                            cache.pairs), cache.totals))
+                            cache.pairs), cache.last))
     _assert_grad_bars(exact32, same)
     _assert_fast_bars(fast, twin)
     _assert_fast_bars(fast, replay)
