@@ -55,7 +55,10 @@ On one CUDA card it:
      trains the Waymo scene 20 steps and the
      KITTI-360 scene 10 with the rehearsal's tracer settings (K=512 warm-up,
      K=256 after, one tail pass), the warm-up cut short so that both
-     budgets and the switch run;
+     budgets and the switch run; then the Waymo scene 4 steps with those
+     settings and exact_order: true, across the switch: the K=512
+     warm-up resolves to the torch engine (no kernel), K=256 to the exact
+     kernels (engine, launches, ms per step and peak memory per budget);
  14. the CLI on phase 13's Waymo segment, in phase 13's directory:
      `python -m lidar_rt_tpu_torch.cli` `train` (20 of the rehearsal's
      4,000 iterations, a held-out PSNR every 10, warm-up budget to 10,
@@ -77,8 +80,12 @@ On one CUDA card it:
      gathered, against this process's band traces (channels to the bit);
      (b) the bundle's gradients of a loss on the gathered scan against
      this process's; (c) `ShardedTrainer` on a 1 x 1 mesh against
-     `Trainer` (run twice, to measure how far two runs part on the card),
-     20 rehearsal steps, ms per step of both; (d) a dp = 2 x rays = 2
+     `Trainer`: at each of 20 rehearsal steps one sharded step from a copy
+     of the plain trainer's state (same frame and bins), its loss and its
+     gradients before the optimizer held to the plain step's; then the
+     20-step trajectories of both (the Trainer run three times, to
+     measure how far runs part on the card), ms per step of both; (d) a
+     dp = 2 x rays = 2
      world of 4 ranks, 10 tile-order steps with the rehearsal's tracer
      settings and 2 in exact order: losses, distinct frames per row, the
      state bit-identical on every rank, ms per step and the bytes and ms
@@ -95,6 +102,15 @@ On one CUDA card it:
      and 20 cached from the same state (ms per step and peak memory of
      each), 5 exact-order steps with the fast sums, and a serving render's
      peak memory in the cached configuration.
+ 17. (run after 15, while phase 13's directory exists) the
+     reference-checkpoint workflow on phase 14's checkpoint: `python -m
+     lidar_rt_tpu_torch.scripts.import_roundtrip` exports it to a
+     reference `.pth`, imports it with the import command, fine-tunes 10
+     steps with `cli train --resume` and evaluates every frame with `cli
+     eval -t all -e`, each a child process on this card; the imported
+     scene's render of an eval frame held to the source's, the
+     children's kernel launches, every metric finite, each stage's
+     seconds and peak memory.
 
 Every failed check raises.  Without a CUDA device it exits non-zero before
 any phase.  The last two lines of standard output are the kernel table
@@ -114,6 +130,7 @@ import os
 import re
 import statistics
 import subprocess
+import sys
 import tempfile
 import time
 
@@ -738,6 +755,8 @@ DATA_TRAIN_STEPS = 20      # Waymo rehearsal steps (phase 13)
 DATA_WARMUP_UNTIL = 10     # of the rehearsal's 2000, so both budgets run
 KITTI_TRAIN_STEPS = 10
 KITTI_WARMUP_UNTIL = 5
+EXACT_DATA_STEPS = 4       # Waymo rehearsal steps with exact_order: true
+EXACT_DATA_WARMUP_UNTIL = 2
 
 
 def _waymo_scene(synthetic):
@@ -941,7 +960,8 @@ def data_phase(seed: int, card: str, dev, gen, tmp: str) -> dict:
     names = ("d_axes", "d_plane", "d_inv_scale", "d_opac", "d_sh")
     out = {"fwd_err": 0.0, "bwd_err": 0.0, "fwd_c_err": 0.0,
            "bwd_c_err": 0.0, "fwd_paths": {}, "bwd_paths": {},
-           "fwd_c_paths": {}, "bwd_c_paths": {}}
+           "fwd_c_paths": {}, "bwd_c_paths": {}, "fwd_x_paths": {},
+           "bwd_xf_paths": {}}
     w_dir, k_dir = os.path.join(tmp, "waymo"), os.path.join(tmp, "kitti")
     w_imgs, gen_w_s = _timed(lambda: gen_waymo(
         w_dir, dev, WAYMO_FRAMES, WAYMO_H, WAYMO_W))
@@ -1092,6 +1112,7 @@ def data_phase(seed: int, card: str, dev, gen, tmp: str) -> dict:
 
     # Training with the rehearsal's tracer settings: both budgets and the
     # switch between them.
+    w_scene = scenes["Waymo"]
     for label, frames, opts, steps, until in (
             ("Waymo", frames_w, opts_w, DATA_TRAIN_STEPS, DATA_WARMUP_UNTIL),
             ("KITTI-360", frames_k, opts_k, KITTI_TRAIN_STEPS,
@@ -1134,7 +1155,75 @@ def data_phase(seed: int, card: str, dev, gen, tmp: str) -> dict:
             for name, ms in top:
                 print(f"[data-profile]   {ms:8.3f} ms  {name[:100]}")
         del trainer
+    out["fwd_x_paths"]["train_rehearsal_exact"], \
+        out["bwd_xf_paths"]["train_rehearsal_exact"] = exact_rehearsal(
+            w_scene, frames_w, card, dev)
     return out
+
+
+def exact_rehearsal(scene, frames, card: str, dev) -> tuple[int, int]:
+    """Phase 13's Waymo scene trained with the rehearsal's tracer block
+    and exact_order: true, across the switch: the K=512 warm-up resolves
+    to the torch engine (the exact kernels take K <= 256), K=256 to the
+    exact kernels with the rehearsal's fast sums.  Prints the engine,
+    launches, host ms per step and peak memory per budget; returns the
+    exact forward's and the fast exact backward's launches."""
+    from lidar_rt_tpu_torch.train import loop, options
+
+    opts = _waymo_options()
+    opts.tracer.exact_order = True
+    cfg, warm_cfg, rehearsal_until = options.trace_configs(opts)
+    engines = {c.tile.max_per_tile: c.resolve_engine()
+               for c in (warm_cfg, cfg)}
+    print(f"[data-exact] reduction: Waymo rehearsal with exact_order: "
+          f"true, warmup_until {EXACT_DATA_WARMUP_UNTIL} in place of "
+          f"{rehearsal_until}, {EXACT_DATA_STEPS} steps in place of "
+          f"{opts.opt.iterations}; engines per budget {engines}")
+    _check(engines == {512: "torch", 256: "cuda"}, "exact order: K=512 "
+           "resolves to the torch engine, K=256 to the exact kernels")
+    trainer = loop.Trainer(scene, frames, opts, cfg, warmup_cfg=warm_cfg,
+                           warmup_until=EXACT_DATA_WARMUP_UNTIL)
+    by_k = {}
+    for _ in range(EXACT_DATA_STEPS):
+        before = _launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _, s = _timed(lambda: trainer.run(1, log_every=1))
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+        n = tuple(b - a for a, b in zip(before, _launch_counts()))
+        k = trainer.step_cfg.tile.max_per_tile
+        steps, launches, ms, peaks = by_k.get(k, (0, (0,) * 7, [], []))
+        by_k[k] = (steps + 1, tuple(a + b for a, b in zip(launches, n)),
+                   ms + [1e3 * s], peaks + [peak])
+    loss = [h["loss"] for h in trainer.history]
+    print(f"[data-exact] {card}: " + "; ".join(
+        f"K={k} on the {engines[k]} engine: {n} steps, launches "
+        f"{dict(zip(LAUNCH_KEYS, launches))}, median "
+        f"{statistics.median(ms):.3f} ms per step (min {min(ms):.3f}, max "
+        f"{max(ms):.3f}, host clock), peak allocated {max(peaks):.1f} MiB"
+        for k, (n, launches, ms, peaks) in by_k.items())
+        + f"; loss {[round(x, 5) for x in loss]}")
+    passes = cfg.tail_passes + 1
+    n512, l512 = by_k[512][:2]
+    n256, l256 = by_k[256][:2]
+    _check((n512, n256) == (EXACT_DATA_WARMUP_UNTIL,
+                            EXACT_DATA_STEPS - EXACT_DATA_WARMUP_UNTIL),
+           f"exact rehearsal steps per budget {by_k.keys()}")
+    _check(l512 == (0,) * 7, f"K=512 exact steps launch no kernel: {l512}")
+    want = (0, 0, passes * n256, 0, 0, 0, passes * n256)
+    _check(l256 == want, f"K=256 exact steps: launches {l256}, want {want} "
+           "(the exact forward and the fast exact backward)")
+    _check(len(loss) == EXACT_DATA_STEPS and all(np.isfinite(loss)),
+           "exact rehearsal losses finite")
+    for part in ("background", "actors"):
+        for name, v in getattr(trainer.state.scene, part).params().items():
+            _check(bool(torch.isfinite(v).all()),
+                   f"exact rehearsal: {part}.{name} finite")
+    # The torch engine's K=512 steps leave gigabytes in the allocator's
+    # cache: give them back to the card for the later phases' processes.
+    del trainer
+    torch.cuda.empty_cache()
+    return l256[2], l256[6]
 
 
 CLI_ITERATIONS, CLI_RESUMED = 20, 25     # of the rehearsal's 4,000
@@ -1385,17 +1474,20 @@ def _state_digest(trainer) -> str:
 
 
 # The launch counts of `_launch_counts`, in order: tile order, exact order,
-# the cached tile order and the exact order's fast sums.
+# the cached tile order and the exact order's fast sums; and their names in
+# `kernels.launch_counts()`.
 LAUNCH_KEYS = ("fwd", "bwd", "fwd_x", "bwd_x", "fwd_c", "bwd_c", "bwd_xf")
+LAUNCH_COUNTERS = ("forward_launches", "backward_launches",
+                   "forward_exact_launches", "backward_exact_launches",
+                   "forward_cache_launches", "backward_cache_launches",
+                   "backward_exact_fast_launches")
 
 
 def _launch_counts() -> tuple[int, ...]:
     from lidar_rt_tpu_torch.ops import kernels
 
-    return (kernels.forward_launches, kernels.backward_launches,
-            kernels.forward_exact_launches, kernels.backward_exact_launches,
-            kernels.forward_cache_launches, kernels.backward_cache_launches,
-            kernels.backward_exact_fast_launches)
+    n = kernels.launch_counts()
+    return tuple(n[c] for c in LAUNCH_COUNTERS)
 
 
 def band_rank(mesh, dev: str, w_dir: str, scene_path: str, frame: int,
@@ -1522,6 +1614,71 @@ def train_rank(mesh, dev: str, w_dir: str, scene_path: str, seed: int
     return out
 
 
+def _param_grads(state) -> tuple[list[str], list[torch.Tensor]]:
+    """Every parameter's gradient in a train state (zeros where none)."""
+    names, grads = [], []
+    for part in ("background", "actors"):
+        asset = getattr(state.scene, part)
+        if asset is not None:
+            for group, p in asset.params().items():
+                names.append(f"{part}.{group}")
+                grads.append(torch.zeros_like(p) if p.grad is None
+                             else p.grad)
+    return names, grads
+
+
+def _field_errors(got, want, names) -> dict[str, tuple[float, float]]:
+    """`_grad_errors`, where a field that is zero in `want` must be zero
+    in `got` too (the SH rest coefficients at degree 0, for one): (1, 0)
+    if it is, (0, inf) if not."""
+    out = {}
+    for name, a, b in zip(names, got, want):
+        if not bool(b.any()):
+            out[name] = (1.0, 0.0) if not bool(a.any()) else (0.0, np.inf)
+        else:
+            out.update(_grad_errors([a], [b], [name]))
+    return out
+
+
+def paired_trainer(scene, frames, opts, **kw):
+    """A `Trainer` each of whose steps is paired with a 1 x 1 sharded step
+    (`make_sharded_train_step`) from a copy of the state before it, on the
+    same frame and bins.  Its `pairs` hold per step (plain loss, sharded
+    loss, the sharded gradients' `_field_errors` against the plain ones,
+    both read before the optimizer steps).  The plain state takes only
+    the plain steps."""
+    import copy
+
+    from lidar_rt_tpu_torch.parallel import make_mesh
+    from lidar_rt_tpu_torch.parallel.train_step import \
+        make_sharded_train_step
+    from lidar_rt_tpu_torch.train import loop
+
+    class Paired(loop.Trainer):
+        def _make_step(self, cfg):
+            plain = super()._make_step(cfg)
+            sharded = make_sharded_train_step(self.frames, self.args, cfg,
+                                              make_mesh(), self.rebin_every)
+
+            def step(state, batch):
+                twin = loop.init_train_state(state.scene, self.args.opt)
+                twin.bins = copy.deepcopy(state.bins)
+                state, metrics = plain(state, batch)
+                twin, twin_metrics = sharded(
+                    twin, loop.frame_batch(self.frames, [batch.frame]))
+                names, want = _param_grads(state)
+                self.pairs.append((
+                    float(metrics["loss"]), float(twin_metrics["loss"]),
+                    _field_errors(_param_grads(twin)[1], want, names)))
+                return state, metrics
+
+            return step
+
+    trainer = Paired(scene, frames, opts, **kw)
+    trainer.pairs = []
+    return trainer
+
+
 def sharded_phase(tmp: str, card: str, dev, seed: int) -> dict:
     """Phase 15: the scale-out path on the card, from phase 13's Waymo
     segment under `tmp`, its scene assembled again and handed to the ranks
@@ -1625,18 +1782,43 @@ def sharded_phase(tmp: str, card: str, dev, seed: int) -> dict:
           f"processes: start, load the segment and the scene, twins, "
           f"renders)")
 
-    # (c): a 1 x 1 mesh against the plain trainer, same schedule.  The
-    # kernels and the gathers' backward sum with atomics in no fixed order,
-    # and Adam (eps 1e-15) turns a noise-sized gradient into a whole
-    # lr-sized step, so two runs of one trainer part after the first step:
-    # the plain trainer runs twice to measure that spread, and the 1 x 1
-    # run is held to 2e-3 or twice the spread, whichever is larger, after a
-    # first step whose loss must agree to 1e-6.
+    # (c): a 1 x 1 mesh against the plain trainer.  Before each of the
+    # plain trainer's 20 rehearsal steps, a copy of its state takes the
+    # sharded step on the same frame and bins: the step's loss must agree
+    # to 1e-6 and its gradients, before the optimizer, at the gradient
+    # bars.  (The kernels and the gathers' backward sum with atomics in no
+    # fixed order, and Adam's eps 1e-15 turns a noise-sized gradient into
+    # a whole lr-sized step, so two runs of one trainer part after the
+    # first step: the updated parameters are not compared.)  Then the
+    # 20-step trajectories: three Trainer runs measure how far runs part,
+    # and the ShardedTrainer's losses are held to 2e-3 or twice the
+    # largest gap between two of them, whichever is larger.
     cfg, warm, _ = options.trace_configs(opts)
+    kw = dict(trace_cfg=cfg, warmup_cfg=warm,
+              warmup_until=DATA_WARMUP_UNTIL, seed=seed)
+    paired = paired_trainer(scene, frames, opts, **kw)
+    paired.run(DATA_TRAIN_STEPS, log_every=DATA_TRAIN_STEPS)
+    loss_rel = [abs(sh - pl) / abs(pl) for pl, sh, _ in paired.pairs]
+    worst = {}
+    for _, _, errors in paired.pairs:
+        for name, (cos, rel) in errors.items():
+            c0, r0 = worst.get(name, (1.0, 0.0))
+            worst[name] = (min(c0, cos), max(r0, rel))
+    print(f"[sharded-1x1] {card}: {len(paired.pairs)} rehearsal steps, each "
+          f"a plain step and a 1x1 sharded step from one state (same frame "
+          f"and bins): loss max rel diff {max(loss_rel):.3e} (bar 1e-6); "
+          f"gradients before the optimizer, worst over the steps: "
+          f"{_fmt_grads(worst)} (bars: cosine > {GRAD_COS}, err <= "
+          f"{GRAD_REL} x max|plain|)")
+    _check(len(paired.pairs) == DATA_TRAIN_STEPS
+           and max(loss_rel) <= 1e-6, "1x1 sharded step losses vs Trainer")
+    for i, (_, _, errors) in enumerate(paired.pairs):
+        _check_grads(errors, f"1x1 sharded step {i + 1} gradients vs "
+                     "Trainer")
+    del paired
     results = {}
-    for label in ("Trainer", "Trainer again", "ShardedTrainer 1x1"):
-        kw = dict(trace_cfg=cfg, warmup_cfg=warm,
-                  warmup_until=DATA_WARMUP_UNTIL, seed=seed)
+    for label in ("Trainer", "Trainer again", "Trainer third",
+                  "ShardedTrainer 1x1"):
         trainer = (ShardedTrainer(scene, frames, opts, make_mesh(), **kw)
                    if label.startswith("Sharded")
                    else loop.Trainer(scene, frames, opts, **kw))
@@ -1646,8 +1828,10 @@ def sharded_phase(tmp: str, card: str, dev, seed: int) -> dict:
         results[label] = (np.array([h["loss"] for h in trainer.history]),
                           ms, _launch_counts())
         del trainer
-    (ref, ref_ms, _), (again, _, _), (loss, ms, one) = results.values()
-    spread = float(np.max(np.abs(again - ref) / np.abs(ref)))
+    *runs, (loss, ms, one) = results.values()
+    ref, ref_ms = runs[0][0], runs[0][1]
+    spread = max(float(np.max(np.abs(a[0] - b[0]) / np.abs(ref)))
+                 for i, a in enumerate(runs) for b in runs[i + 1:])
     rel = np.abs(loss - ref) / np.abs(ref)
     bar = max(2e-3, 2.0 * spread)
     print(f"[sharded-1x1] {card}: {DATA_TRAIN_STEPS} rehearsal steps "
@@ -1657,9 +1841,12 @@ def sharded_phase(tmp: str, card: str, dev, seed: int) -> dict:
           f"{statistics.median(ref_ms):.3f} (min {min(ref_ms):.3f}, max "
           f"{max(ref_ms):.3f}), host clock; losses: step 1 rel diff "
           f"{rel[0]:.3e} (bar 1e-6), max rel diff {rel.max():.3e} (bar "
-          f"{bar:.3e}: 2e-3 or twice the {spread:.3e} between two runs of "
-          f"the Trainer); launches {one}")
-    _check(spread <= 5e-2, "two runs of the Trainer stay within 5e-2")
+          f"{bar:.3e}: 2e-3 or twice the {spread:.3e} between the farthest "
+          f"two of three runs of the Trainer); launches {one}")
+    for label, (traj, _, _) in results.items():
+        print(f"[sharded-1x1]   {label} loss "
+              f"{[round(float(x), 5) for x in traj]}")
+    _check(spread <= 5e-2, "three runs of the Trainer stay within 5e-2")
     _check(bool(np.isfinite(loss).all()) and rel[0] <= 1e-6
            and rel.max() <= bar, "1x1 ShardedTrainer losses vs Trainer")
     _check(one[4] == one[5] > 0 and one[1] == one[3] == one[6] == 0,
@@ -1706,6 +1893,119 @@ def sharded_phase(tmp: str, card: str, dev, seed: int) -> dict:
           f"start, load, {SHARDED_STEPS} + {SHARDED_EXACT_STEPS} steps)")
     out["launches"] = dict(launches)
     return out
+
+
+ROUNDTRIP_FINETUNE = 10     # of the 200 configs/rehearsal/import_rt.yaml
+# fine-tunes, from phase 14's iteration 25 in place of a 4,000-step run.
+
+
+def import_phase(tmp: str, card: str, dev) -> dict:
+    """Phase 17: the reference-checkpoint workflow on phase 14's
+    checkpoint under `tmp`: `python -m
+    lidar_rt_tpu_torch.scripts.import_roundtrip` (export to a reference
+    `.pth`, the import command, `cli train --resume` for
+    ROUNDTRIP_FINETUNE steps, `cli eval -t all -e`, each a child process
+    on this card).  Holds the imported scene's render of an eval frame to
+    the source checkpoint's, checks the children's launches and that
+    every metric is finite; prints each stage's seconds and peak memory.
+    Returns the tracer kernels' launches in the fine-tune and the eval."""
+    from lidar_rt_tpu_torch.data import waymo
+    from lidar_rt_tpu_torch.ops import tracer as tracer_lib
+    from lidar_rt_tpu_torch.scene import compose
+    from lidar_rt_tpu_torch.train import options
+    from lidar_rt_tpu_torch.utils import checkpoint
+
+    src = os.path.join(tmp, "output", "rehearsal", "exp", "scene_we1",
+                       "models")
+    out_dir = os.path.join(tmp, "import_rt")
+    exp_cfg = os.path.join(tmp, "import_rt_exp.yaml")
+    with open(exp_cfg, "w") as f:
+        f.write(f"""# The round trip's experiment, on phase 13's segment.
+parent_config: configs/rehearsal/import_rt.yaml
+model_dir: "{tmp}/output"
+source_dir: "{tmp}/waymo"
+tracer:
+  warmup_until: {CLI_WARMUP_UNTIL}
+""")
+    print(f"[import] reduction: configs/rehearsal/import_rt.yaml imports "
+          f"phase 14's checkpoint (iteration {CLI_RESUMED}) in place of a "
+          f"4,000-step one and fine-tunes {ROUNDTRIP_FINETUNE} steps in "
+          f"place of 200, warmup_until {CLI_WARMUP_UNTIL} of 2000")
+    log_path = os.path.join(tmp, "import_rt.log")
+    cmd = [sys.executable, "-m", "lidar_rt_tpu_torch.scripts.import_roundtrip",
+           "--src", src, "-dc", "configs/rehearsal/waymo.yaml", "-ec",
+           exp_cfg, "--out", out_dir, "--finetune", str(ROUNDTRIP_FINETUNE)]
+    with open(log_path, "w") as log:
+        proc, wall = _timed(lambda: subprocess.run(
+            cmd, stdout=log, stderr=subprocess.STDOUT))
+    if proc.returncode != 0:
+        with open(log_path) as log:
+            print(log.read()[-6000:])
+        _check(False, f"import_roundtrip exited {proc.returncode}")
+    with open(os.path.join(out_dir, "import_rt.json")) as f:
+        rec = json.load(f)
+    fine, ev = rec["finetune"], rec["eval"]
+    secs = ", ".join(f"{k} {v:.2f}" for k, v in fine["seconds"].items())
+
+    def mib(x):
+        return "not measured" if x is None else f"{x:.1f} MiB"
+
+    print(f"[import] {card}: round trip {wall:.2f} s; export "
+          f"{rec['export']['asset_sizes']} surfels per asset at iteration "
+          f"{rec['export']['iteration']}; import {rec['import_s']:.2f} s, "
+          f"fine-tune {rec['finetune_s']:.2f} s (iterations "
+          f"{fine['iterations']}; stages: {secs}; peak allocated "
+          f"{mib(fine['peak_mib'])}), eval {rec['eval_s']:.2f} s "
+          f"({ev['num_frames']} frames, metric pass "
+          f"{1e3 * ev['eval_seconds'] / ev['num_frames']:.1f} ms per frame, "
+          f"peak allocated {mib(ev['peak_mib'])}); process wall times on "
+          f"the host clock; the import's peak not measured")
+    _check(rec["export"]["iteration"] == CLI_RESUMED
+           and fine["iterations"] == [CLI_RESUMED + 1,
+                                      CLI_RESUMED + ROUNDTRIP_FINETUNE],
+           f"round trip from iteration {CLI_RESUMED}: {fine['iterations']}")
+    f_n = tuple(fine["launches"][c] for c in LAUNCH_COUNTERS)
+    e_n = tuple(ev["launches"][c] for c in LAUNCH_COUNTERS)
+    print(f"[import] launches {LAUNCH_KEYS}: fine-tune {f_n}, eval {e_n}")
+    passes = 2        # the rehearsal's one tail pass
+    _check(f_n[4] == f_n[5] == passes * ROUNDTRIP_FINETUNE
+           and f_n[1] == f_n[2] == f_n[3] == f_n[6] == 0 and f_n[0] > 0,
+           "fine-tune: the cached pair per pass and step (the rehearsal's "
+           "fast_math), its periodic eval uncached")
+    _check(e_n[0] > 0 and sum(e_n) == e_n[0],
+           "eval: uncached tile-order forwards only")
+    for group, row in rec["metrics_mean"].items():
+        for k, v in row.items():
+            ok = (v == "unavailable(no-weights)" if "lpips" in k
+                  else np.isfinite(v))
+            _check(bool(ok), f"import_rt.json metrics_mean {group}/{k} = {v}")
+
+    # The imported scene renders an eval frame as the exported one does.
+    opts = _waymo_options()
+    frames, _ = waymo.load(os.path.join(tmp, "waymo"), opts, device=dev)
+    cfg = options.trace_configs(opts)[0]
+    f0 = frames.eval_frames[0]
+    renders = []
+    for path in (rec["export"]["src_ckpt"], rec["imported_ckpt"]):
+        scene, _ = checkpoint.load_scene(path, dev)
+        with torch.no_grad():
+            bundle, _ = compose(scene, f0)
+            renders.append(tracer_lib.render_frame(
+                bundle, frames.grid, frames.width, frames.pose(f0),
+                scene.background.active_sh_degree, cfg,
+                bool(opts.opt.use_rayhit))["channels"])
+        del scene, bundle
+    err = (renders[1] - renders[0]).abs().max().item()
+    print(f"[import] {card}: the imported scene renders eval frame {f0} "
+          f"{'bit-identically to' if torch.equal(*renders) else 'beside'} "
+          f"the source checkpoint: channels max abs err {err:.3e} (bar "
+          f"{CHAN_ATOL}); mean metrics: depth RMSE "
+          f"{rec['metrics_mean']['depth']['rmse']:.4f}, intensity PSNR "
+          f"{rec['metrics_mean']['intensity']['psnr']:.4f}, raydrop F1 "
+          f"{rec['metrics_mean']['raydrop']['f1']:.4f}")
+    _check(err <= CHAN_ATOL, "imported scene's render vs the source's")
+    return {"fine": dict(zip(LAUNCH_KEYS, f_n)),
+            "eval": dict(zip(LAUNCH_KEYS, e_n))}
 
 
 EXACT_FAST_STEPS = 5       # exact-order training steps with the fast sums
@@ -2659,10 +2959,12 @@ def main() -> None:
     # 13. The data path: files on disk to an assembled, trained scene;
     # 14. the CLI on phase 13's Waymo segment, before it is removed.
     # 15. The scale-out path on the segment's assembled scene.
+    # 17. The reference-checkpoint round trip from phase 14's checkpoint.
     with tempfile.TemporaryDirectory() as tmp:
         data = data_phase(args.seed, card, dev, gen, tmp)
         cli_runs = cli_phase(tmp, card, dev)
         sharded = sharded_phase(tmp, card, dev, args.seed)
+        roundtrip = import_phase(tmp, card, dev)
     # 16. The training modes at the flagship shape.
     cached = cache_phase(
         card, dev, t_inputs, g_train, inputs, chans_x, g_exact,
@@ -2685,23 +2987,29 @@ def main() -> None:
     fwd_paths = {"serve": launches, "train": train_fwd,
                  "serve_multi_return": multi, "serve_tail": serve_tail,
                  "train_tail": mode_launches["tail"][0], **data["fwd_paths"],
-                 **cli_runs["fwd_paths"], "sharded": shard_n["fwd"]}
+                 **cli_runs["fwd_paths"], "sharded": shard_n["fwd"],
+                 "import_rt_finetune": roundtrip["fine"]["fwd"],
+                 "import_rt_eval": roundtrip["eval"]["fwd"]}
     bwd_paths = {"train": train_bwd, "train_tail": mode_launches["tail"][1],
                  **data["bwd_paths"], "sharded": shard_n["bwd"]}
     fwd_x_paths = {"serve_exact": serve_exact,
                    "train_exact": mode_launches["exact"][2],
                    "sharded": shard_n["fwd_x"],
-                   "train_exact_fast": cached["launches"]["exact-fast"][2]}
+                   "train_exact_fast": cached["launches"]["exact-fast"][2],
+                   **data["fwd_x_paths"]}
     bwd_x_paths = {"train_exact": mode_launches["exact"][3],
                    "sharded": shard_n["bwd_x"]}
     fwd_c_paths = {**data["fwd_c_paths"], **cli_runs["fwd_c_paths"],
                    "sharded": shard_n["fwd_c"],
-                   "train_cached": cached["launches"]["cached"][4]}
+                   "train_cached": cached["launches"]["cached"][4],
+                   "import_rt_finetune": roundtrip["fine"]["fwd_c"]}
     bwd_c_paths = {**data["bwd_c_paths"], **cli_runs["bwd_c_paths"],
                    "sharded": shard_n["bwd_c"],
-                   "train_cached": cached["launches"]["cached"][5]}
+                   "train_cached": cached["launches"]["cached"][5],
+                   "import_rt_finetune": roundtrip["fine"]["bwd_c"]}
     bwd_xf_paths = {"sharded": shard_n["bwd_xf"],
-                    "train_exact_fast": cached["launches"]["exact-fast"][6]}
+                    "train_exact_fast": cached["launches"]["exact-fast"][6],
+                    **data["bwd_xf_paths"]}
     train_work = works["training", False]
     # (inputs, work, backward, cache, fast) of each kernel's bound.
     kernel_work = {

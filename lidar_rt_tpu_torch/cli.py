@@ -82,14 +82,22 @@ def _model_dir(args) -> str:
 
 
 def trace_configs(args, device: torch.device):
-    """`train.options.trace_configs` for `device`, logging the `tracer:`
-    block's TPU options, which the port does not read."""
+    """`train.options.trace_configs` for `device`, logging the engine each
+    budget resolves to and the `tracer:` block's TPU options, which the
+    port does not read."""
     block = options.tracer_block(args)
     mapped = {k: block[k] for k in options.TPU_ONLY if k in block}
     if mapped:
         console.log(f"tracer: {mapped} select TPU code paths; the port "
                     "bins with exact top-k, one thread per ray")
-    return options.trace_configs(args, device)
+    cfg, warmup_cfg, warmup_until = options.trace_configs(args, device)
+    budgets = [("budget", cfg)] if warmup_cfg is None else [
+        ("warm-up budget", warmup_cfg), ("then", cfg)]
+    console.log("tracer: " + "; ".join(
+        f"{label} K={c.tile.max_per_tile} "
+        f"{'exact' if c.exact_order else 'tile'} order on the "
+        f"{c.resolve_engine()} engine" for label, c in budgets))
+    return cfg, warmup_cfg, warmup_until
 
 
 class _Stopwatch:
@@ -137,14 +145,17 @@ def _train_parser() -> argparse.ArgumentParser:
 
 def main_train(argv=None):
     """Train, and return the Trainer."""
+    from lidar_rt_tpu_torch.ops import kernels
     from lidar_rt_tpu_torch.train import loop as loop_lib
     from lidar_rt_tpu_torch.train import losses
+    from lidar_rt_tpu_torch.utils import profiling
     from lidar_rt_tpu_torch.utils.export import colormap, write_png
 
     p = _train_parser()
     a = p.parse_args(argv)
     if a.only_refine and not (a.model_path or a.resume):
         p.error("-r/--only_refine needs -m (a trained model to refine)")
+    launches = kernels.launch_counts()
     device = torch.device(a.device)
     args = config_lib.parse(a.data_config, config_lib.parse(a.exp_config))
     set_seed(int(args.get("seed", 1)))
@@ -266,7 +277,10 @@ def main_train(argv=None):
             json.dump({"history": trainer.history,
                        "densify": trainer.densify_log,
                        "eval_history": eval_history,
-                       "seconds": clock.seconds}, fp, indent=1)
+                       "seconds": clock.seconds,
+                       "launches": kernels.launches_since(launches),
+                       "peak_mib": profiling.peak_mib(device)},
+                      fp, indent=1)
 
     dump_log()
     if a.only_refine or bool(args.refine.use_refine):

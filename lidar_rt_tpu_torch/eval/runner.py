@@ -23,8 +23,10 @@ import torch
 
 from lidar_rt_tpu_torch.data.frames import LiDARFrames
 from lidar_rt_tpu_torch.eval import metrics
+from lidar_rt_tpu_torch.ops import kernels
 from lidar_rt_tpu_torch.ops import tracer as tracer_lib
 from lidar_rt_tpu_torch.scene.scene import Scene, compose
+from lidar_rt_tpu_torch.utils import profiling
 from lidar_rt_tpu_torch.utils.export import (colormap, write_apng, write_ply,
                                              write_png)
 
@@ -172,9 +174,13 @@ class EvalRunner:
         results_all.json (eval.py:488-520) and image/PLY artifacts.
         save_pcds defaults to save_images; the CLI's -e/-i/-p map to
         save_metrics/save_images/save_pcds (eval.py:549-556).
-        `results["eval_seconds"]` is the metric pass's wall time."""
+        `results["eval_seconds"]` is the metric pass's wall time,
+        `results["launches"]` the tracer kernels' launches in the run and
+        `results["peak_mib"]` the process's peak device memory (None off
+        the card)."""
         if save_pcds is None:
             save_pcds = save_images
+        launches = kernels.launch_counts()
         frame_ids = self._frame_ids(eval_type)
         per_frame = {}
         t0 = time.time()
@@ -229,7 +235,10 @@ class EvalRunner:
         results = {"eval_type": eval_type, "num_frames": len(frame_ids),
                    "mean": agg,
                    "per_frame": {str(f): per_frame[f] for f in frame_ids},
-                   "eval_seconds": eval_seconds}
+                   "eval_seconds": eval_seconds,
+                   "launches": kernels.launches_since(launches),
+                   "peak_mib": profiling.peak_mib(
+                       self.scene.background.xyz.device)}
         if output_dir and save_metrics:
             os.makedirs(output_dir, exist_ok=True)
             with open(os.path.join(output_dir, "results_all.json"), "w") as fp:

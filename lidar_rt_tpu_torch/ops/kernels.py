@@ -88,6 +88,23 @@ backward_exact_launches = 0    # exact order, 3xTF32 sums
 backward_exact_fast_launches = 0   # exact order, 1xTF32 sums
 
 
+LAUNCH_COUNTS = ("forward_launches", "backward_launches",
+                 "forward_cache_launches", "backward_cache_launches",
+                 "forward_exact_launches", "backward_exact_launches",
+                 "backward_exact_fast_launches")
+
+
+def launch_counts() -> dict[str, int]:
+    """Every launch count by name; a run's launches are the difference of
+    two of these (`launches_since`)."""
+    return {name: globals()[name] for name in LAUNCH_COUNTS}
+
+
+def launches_since(before: dict[str, int]) -> dict[str, int]:
+    """The launches made since `before` (a `launch_counts()`)."""
+    return {name: n - before[name] for name, n in launch_counts().items()}
+
+
 def reset_launches() -> None:
     """Set every launch count to 0."""
     global forward_launches, backward_launches

@@ -10,7 +10,10 @@
 Engines: "cuda" is the kernel path (`ops/cuda_tracer.py`: the hand-written
 CUDA kernels on CUDA tensors, their plain twins on CPU tensors); "torch" is
 the plain engine below, the twin of the reference's jax engine, composited
-in batches of `tile_batch` tiles to bound memory.  Both take a per-ray
+in batches of `tile_batch` tiles to bound memory.  A config renders with
+the engine `TraceConfig.resolve_engine` names: exact order at a K the
+exact kernels do not take goes to the torch engine, as the reference
+sends it to its jax engine.  Both take a per-ray
 `min_depth` (`render_multi_return`'s second return) and `init_trans`,
 chain `tail_passes` re-binned passes past each truncated tile's K-th
 candidate (`bin_tail_chain`, `_trace_tail`), and render a column band of
@@ -50,7 +53,8 @@ class TraceConfig:
     engine: "cuda" (kernel path) or "torch" (plain engine).
     exact_order: composite each ray's gate-passing hits in ascending
       (depth, candidate index) order instead of the binner's tile order.
-      The "cuda" engine's exact kernels take K <= kernels.EXACT_MAX_K.
+      The "cuda" engine's exact kernels take K <= kernels.EXACT_MAX_K; a
+      wider exact config resolves to the torch engine (`resolve_engine`).
     tile_batch: tiles composited at once by the torch engine.
     tail_passes: re-binned passes appended to the render, each past every
       truncated tile's K-th candidate range, carrying the per-ray raw
@@ -87,14 +91,28 @@ class TraceConfig:
         if self.tail_passes < 0:
             raise ValueError(f"tail_passes must be >= 0, got "
                              f"{self.tail_passes}")
-        if self.engine == "cuda" and self.exact_order:
-            kernels.check_exact_k(self.tile.max_per_tile)
+
+    def resolve_engine(self) -> str:
+        """The engine that renders this config, from the config alone (the
+        counterpart of lidar_rt_tpu/ops/tracer.py:104): "torch" for the
+        torch engine and for exact order past the exact kernels' K
+        (kernels.EXACT_MAX_K), as the reference's "auto" engine sends
+        exact order at any K but 128 and 256 to its jax engine; else
+        "cuda".  A route, not a fallback: the torch engine runs on the
+        tensors' device, and a "cuda" config's failed build or launch
+        raises."""
+        if self.engine == "cuda" and not (
+                self.exact_order
+                and self.tile.max_per_tile > kernels.EXACT_MAX_K):
+            return "cuda"
+        return "torch"
 
     @property
     def use_cache(self) -> bool:
         """Whether the "cuda" engine's forward keeps the cache for its
         backward (lidar_rt_tpu/ops/tracer.py:252-256)."""
-        return self.cache_fwd and self.fast_math and not self.exact_order
+        return (self.cache_fwd and self.fast_math and not self.exact_order
+                and self.resolve_engine() == "cuda")
 
 
 def _composite_tile(dirs: Tensor, frames_k: geometry.SurfelFrames,
@@ -192,7 +210,7 @@ def trace(bundle: SurfelBundle, grid: rays_lib.SensorGrid, width: int,
         return _trace_tail(bundle, grid, width, sensor2world, background,
                            active_sh_degree, cfg, min_depth, init_trans,
                            assignment, col_offset, render_width)
-    if cfg.engine == "cuda":
+    if cfg.resolve_engine() == "cuda":
         return cuda_tracer.trace(bundle, grid, width, sensor2world,
                                  background, active_sh_degree, cfg.tile,
                                  assignment, cfg.exact_order, min_depth,

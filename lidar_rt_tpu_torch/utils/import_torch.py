@@ -13,7 +13,10 @@ moving actor (gs_loader.py:236-241):
 `GaussianAsset`'s (log scales, opacity logits, wxyz quaternions, split
 DC/rest SH), so importing pads each cloud to a capacity rounded as the
 reference rounds it.  Adam moments and densify statistics are not
-imported: a fine-tune starts them at zero.
+imported: a fine-tune starts them at zero.  `scene_to_reference` writes
+the same layout from a port scene (its alive rows; the reference has no
+padded capacity), the export of `python -m
+lidar_rt_tpu_torch.scripts.import_roundtrip`.
 """
 
 from __future__ import annotations
@@ -26,7 +29,8 @@ import numpy as np
 import torch
 
 from lidar_rt_tpu_torch.scene.asset import (DEAD_LOG_SCALE,
-                                            DEAD_OPACITY_LOGIT, GaussianAsset)
+                                            DEAD_OPACITY_LOGIT, PARAM_FIELDS,
+                                            GaussianAsset)
 from lidar_rt_tpu_torch.scene.scene import Scene
 
 _TUPLE_LEN = 12
@@ -179,3 +183,40 @@ def scene_from_reference(path: str, template: Scene,
             per[0], **fields, extent=max(a.extent for a in per))
     return dataclasses.replace(template, background=bg, actors=actors), \
         iteration
+
+
+def scene_to_reference(scene: Scene) -> list[tuple]:
+    """A port scene -> the reference's per-asset capture 12-tuples on the
+    CPU, background first, then each actor (gs_loader.py:236-241): each
+    asset's alive rows in slot order, zero densify statistics, an empty
+    optimizer state, and its extent as spatial_lr_scale (the stacked
+    actors share one)."""
+    assets = [scene.background]
+    for i in range(scene.num_actors):
+        ac = scene.actors
+        assets.append(dataclasses.replace(
+            ac, alive=ac.alive[i],
+            **{f: getattr(ac, f)[i] for f in PARAM_FIELDS.values()}))
+    tuples = []
+    for asset in assets:
+        alive = asset.alive.detach().cpu()
+        n = int(alive.sum())
+
+        def rows(x: torch.Tensor) -> torch.Tensor:
+            return x.detach().cpu()[alive].clone()
+
+        tuples.append((
+            int(asset.active_sh_degree), rows(asset.xyz), rows(asset.f_dc),
+            rows(asset.f_rest), rows(asset.log_scale), rows(asset.quat),
+            rows(asset.opacity_logit).reshape(-1, 1), torch.zeros(n),
+            torch.zeros(n, 1), torch.zeros(n, 1),
+            {"state": {}, "param_groups": []}, float(asset.extent)))
+    return tuples
+
+
+def save_reference(path: str, scene: Scene, iteration: int) -> list[tuple]:
+    """Write `scene` as a reference checkpoint, torch.save((tuples,
+    iteration)); return the tuples."""
+    tuples = scene_to_reference(scene)
+    torch.save((tuples, int(iteration)), path)
+    return tuples

@@ -5,6 +5,7 @@
     bracket the interval on a card), the recorder's batch_time source;
   * `trace`: a `torch.profiler` trace of [enter, exit), written as a
     Chrome trace, with every operator's NVTX range on a card;
+  * `peak_mib`: the process's peak allocated device memory;
   * `enable_anomaly_detection`: `torch.autograd.set_detect_anomaly`;
   * `guard_finite`: snapshots the training state with `utils.checkpoint`
     and raises when a metric is not finite (the reference's
@@ -67,6 +68,16 @@ class StepTimer:
             dt = now - self.last
         self.last = now
         return dt
+
+
+def peak_mib(device: str | torch.device) -> float | None:
+    """The process's peak allocated memory on a CUDA device in MiB (since
+    its start or the caller's last `torch.cuda.reset_peak_memory_stats`);
+    None on any other device."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    return torch.cuda.max_memory_allocated(device) / 2 ** 20
 
 
 def enable_anomaly_detection(on: bool = True) -> None:

@@ -1,7 +1,9 @@
 """The eval and refine modules on a card against the CPU: the eval's
 value-only nearest-neighbour search against a float64 numpy brute force on
 20k x 20k points, and the U-Net and the LPIPS network on the card against
-the same modules on the CPU.
+the same modules on the CPU; and a training step in exact order at the
+rehearsal's K = 512 warm-up budget, which runs on the torch engine on the
+card, then one at K = 256 on the exact kernels.
 
 This file imports torch and the port only, so it runs where jax is not
 installed:
@@ -14,14 +16,17 @@ points within 20 m of the origin, against exact float64); the U-Net and
 LPIPS 1e-4 (TF32 off: cuDNN would run float32 convolutions in TF32).
 """
 
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
 
+from lidar_rt_tpu_torch.data import build, synthetic
 from lidar_rt_tpu_torch.eval import lpips, metrics
 from lidar_rt_tpu_torch.models import unet
-from lidar_rt_tpu_torch.ops import chamfer
-from lidar_rt_tpu_torch.train import refine
+from lidar_rt_tpu_torch.ops import chamfer, kernels
+from lidar_rt_tpu_torch.train import loop, options, refine
 
 torch.set_num_threads(1)
 
@@ -98,3 +103,38 @@ def test_lpips_on_card_matches_cpu(cuda_device):
     got = lpips.make_lpips_fn(card)(pred.to(cuda_device), gt.to(cuda_device))
     assert want > 0
     assert got == pytest.approx(want, rel=1e-4, abs=1e-7)
+
+
+@pytest.mark.cuda
+def test_exact_training_step_at_k512_on_card(cuda_device):
+    """`trace_configs` of {exact_order, warmup_max_per_tile: 512} on the
+    card: step 1 at K = 512 resolves to the torch engine (no kernel
+    launch, finite loss and parameters on the card); step 2, past the
+    switch, at K = 256 on the exact forward and the exact backward with
+    the configs' fast sums."""
+    frames, track = synthetic.generate(num_frames=2, height=32, width=256,
+                                       device=cuda_device)
+    args = options.experiment_options(rebin_interval=10)
+    args.tracer = SimpleNamespace(tile_h=8, tile_w=128, max_per_tile=256,
+                                  exact_order=True, warmup_max_per_tile=512,
+                                  warmup_until=1)
+    cfg, warm, until = options.trace_configs(args, cuda_device)
+    assert (warm.resolve_engine(), cfg.resolve_engine()) == ("torch", "cuda")
+    scene = build.assemble_scene(
+        frames, [track], args,
+        torch.Generator(device=cuda_device).manual_seed(0))
+    trainer = loop.Trainer(scene, frames, args, cfg, warmup_cfg=warm,
+                           warmup_until=until)
+    kernels.reset_launches()
+    trainer.run(1, log_every=1)
+    assert trainer.step_cfg.tile.max_per_tile == 512
+    assert set(kernels.launch_counts().values()) == {0}
+    trainer.run(1, log_every=1)
+    assert trainer.step_cfg.tile.max_per_tile == 256
+    n = kernels.launch_counts()
+    assert n["forward_exact_launches"] == n["backward_exact_fast_launches"] \
+        == 1
+    assert sum(n.values()) == 2
+    assert all(np.isfinite(h["loss"]) for h in trainer.history)
+    for v in trainer.state.scene.background.params().values():
+        assert v.is_cuda and bool(torch.isfinite(v).all())

@@ -115,6 +115,31 @@ def test_cli_imports_no_jax_yaml_flax_optax():
     assert proc.stdout.strip() == "clean"
 
 
+def test_scripts_import_no_jax():
+    """The reference-checkpoint commands (`lidar_rt_tpu_torch.scripts`)
+    load no jax, yaml or module of `lidar_rt_tpu`, and each answers
+    --help as a `python -m` entry point."""
+    proc = _python(
+        "import sys\n"
+        "import lidar_rt_tpu_torch.scripts\n"
+        "import lidar_rt_tpu_torch.scripts.import_reference_ckpt\n"
+        "import lidar_rt_tpu_torch.scripts.import_roundtrip\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'yaml',\n"
+        "                                    'lidar_rt_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('clean')\n")
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "clean"
+    for module in ("import_reference_ckpt", "import_roundtrip"):
+        help_ = subprocess.run(
+            [sys.executable, "-m", f"lidar_rt_tpu_torch.scripts.{module}",
+             "--help"], cwd=ROOT, capture_output=True, text=True,
+            timeout=300)
+        assert help_.returncode == 0, help_.stderr
+        assert "--device" in help_.stdout
+
+
 def test_chip_smoke_scene_is_bench_scene():
     """chip_smoke.py draws bench.py's street soup without importing jax."""
     proc = _python(

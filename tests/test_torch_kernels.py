@@ -136,7 +136,10 @@ def test_signature_parser_counts_parameters():
 
 def test_exact_kernels_refuse_unsupported_k():
     """The exact kernels take 1 <= K <= EXACT_MAX_K; a wider tile is
-    refused before any launch, on any device (nothing falls back)."""
+    refused before any launch, on any device (nothing falls back).  A
+    TraceConfig asking for exact order at such a K routes to the torch
+    engine from the config alone, as the reference's routes to its jax
+    engine."""
     big = 2 * kernels.EXACT_MAX_K
     inputs = _case(big, 0, "cpu")
     kernels.reset_launches()
@@ -145,9 +148,9 @@ def test_exact_kernels_refuse_unsupported_k():
     chans, _ = cuda_tracer.forward_tiles_reference(*inputs)
     with pytest.raises(ValueError, match="exact"):
         kernels.tracer_backward(*inputs, chans, chans, exact=True)
-    with pytest.raises(ValueError, match="exact"):
-        t_tracer.TraceConfig(tile=TileConfig(max_per_tile=big),
-                             exact_order=True)
+    wide = t_tracer.TraceConfig(tile=TileConfig(max_per_tile=big),
+                                exact_order=True)
+    assert wide.resolve_engine() == "torch"
     assert kernels.forward_exact_launches == 0
     assert kernels.backward_exact_launches == 0
     kernels.check_exact_k(128)

@@ -440,6 +440,51 @@ class TestTrace:
                 _grad_close(getattr(b, name).grad, getattr(ref, name),
                             f"{engine}: {name}")
 
+    @pytest.mark.parametrize("engine", ["cuda", "torch"])
+    def test_exact_order_past_the_kernels_k_matches_jax(self, engine):
+        """Exact order at K = 512, past the exact kernels' 256: the "cuda"
+        config resolves to the torch engine, as the reference's resolves to
+        its jax engine.  Its render and its gradients through
+        render_frame's heads against the jax engine's, at the bars above,
+        on a scene with tiles of more than 256 candidates."""
+        s = _surfels(1500, seed=51)
+        jg, tg = _grids()
+        j_cfg, tile = _configs(512, exact=True)
+        cfg = t_tracer.TraceConfig(tile=tile, exact_order=True,
+                                   engine=engine)
+        assert cfg.resolve_engine() == "torch"
+        cand = cuda_tracer.bin_bundle(_tb(s), tg, W, torch.tensor(POSE),
+                                      tile).valid.sum(-1)
+        assert int(cand.max()) > kernels.EXACT_MAX_K
+        ref = j_tracer.trace(_jb(s), jg, W, POSE, BG, 3, j_cfg)
+        kernels.reset_launches()
+        out = t_tracer.trace(_tb(s), tg, W, torch.tensor(POSE),
+                             torch.tensor(BG), 3, cfg)
+        _close(out.channels, ref.channels)
+        _close(out.accum_weights, ref.accum_weights)
+        _close(out.raw_trans, ref.raw_trans)
+        assert float(np.asarray(ref.channels)[..., 4].max()) > 0.5
+
+        rng = np.random.default_rng(512)
+        wts = {key: f32(rng.normal(size=(H, W)))
+               for key in ("depth", "intensity", "raydrop")}
+
+        def j_loss(b):
+            o = j_tracer.render_frame(b, jg, W, POSE, 3, j_cfg)
+            return sum(jnp.sum(o[key] * w) for key, w in wts.items())
+
+        j_grads = jax.grad(j_loss)(_jb(s))
+        b = TBundle(**{key: torch.tensor(v, requires_grad=True)
+                       for key, v in s.items()})
+        o = t_tracer.render_frame(b, tg, W, torch.tensor(POSE), 3, cfg)
+        sum((o[key] * torch.tensor(w)).sum()
+            for key, w in wts.items()).backward()
+        for name in s:
+            _grad_close(getattr(b, name).grad, getattr(j_grads, name),
+                        f"{engine}: {name}")
+        assert kernels.forward_exact_launches == 0
+        assert kernels.backward_exact_launches == 0
+
     @pytest.mark.parametrize("use_rayhit", [True, False])
     def test_render_frame_heads(self, use_rayhit):
         s = _surfels(300, seed=12)
@@ -458,11 +503,35 @@ class TestTrace:
             t_tracer.TraceConfig(engine="pallas")
         with pytest.raises(ValueError, match="tail_passes"):
             t_tracer.TraceConfig(tail_passes=-1)
-        # The exact kernels take K <= 256; nothing falls back.
+        # The exact kernels take K <= 256: a wider exact config routes to
+        # the torch engine, as the reference's routes to its jax engine.
         big = t_bin.TileConfig(max_per_tile=512)
-        with pytest.raises(ValueError, match="exact"):
-            t_tracer.TraceConfig(tile=big, exact_order=True)
-        t_tracer.TraceConfig(tile=big, exact_order=True, engine="torch")
+        assert t_tracer.TraceConfig(
+            tile=big, exact_order=True).resolve_engine() == "torch"
+        assert t_tracer.TraceConfig(
+            tile=big, exact_order=True, engine="torch").resolve_engine() \
+            == "torch"
+
+
+# (exact order, K) -> the engine a "cuda" config resolves to; a "torch"
+# config always resolves to "torch".
+ROUTES = {(False, 512): "cuda", (True, 128): "cuda", (True, 256): "cuda",
+          (True, 384): "torch", (True, 512): "torch"}
+
+
+@pytest.mark.parametrize("engine", ["cuda", "torch"])
+@pytest.mark.parametrize("exact,k", sorted(ROUTES))
+def test_resolve_engine_routes_as_the_reference(exact, k, engine):
+    """`TraceConfig.resolve_engine` decides from the config alone, as the
+    reference's does (lidar_rt_tpu/ops/tracer.py:104): the kernel path
+    unless exact order asks for more candidates than the exact kernels
+    take; the cache only on the kernel path, in tile order."""
+    cfg = t_tracer.TraceConfig(tile=t_bin.TileConfig(max_per_tile=k),
+                               exact_order=exact, engine=engine,
+                               fast_math=True, cache_fwd=True)
+    want = ROUTES[exact, k] if engine == "cuda" else "torch"
+    assert cfg.resolve_engine() == want
+    assert cfg.use_cache == (want == "cuda" and not exact)
 
 
 @pytest.mark.slow

@@ -1,6 +1,8 @@
 """One training step of the port in the tracer's other modes, one tail pass
-and exact (per-ray depth) order, held to the reference's step on the same
-jittered synthetic scene (`test_torch_train.synthetic_scene`).
+and exact (per-ray depth) order, at K = 128 and at K = 512 (past the exact
+kernels' 256, so on the torch engine), held to the reference's step on the
+same jittered synthetic scene (`test_torch_train.synthetic_scene`); and
+two steps in exact order across the rehearsal's K = 512 -> 256 switch.
 
 As in `test_torch_train.one_step`, the port renders with the reference's
 freshly binned assignments (here the whole tail chain), so the step is
@@ -10,6 +12,8 @@ absolute after scaling by the reference's largest magnitude.  Each mode
 jit-compiles one reference step, so the fixture is module-scoped.
 """
 
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
@@ -17,6 +21,7 @@ import torch
 from lidar_rt_tpu.ops import tracer as j_tracer
 from lidar_rt_tpu.ops.binning import TileConfig as JTileConfig
 from lidar_rt_tpu.train import loop as j_loop
+from lidar_rt_tpu_torch.ops import kernels
 from lidar_rt_tpu_torch.ops import tracer as t_tracer
 from lidar_rt_tpu_torch.ops.binning import TileAssignment
 from lidar_rt_tpu_torch.ops.binning import TileConfig as TTileConfig
@@ -29,7 +34,8 @@ from test_torch_train import (GROUPS, SMALL_OPT, TILE, _close,  # noqa: F401
 
 torch.set_num_threads(1)
 
-MODES = {"tail": {"tail_passes": 1}, "exact": {"exact_order": True}}
+MODES = {"tail": {"tail_passes": 1}, "exact": {"exact_order": True},
+         "exact-512": {"exact_order": True, "max_per_tile": 512}}
 FRAME = 1                                   # the actor is in view
 
 
@@ -38,10 +44,12 @@ def mode_step(request, synthetic_scene):
     """(mode, reference state and metrics, port state and metrics, the
     port's trainer, and the port's own step from a stale cache)."""
     frames, scene = synthetic_scene
-    kw = MODES[request.param]
-    j_cfg = j_tracer.TraceConfig(tile=JTileConfig(**TILE), tile_batch=2,
+    kw = dict(MODES[request.param])
+    tile = {**TILE, "max_per_tile": kw.pop("max_per_tile",
+                                           TILE["max_per_tile"])}
+    j_cfg = j_tracer.TraceConfig(tile=JTileConfig(**tile), tile_batch=2,
                                  **kw)
-    t_cfg = t_tracer.TraceConfig(tile=TTileConfig(**TILE), **kw)
+    t_cfg = t_tracer.TraceConfig(tile=TTileConfig(**tile), **kw)
     jt = j_loop.Trainer(scene, frames, _j_args(), j_cfg)
     j_state, j_metrics = jt.step_fn(jt.state,
                                     j_loop.frame_batch(frames, FRAME))
@@ -115,3 +123,39 @@ class TestTrainStepModes:
             plain = t_tracer.render_frame(*args, t_tracer.TraceConfig(
                 tile=cfg.tile), assignment=chain[0])
         assert float((got["depth"] - plain["depth"]).abs().max()) > 1e-2
+
+
+def test_exact_order_across_the_warmup_switch(synthetic_scene):
+    """The rehearsal's budgets in exact order (`trace_configs` of a tracer
+    block with exact_order and warmup_max_per_tile 512): step 1 at K = 512
+    on the torch engine, on a frame whose tiles list more than 256
+    candidates; step 2 at K = 256 on the kernel path (the exact twins on
+    the CPU), with the bin cache rebuilt for the new K at the switch."""
+    frames, scene = synthetic_scene
+    t_scene, t_frames = _port_inputs(scene, frames)
+    args = options.experiment_options(**SMALL_OPT)
+    args.tracer = SimpleNamespace(**TILE, exact_order=True,
+                                  warmup_max_per_tile=512, warmup_until=1)
+    args.tracer.max_per_tile = 256
+    cfg, warm, until = options.trace_configs(args, "cpu")
+    assert (warm.tile.max_per_tile, cfg.tile.max_per_tile, until) == (512,
+                                                                     256, 1)
+    assert (warm.resolve_engine(), cfg.resolve_engine()) == ("torch", "cuda")
+    tt = t_loop.Trainer(t_scene, t_frames, args, cfg, warmup_cfg=warm,
+                        warmup_until=until)
+    kernels.reset_launches()
+    seen = []
+    for _ in range(2):
+        tt.run(1, log_every=1)
+        bins = tt.state.bins
+        seen.append((tt.step_cfg.tile.max_per_tile, bins.index.shape[-1],
+                     bins.rebins))
+        if len(seen) == 1:
+            f = tt.history[-1]["frame"]
+            assert int(bins.valid[f, 0].sum(-1).max()) > kernels.EXACT_MAX_K
+    assert seen == [(512, 512, 1), (256, 256, 2)]
+    assert all(np.isfinite(h["loss"]) for h in tt.history)
+    for name, v in tt.state.scene.background.params().items():
+        assert bool(torch.isfinite(v).all()), name
+    assert kernels.forward_exact_launches == kernels.backward_exact_launches \
+        == 0
