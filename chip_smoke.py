@@ -3,8 +3,9 @@
     python3 chip_smoke.py [--seed 0]
 
 On one CUDA card it:
-  1. builds the CUDA forward and backward tracer kernels from
-     `lidar_rt_tpu_torch/csrc` (one nvcc each, started together), prints
+  1. builds the CUDA forward and backward tracer kernels and the two
+     probe kernels from `lidar_rt_tpu_torch/csrc` (one nvcc each, started
+     together), prints
      each device kernel's ptxas registers and spills and its occupancy
      (resident blocks per SM) at the flagship K;
   2. builds a scene with numpy from --seed: the street soup of `bench.py`
@@ -45,7 +46,8 @@ On one CUDA card it:
      launches per mode and rebins;
  13. the data path: renders the rehearsal's Waymo segment (50 frames,
      64 x 2650, two returns, 3 moving vehicles) and KITTI-360 sequence (40
-     frames, 66 x 1030, one car) on the card with the port's `synthetic`,
+     frames, 66 x 1030, one car) on the card with the rehearsal runner's
+     generators (`scripts/e2e_rehearsal.py`) and the port's `synthetic`,
      writes them in their wire formats with its `writers`, loads them with
      its loaders (Waymo through the native ingest, held to the Python
      parser on two frames to the bit), assembles both scenes on the card
@@ -93,11 +95,14 @@ On one CUDA card it:
      Phases 13-15 train with the rehearsal's tracer settings, whose
      fast_math selects the training modes on the card (16).
  16. the tracer's training modes (the reference's fast_math and
-     cache_fwd) at phase 8's training inputs: the forward writing its
-     bf16 cache against the uncached forward (channels to the bit) and its
-     twin's encoding, the decoding backward with one TF32 product per d_sh
-     term against its twin and the float32 replay, the cache poisoned two
-     ways, the exact order's fast sums against its twin, CUDA-event times
+     cache_fwd) at phase 8's training render before its first step (a
+     state the seed alone fixes) and after its 20 steps: the forward
+     writing its bf16 cache against the uncached forward (channels to the
+     bit) and its twin's encoding, the decoding backward with one TF32
+     product per d_sh term against its twin and the float32 replay (held
+     to the cache bars before the first step, reported after the 20, where
+     the state differs run to run), the cache poisoned two ways, the exact
+     order's fast sums against its twin, CUDA-event times
      of each mode beside the other, 20 training steps replayed in float32
      and 20 cached from the same state (ms per step and peak memory of
      each), 5 exact-order steps with the fast sums, and a serving render's
@@ -110,7 +115,20 @@ On one CUDA card it:
      eval -t all -e`, each a child process on this card; the imported
      scene's render of an eval frame held to the source's, the
      children's kernel launches, every metric finite, each stage's
-     seconds and peak memory.
+     seconds and peak memory;
+ 18. (run after 17, in phase 13's directory) the rehearsal runner,
+     `python -m lidar_rt_tpu_torch.scripts.e2e_rehearsal` `train`, `eval`
+     (`cli eval -t all -e -i`) on both of phase 13's datasets and
+     `collect`, at phase 14's reduced depth: the record's keys are
+     E2E_r05.json's plus the card, every metric finite, each stage's
+     seconds, the children's launches;
+ 19. the two probe kernels (`lidar_rt_tpu_torch/scripts/
+     kernel_microbench.py`, the forward body's ablation ladder, every
+     level; `bf16_microbench.py`, a gate-shaped body in float32 and on
+     packed bfloat16 pairs, with and without the exp): each probe's main
+     path with its launches counted, then every level and mode against its
+     plain version (errors and bars printed), ms, bounds and the ptxas
+     registers and spills per level.
 
 Every failed check raises.  Without a CUDA device it exits non-zero before
 any phase.  The last two lines of standard output are the kernel table
@@ -277,7 +295,8 @@ def ptxas_report(log: str) -> list[tuple[str, str]]:
     out, kernel, spills = [], None, ""
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            m = re.search(r"(tracer_[a-z_]+_kernel)((?:L[bi]\d+E)*)",
+            m = re.search(r"((?:tracer|probe)_[a-z_]+_kernel)"
+                          r"((?:L[bi]\d+E)*)",
                           line.replace("_kernelI", "_kernel"))
             args = [("true" if v == "1" else "false") if t == "b" else v
                     for t, v in re.findall(r"L([bi])(\d+)E",
@@ -605,7 +624,7 @@ def last_index_check(inputs, last: torch.Tensor) -> dict[str, int]:
 
 
 def check_cached_pair(inputs, chans, accum, g, what: str,
-                      report=print) -> dict:
+                      report=print, replay_bar: bool = True) -> dict:
     """The cached tile-order pair on `inputs` (upstream `g`), held to the
     uncached forward's `chans` and `accum` and to the plain twins: the
     forward writing its cache into a NaN-filled buffer (channels to the
@@ -621,8 +640,11 @@ def check_cached_pair(inputs, chans, accum, g, what: str,
     the spread of two runs of one buffer (sums with atomics in no fixed
     order) or 1e-5 x the field's largest magnitude.  Each finding goes to
     `report` before it is checked; every failed check raises, naming
-    `what`.  Returns the largest errors against the twins (`fwd_err`,
-    `bwd_err`) and both caches (`cache`, `twin_cache`)."""
+    `what`.  With `replay_bar` False the decode against the float32 replay
+    is reported and not checked (a state that differs run to run).
+    Returns the largest errors against the twins (`fwd_err`, `bwd_err`),
+    the decode's against the replay by field (`replay_errs`: cosine,
+    error / max|replay|) and both caches (`cache`, `twin_cache`)."""
     from lidar_rt_tpu_torch.ops import cuda_tracer, kernels
 
     t, r = inputs.dirs.shape[:2]
@@ -695,17 +717,20 @@ def check_cached_pair(inputs, chans, accum, g, what: str,
         _check(bool(torch.isfinite(x).all()), f"{what}: cached backward "
                "finite")
     _check(poison_ok, f"{what}: poisoned caches: {rows}")
-    for label, ref in (("its twin", twin), ("the float32 replay", replay)):
+    for label, ref, bar in (("its twin", twin, True),
+                            ("the float32 replay", replay, replay_bar)):
         errs = _grad_errors(got, ref, TWIN_GRADS)
         report(f"backward {what}, T={t} R={r} K={k}, cache decoded, fast "
-               f"sums, vs {label}: {_fmt_grads(errs)} (bars: cosine >= "
-               f"{FAST_COS}, err <= {FAST_REL} x max|ref|)")
-        _check(all(cos >= FAST_COS and rel <= FAST_REL
-                   for cos, rel in errs.values()),
-               f"{what}: cached backward vs {label}: {errs}")
+               f"sums, vs {label}: {_fmt_grads(errs)} " + (
+                   f"(bars: cosine >= {FAST_COS}, err <= {FAST_REL} x "
+                   f"max|ref|)" if bar else "(reported, no bar)"))
+        if bar:
+            _check(all(cos >= FAST_COS and rel <= FAST_REL
+                       for cos, rel in errs.values()),
+                   f"{what}: cached backward vs {label}: {errs}")
     bwd_err = max((a - b).abs().max().item() for a, b in zip(got, twin))
-    return {"fwd_err": fwd_err, "bwd_err": bwd_err, "cache": cache,
-            "twin_cache": p_cache}
+    return {"fwd_err": fwd_err, "bwd_err": bwd_err, "replay_errs": errs,
+            "cache": cache, "twin_cache": p_cache}
 
 
 def permuted_rays(inputs, seed: int = 0):
@@ -744,11 +769,10 @@ def render_grads(scene, grid, s2w, degree, heads, exact: bool):
     return _grad_errors(out_grads["cuda"], out_grads["torch"], fields)
 
 
-# The rehearsal datasets of scripts/e2e_rehearsal.py (`gen_waymo`,
-# `gen_kitti`), their numbers kept here so that this script stands apart
-# from the JAX package: a Waymo segment of 50 frames at 64 x 2650 with two
-# returns, a street scene and 3 moving vehicles, and a KITTI-360 sequence
-# of 40 frames at 66 x 1030 with one moving car.
+# The rehearsal datasets (`lidar_rt_tpu_torch.scripts.e2e_rehearsal`
+# `gen_waymo`, `gen_kitti`): a Waymo segment of 50 frames at 64 x 2650
+# with two returns, a street scene and 3 moving vehicles, and a
+# KITTI-360 sequence of 40 frames at 66 x 1030 with one moving car.
 WAYMO_H, WAYMO_W, WAYMO_FRAMES = 64, 2650, 50
 KITTI_FRAMES = 40
 DATA_TRAIN_STEPS = 20      # Waymo rehearsal steps (phase 13)
@@ -757,128 +781,6 @@ KITTI_TRAIN_STEPS = 10
 KITTI_WARMUP_UNTIL = 5
 EXACT_DATA_STEPS = 4       # Waymo rehearsal steps with exact_order: true
 EXACT_DATA_WARMUP_UNTIL = 2
-
-
-def _waymo_scene(synthetic):
-    box = synthetic.Box
-    walls = [
-        box(np.array([25.0, -9.0, 2.5]), np.array([50.0, 1.5, 5.0]),
-            yaw=0.05, albedo=0.7),
-        box(np.array([20.0, 8.5, 2.0]), np.array([40.0, 1.5, 4.0]),
-            yaw=-0.03, albedo=0.65),
-        box(np.array([-30.0, -12.0, 3.0]), np.array([25.0, 2.0, 6.0]),
-            yaw=0.3, albedo=0.6),
-        box(np.array([-22.0, 14.0, 2.5]), np.array([30.0, 2.0, 5.0]),
-            yaw=-0.2, albedo=0.75),
-        box(np.array([55.0, 3.0, 4.0]), np.array([3.0, 18.0, 8.0]),
-            albedo=0.8),
-        box(np.array([-5.0, 35.0, 3.0]), np.array([20.0, 3.0, 6.0]),
-            yaw=1.2, albedo=0.55),
-        box(np.array([8.0, -30.0, 2.0]), np.array([14.0, 2.5, 4.0]),
-            yaw=-0.9, albedo=0.6),
-        box(np.array([3.0, 18.0, 0.8]), np.array([1.0, 1.0, 1.6]),
-            albedo=0.9),
-    ]
-    actors = [
-        box(np.array([12.0, -3.5, 0.85]), np.array([4.6, 1.9, 1.7]),
-            yaw=0.0, albedo=0.9),
-        box(np.array([30.0, 3.2, 0.9]), np.array([4.2, 1.8, 1.8]),
-            yaw=3.1, albedo=0.85),
-        box(np.array([-18.0, 2.8, 1.1]), np.array([8.5, 2.4, 2.2]),
-            yaw=0.1, albedo=0.8),
-    ]
-    velocities = [np.array([0.9, 0.02, 0.0]), np.array([-0.7, 0.0, 0.0]),
-                  np.array([0.5, -0.01, 0.0])]
-    return synthetic.SyntheticScene(
-        walls=walls, ground_albedo=0.45, actor=actors[0],
-        actor_velocity=velocities[0], extra_actors=actors[1:],
-        extra_velocities=velocities[1:], max_range=75.0)
-
-
-def gen_waymo(base: str, dev, frames: int, h: int, w: int
-              ) -> dict[str, np.ndarray]:
-    """Render the Waymo rehearsal segment on the card and write it as a
-    TFRecord under `base`; returns the rendered images."""
-    from lidar_rt_tpu_torch.core import rays as rays_lib
-    from lidar_rt_tpu_torch.data import synthetic, writers
-
-    scene = _waymo_scene(synthetic)
-    beams = np.linspace(-0.31, 0.04, h)
-    yaw_e = 0.05
-    extrinsic = np.eye(4)
-    extrinsic[:2, :2] = [[np.cos(yaw_e), -np.sin(yaw_e)],
-                         [np.sin(yaw_e), np.cos(yaw_e)]]
-    extrinsic[2, 3] = 2.1
-    grid = rays_lib.SensorGrid.from_beams(
-        np.asarray(beams, np.float32), pixel_offset=0.5, angle_offset=yaw_e,
-        device=dev)
-    ego2world = np.tile(np.eye(4), (frames, 1, 1))
-    for f in range(frames):
-        ego2world[f, :3, 3] = [f * 0.55, 0.02 * f, 0.0]
-    images = np.zeros((4, frames, h, w), np.float32)
-    labels = []
-    for f in range(frames):
-        out = synthetic.render_frame_gt_dual(scene, grid, w,
-                                             ego2world[f] @ extrinsic, f)
-        for i, img in enumerate(out):
-            images[i, f] = img.cpu().numpy()
-        inv_e = np.linalg.inv(ego2world[f])
-        labels.append([(f"veh_{a}", inv_e[:3, :3] @ center + inv_e[:3, 3],
-                        box.size[[0, 1, 2]], box.yaw)
-                       for a, (box, center) in enumerate(
-                           scene.moving_boxes(f))])
-    r1, i1, r2, i2 = images
-    writers.write_waymo_segment(
-        base, ego2world=ego2world, extrinsic=extrinsic,
-        beam_inclinations=beams, range1=r1, intensity1=i1, range2=r2,
-        intensity2=i2, labels_per_frame=labels)
-    return {"range1": r1, "intensity1": i1, "range2": r2, "intensity2": i2}
-
-
-def gen_kitti(base: str, dev, frames: int) -> dict[str, np.ndarray]:
-    """Render the KITTI-360 rehearsal sequence on the card and write it as
-    a bin/pose/XML tree under `base`; returns the rendered images."""
-    from lidar_rt_tpu_torch.core import rays as rays_lib
-    from lidar_rt_tpu_torch.data import kitti, synthetic, writers
-
-    box = synthetic.Box
-    walls = [
-        box(np.array([20.0, -7.0, 2.0]), np.array([45.0, 1.2, 4.0]),
-            yaw=0.02, albedo=0.7),
-        box(np.array([15.0, 7.5, 1.8]), np.array([35.0, 1.4, 3.6]),
-            yaw=-0.04, albedo=0.6),
-        box(np.array([-20.0, -10.0, 2.5]), np.array([18.0, 2.0, 5.0]),
-            yaw=0.4, albedo=0.65),
-        box(np.array([45.0, 0.0, 3.0]), np.array([2.5, 14.0, 6.0]),
-            albedo=0.75),
-        box(np.array([-2.0, 20.0, 1.5]), np.array([10.0, 2.0, 3.0]),
-            yaw=1.0, albedo=0.55),
-    ]
-    actor = box(np.array([10.0, -2.5, 0.8]), np.array([4.3, 1.8, 1.6]),
-                yaw=0.05, albedo=0.9)
-    scene = synthetic.SyntheticScene(
-        walls=walls, ground_albedo=0.4, actor=actor,
-        actor_velocity=np.array([0.6, 0.0, 0.0]), max_range=79.0)
-    grid = rays_lib.SensorGrid.from_bounds(
-        kitti.H, (kitti.INC_BOTTOM, kitti.INC_TOP), pixel_offset=0.0,
-        angle_offset=0.0, device=dev)
-    poses = np.tile(np.eye(4), (frames, 1, 1))
-    for f in range(frames):
-        poses[f, :3, 3] = [f * 0.5, 0.0, 1.73]
-    r1 = np.zeros((frames, kitti.H, kitti.W), np.float32)
-    i1 = np.zeros_like(r1)
-    boxes = {}
-    for f in range(frames):
-        r, i = synthetic.render_frame_gt(scene, grid, kitti.W, poses[f], f)
-        r1[f], i1[f] = r.cpu().numpy(), i.cpu().numpy()
-        t = np.eye(4)
-        t[:3, :3] = actor.rotation() @ np.diag(actor.size)
-        t[:3, 3] = actor.center + f * scene.actor_velocity
-        boxes[f] = t
-    writers.write_kitti360_sequence(base, seq="0000", sensor2world=poses,
-                                    range1=r1, intensity1=i1,
-                                    boxes=[("11", boxes)])
-    return {"range1": r1, "intensity1": i1}
 
 
 def _timed(fn):
@@ -955,6 +857,7 @@ def data_phase(seed: int, card: str, dev, gen, tmp: str) -> dict:
     from lidar_rt_tpu_torch.data import build, kitti, waymo
     from lidar_rt_tpu_torch.ops import cuda_tracer, kernels
     from lidar_rt_tpu_torch.scene import compose
+    from lidar_rt_tpu_torch.scripts.e2e_rehearsal import gen_kitti, gen_waymo
     from lidar_rt_tpu_torch.train import loop, options
 
     names = ("d_axes", "d_plane", "d_inv_scale", "d_opac", "d_sh")
@@ -962,7 +865,8 @@ def data_phase(seed: int, card: str, dev, gen, tmp: str) -> dict:
            "bwd_c_err": 0.0, "fwd_paths": {}, "bwd_paths": {},
            "fwd_c_paths": {}, "bwd_c_paths": {}, "fwd_x_paths": {},
            "bwd_xf_paths": {}}
-    w_dir, k_dir = os.path.join(tmp, "waymo"), os.path.join(tmp, "kitti")
+    w_dir = os.path.join(tmp, "waymo")
+    k_dir = os.path.join(tmp, "kitti360")
     w_imgs, gen_w_s = _timed(lambda: gen_waymo(
         w_dir, dev, WAYMO_FRAMES, WAYMO_H, WAYMO_W))
     k_imgs, gen_k_s = _timed(lambda: gen_kitti(k_dir, dev,
@@ -2008,16 +1912,223 @@ tracer:
             "eval": dict(zip(LAUNCH_KEYS, e_n))}
 
 
+RUNNER_TESTING = 5         # phase 18: four held-out evals in 20 steps, so
+# that the record's steady-state rate has stamps to span.
+
+
+def runner_phase(tmp: str, card: str) -> dict:
+    """Phase 18: the rehearsal runner (`python -m
+    lidar_rt_tpu_torch.scripts.e2e_rehearsal train|eval {waymo|kitti}`,
+    then `collect`, each a child process whose `cli` runs are its own
+    children on this card) on phase 13's two datasets under `tmp`, at
+    phase 14's reduced depth.  Checks that the record's keys are
+    E2E_r05.json's (plus the card), that every metric, held-out PSNR and
+    final loss is finite, and the children's launches; prints each stage's
+    seconds.  Returns the tracer kernels' launches per command."""
+    exp_cfg = os.path.join(tmp, "runner_exp.yaml")
+    with open(exp_cfg, "w") as f:
+        f.write(f"""# The rehearsal's experiment, its depth cut as phase 14's.
+parent_config: "{os.path.abspath('configs/rehearsal/exp.yaml')}"
+testing_iterations: {RUNNER_TESTING}
+saving_iterations: [{CLI_ITERATIONS}]
+opt:
+  iterations: {CLI_ITERATIONS}
+tracer:
+  warmup_until: {CLI_WARMUP_UNTIL}
+refine:
+  epochs: {CLI_EPOCHS}
+  batch_size: {CLI_BATCH}
+""")
+    out = os.path.join(tmp, "rehearsal")
+    log_path = os.path.join(tmp, "runner.log")
+    print(f"[runner] reduction: configs/rehearsal/exp.yaml with "
+          f"{CLI_ITERATIONS} iterations of 4000, held-out PSNR every "
+          f"{RUNNER_TESTING} of 1000, warmup_until {CLI_WARMUP_UNTIL} of "
+          f"2000, refine {CLI_EPOCHS} epochs of 40 in batches of "
+          f"{CLI_BATCH}; phase 13's Waymo segment and KITTI-360 sequence "
+          f"at their full shapes")
+    secs = {}
+    for cmd in (("train", "waymo"), ("eval", "waymo"), ("train", "kitti"),
+                ("eval", "kitti"), ("collect",)):
+        with open(log_path, "a") as log:
+            proc, secs[" ".join(cmd)] = _timed(lambda: subprocess.run(
+                [sys.executable, "-m",
+                 "lidar_rt_tpu_torch.scripts.e2e_rehearsal", *cmd, "--data",
+                 tmp, "--out", out, "-ec", exp_cfg],
+                stdout=log, stderr=subprocess.STDOUT))
+        if proc.returncode != 0:
+            with open(log_path) as log:
+                print(log.read()[-6000:])
+            _check(False, f"e2e_rehearsal {' '.join(cmd)} exited "
+                   f"{proc.returncode}")
+    with open(os.path.join(out, "e2e_torch.json")) as f:
+        rec = json.load(f)
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "E2E_r05.json")) as f:
+        ref = json.load(f)
+    _check(set(rec) == set(ref) | {"card"} and rec["card"] == card
+           and set(rec["results"]) == set(ref["results"]),
+           f"record keys {sorted(rec)}, datasets {sorted(rec['results'])}")
+    launches = {}
+    for key, scene_id in (("waymo", "we1"), ("kitti360", "ke1")):
+        got, want = rec["results"][key], ref["results"][key]
+        _check(set(got) == set(want), f"{key} record keys {sorted(got)}, "
+               f"want {sorted(want)}")
+        _check({g: set(r) for g, r in got["metrics_mean"].items()}
+               == {g: set(r) for g, r in want["metrics_mean"].items()},
+               f"{key} metric names")
+        for group, row in got["metrics_mean"].items():
+            for k, v in row.items():
+                ok = (v == "unavailable(no-weights)" if "lpips" in k
+                      else np.isfinite(v))
+                _check(bool(ok), f"{key} metrics_mean {group}/{k} = {v}")
+        hist = got["eval_history"]
+        _check([e["iteration"] for e in hist]
+               == list(range(RUNNER_TESTING, CLI_ITERATIONS + 1,
+                             RUNNER_TESTING))
+               and all(set(e) == set(want["eval_history"][0])
+                       and np.isfinite(e["eval_psnr"]) for e in hist)
+               and np.isfinite(got["final_loss"])
+               and got["iterations_recorded"] == CLI_ITERATIONS
+               and got["steady_state_it_per_s"] > 0,
+               f"{key}: eval history {hist}, final loss "
+               f"{got['final_loss']}")
+        mdir = os.path.join(out, "exp", f"scene_{scene_id}")
+        with open(os.path.join(mdir, "logs", "log.json")) as f:
+            t_n = json.load(f)["launches"]
+        with open(os.path.join(mdir, "metrics", "results_all.json")) as f:
+            e_n = json.load(f)["launches"]
+        t_n = dict(zip(LAUNCH_KEYS, (t_n[c] for c in LAUNCH_COUNTERS)))
+        e_n = dict(zip(LAUNCH_KEYS, (e_n[c] for c in LAUNCH_COUNTERS)))
+        _check(t_n["fwd_c"] == t_n["bwd_c"] == 2 * CLI_ITERATIONS
+               and t_n["fwd"] > 0 and t_n["bwd"] == t_n["fwd_x"]
+               == t_n["bwd_x"] == t_n["bwd_xf"] == 0,
+               f"runner train {key}: the cached pair per pass and step "
+               f"(one tail pass), evals uncached: {t_n}")
+        _check(e_n["fwd"] > 0 and sum(e_n.values()) == e_n["fwd"],
+               f"runner eval {key}: uncached tile-order forwards: {e_n}")
+        launches[key] = (t_n, e_n)
+        mean = got["metrics_mean"]
+        print(f"[runner] {card}: {key}: held-out PSNR "
+              f"{[round(e['eval_psnr'], 3) for e in hist]}, alive "
+              f"{[e['alive'] for e in hist]}, final loss "
+              f"{got['final_loss']:.5f}, {got['steady_state_it_per_s']} it/s "
+              f"(host clock); depth PSNR {mean['depth']['psnr']:.4f}, "
+              f"MedAE {mean['depth']['medae']:.4f}, intensity PSNR "
+              f"{mean['intensity']['psnr']:.4f}, raydrop F1 "
+              f"{mean['raydrop']['f1']:.4f}, Chamfer "
+              f"{mean['points']['chamfer_dist']:.4f}, F-score "
+              f"{mean['points']['fscore']:.4f}; launches {LAUNCH_KEYS}: "
+              f"train {tuple(t_n.values())}, eval {tuple(e_n.values())}")
+    print(f"[runner] {card}: stage seconds (child processes, host clock): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in secs.items())
+          + "; the record's keys are E2E_r05.json's and the card's")
+    return {
+        "fwd_paths": {f"runner_{stage}_{key}": n[i]["fwd"]
+                      for key, n in launches.items()
+                      for i, stage in enumerate(("train", "eval"))},
+        "fwd_c_paths": {f"runner_train_{key}": n[0]["fwd_c"]
+                        for key, n in launches.items()},
+        "bwd_c_paths": {f"runner_train_{key}": n[0]["bwd_c"]
+                        for key, n in launches.items()}}
+
+
+def probe_phase(card: str, seed: int, ptxas: dict[str, str]) -> list:
+    """Phase 19: the two probe kernels.  Drives each probe's main path,
+    `kernel_microbench.run` over every level and `bf16_microbench.run`
+    over its four modes, with their launch counts from 0; then holds each
+    level and mode to its plain version on the same inputs (bars:
+    `kernel_microbench.error`, `bf16_microbench.error`) and times the
+    plain version.  Returns the kernel table's entries (name, source,
+    replaces, {path: launches}, max abs err, ms, plain ms, (bound ms,
+    bound by))."""
+    from lidar_rt_tpu_torch.scripts import bf16_microbench as gate
+    from lidar_rt_tpu_torch.scripts import kernel_microbench as abl
+
+    dev = torch.device("cuda", 0)
+    abl.reset_launches()
+    gate.reset_launches()
+    abl_run = abl.run(abl.LEVELS, seed)
+    gate_run = gate.run(seed)
+    abl_n, gate_n = dict(abl.launches), dict(gate.launches)
+    print(f"[probe] launches on the probes' main paths: ablation {abl_n}, "
+          f"gate body {gate_n}")
+    regs = {kernel: report for kernel, report in ptxas.items()
+            if kernel.startswith("probe_")}
+    print(f"[probe] ptxas (registers and spills a thread, so whether each "
+          f"level's intermediates stay in registers): "
+          + "; ".join(f"{abl.LEVELS[int(k[k.index('<') + 1:-1])]}: {v}"
+                      if k.startswith("probe_ablation") else f"{k}: {v}"
+                      for k, v in sorted(regs.items())))
+    entries = []
+    inputs = abl.make_inputs(seed, device=dev)
+    for level in abl.LEVELS:
+        with torch.no_grad():
+            got = abl.ablation(level, inputs)
+            want = abl.ablation_reference(level, inputs)
+            err, ratio = abl.error(got, want)
+            plain_ms = _event_ms(lambda: abl.ablation_reference(level,
+                                                                inputs), 2)
+        r = abl_run[level]
+        print(f"[probe] ablation {level}: kernel vs plain max abs err "
+              f"{err:.3e} ({ratio:.3f} of the bar {abl.ATOL} x max(1, "
+              f"max|plain|), max|plain| "
+              f"{want.abs().max().item():.3e}); {r['ms']:.4f} ms, "
+              f"{r['gpairs_s']:.2f} G pairs/s, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}), plain {plain_ms:.3f} ms; {card}")
+        _check(bool(torch.isfinite(got).all()) and ratio <= 1.0,
+               f"ablation probe {level} vs its plain version: {err}")
+        del got, want
+        entries.append((
+            f"probe_ablation_{level}",
+            "lidar_rt_tpu_torch/csrc/kernel_microbench.cu",
+            "scripts/kernel_microbench.py:152 (_rowloop_kernel, in kernel "
+            ":32; pl.pallas_call :210)" if level == "rowloop" else
+            "scripts/kernel_microbench.py:32 (kernel; pl.pallas_call :210)",
+            {"probe": abl_n[level]}, err, r["ms"], plain_ms,
+            (r["bound_ms"], r["bound_by"])))
+    del inputs
+    for dtype, with_exp in gate.MODES:
+        name = gate.mode_name(dtype, with_exp)
+        a, b = gate.make_inputs(dtype, seed, device=dev)
+        got = gate.probe(a, b, with_exp)
+        want = gate.probe_reference(a, b, with_exp)
+        err, ratio = gate.error(got, want)
+        plain_ms = _event_ms(lambda: gate.probe_reference(a, b, with_exp), 2)
+        r = gate_run[name]
+        bar = (f"{gate.BF16_ULPS} bfloat16 ulps of each value"
+               if dtype == "bf16" else
+               f"{abl.ATOL} x max(1, max|plain|)")
+        print(f"[probe] gate body {name}: kernel vs plain max abs err "
+              f"{err:.3e} ({ratio:.3f} of the bar, {bar}); {r['ms']:.4f} ms, "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
+              f"{plain_ms:.3f} ms; {card}")
+        _check(bool(torch.isfinite(got.float()).all()) and ratio <= 1.0,
+               f"gate probe {name} vs its plain version: {err}")
+        entries.append((
+            f"probe_gate_{name}",
+            "lidar_rt_tpu_torch/csrc/bf16_microbench.cu",
+            "scripts/bf16_microbench.py:39 (_kernel; pl.pallas_call :70)",
+            {"probe": gate_n[name]}, err, r["ms"], plain_ms,
+            (r["bound_ms"], r["bound_by"])))
+    return entries
+
+
 EXACT_FAST_STEPS = 5       # exact-order training steps with the fast sums
 
 
-def cache_phase(card: str, dev, t_inputs, g_train, x_inputs, x_chans,
-                g_exact, make_trainer, serve, replay_step_ms: float,
-                ptxas: dict[str, str]) -> dict:
+def cache_phase(card: str, dev, f_inputs, g_fixed, t_inputs, g_train,
+                x_inputs, x_chans, g_exact, make_trainer, serve,
+                replay_step_ms: float, ptxas: dict[str, str]) -> dict:
     """Phase 16: the tracer's training modes (the reference's fast_math
     and cache_fwd) at the flagship shape, on phase 8's training render
-    (`t_inputs`, upstream `g_train`) and phase 9's exact-order case.
-    (a, b) `check_cached_pair` there: (a) the forward writing its cache
+    before its first step (`f_inputs`, upstream `g_fixed`: a state the
+    seed alone fixes) and after its 20 steps (`t_inputs`, upstream
+    `g_train`: a state that differs run to run, atomics and Adam's eps),
+    and phase 9's exact-order case.
+    (a, b) `check_cached_pair` on both renders, its decode against the
+    float32 replay held to the bars on `f_inputs` and reported on
+    `t_inputs`: (a) the forward writing its cache
     into a NaN-filled buffer against the uncached forward (channels to the
     bit) and its twin's encoding (`cache_check`); (b) the decoding
     backward with the fast sums against its twin (decoding the twin's
@@ -2043,13 +2154,29 @@ def cache_phase(card: str, dev, t_inputs, g_train, x_inputs, x_chans,
 
     # (a), (b), (c)
     with torch.no_grad():
+        f_chans, f_accum = kernels.tracer_forward(*f_inputs)
+    fixed = check_cached_pair(
+        f_inputs, f_chans, f_accum, g_fixed,
+        "phase 8's training render before its first step",
+        lambda line: print(f"[cache] {line}", flush=True))
+    del f_chans, f_accum, fixed["cache"], fixed["twin_cache"]
+    with torch.no_grad():
         chans, accum = kernels.tracer_forward(*t_inputs)
     pair = check_cached_pair(
         t_inputs, chans, accum, g_train, "phase 8's training inputs",
-        lambda line: print(f"[cache] {line}", flush=True))
-    out["fwd_c_err"], out["bwd_c_err"] = pair["fwd_err"], pair["bwd_err"]
+        lambda line: print(f"[cache] {line}", flush=True), replay_bar=False)
+    out["fwd_c_err"] = max(fixed["fwd_err"], pair["fwd_err"])
+    out["bwd_c_err"] = max(fixed["bwd_err"], pair["bwd_err"])
     cache, p_cache = pair["cache"], pair["twin_cache"]
-    del pair
+    worst = {label: max(r["replay_errs"].items(), key=lambda kv: kv[1][1])
+             for label, r in (("before", fixed), ("after", pair))}
+    print(f"[cache] decode vs the float32 replay, worst field: before the "
+          f"first step (bar) {worst['before'][0]} {worst['before'][1][1]:.3e}"
+          f" x max (cosine {worst['before'][1][0]:.6f}); after 20 steps (no "
+          f"bar) {worst['after'][0]} {worst['after'][1][1]:.3e} x max "
+          f"(cosine {worst['after'][1][0]:.6f}); bar {FAST_REL} x max, "
+          f"cosine >= {FAST_COS}")
+    del pair, fixed
 
     # (d)
     with torch.no_grad():
@@ -2558,6 +2685,18 @@ def main() -> None:
     trainer = loop.Trainer(
         scene_from_numpy(perturbed(scene_arrays(args.seed), args.seed + 2),
                          dev), frames, opts, tracer.TraceConfig())
+    # The training render's tile inputs before the first step, and an
+    # upstream gradient from the seed: a state the seed alone fixes, where
+    # phase 16 holds the cached pair to the float32 replay.
+    with torch.no_grad():
+        bundle, _ = compose(trainer.state.scene, 0)
+        f_inputs, _ = cuda_tracer.tile_inputs(
+            bundle, grid, W, poses[0], trainer.state.scene.background
+            .active_sh_degree, cfg.tile)
+    g_fixed = torch.randn(
+        (f_inputs.dirs.shape[0], 16, f_inputs.dirs.shape[1]), device=dev,
+        generator=torch.Generator(device=dev).manual_seed(args.seed + 3))
+    g_fixed[:, 9:] = 0.0     # raw T: never read by the training loss
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     kernels.reset_launches()
@@ -2965,14 +3104,19 @@ def main() -> None:
         cli_runs = cli_phase(tmp, card, dev)
         sharded = sharded_phase(tmp, card, dev, args.seed)
         roundtrip = import_phase(tmp, card, dev)
+        # 18. The rehearsal runner on both of phase 13's datasets.
+        runner = runner_phase(tmp, card)
     # 16. The training modes at the flagship shape.
     cached = cache_phase(
-        card, dev, t_inputs, g_train, inputs, chans_x, g_exact,
+        card, dev, f_inputs, g_fixed, t_inputs, g_train, inputs, chans_x,
+        g_exact,
         lambda cfg: loop.Trainer(scene_from_numpy(perturbed(
             scene_arrays(args.seed), args.seed + 2), dev), frames, opts,
             cfg),
         lambda cfg: sim.render_scan(scene, grid, W, s2w, 0, cfg),
         replay_step_ms, ptxas)
+    # 19. The probe kernels.
+    probes = probe_phase(card, args.seed, ptxas)
     kern_err = max(kern_err, data["fwd_err"], sharded["fwd_err"])
     bwd_abs = max(bwd_abs, data["bwd_err"], sharded["bwd_err"])
     exact_fwd_err = max(exact_fwd_err, sharded["fwd_x_err"])
@@ -2989,7 +3133,8 @@ def main() -> None:
                  "train_tail": mode_launches["tail"][0], **data["fwd_paths"],
                  **cli_runs["fwd_paths"], "sharded": shard_n["fwd"],
                  "import_rt_finetune": roundtrip["fine"]["fwd"],
-                 "import_rt_eval": roundtrip["eval"]["fwd"]}
+                 "import_rt_eval": roundtrip["eval"]["fwd"],
+                 **runner["fwd_paths"]}
     bwd_paths = {"train": train_bwd, "train_tail": mode_launches["tail"][1],
                  **data["bwd_paths"], "sharded": shard_n["bwd"]}
     fwd_x_paths = {"serve_exact": serve_exact,
@@ -3002,11 +3147,13 @@ def main() -> None:
     fwd_c_paths = {**data["fwd_c_paths"], **cli_runs["fwd_c_paths"],
                    "sharded": shard_n["fwd_c"],
                    "train_cached": cached["launches"]["cached"][4],
-                   "import_rt_finetune": roundtrip["fine"]["fwd_c"]}
+                   "import_rt_finetune": roundtrip["fine"]["fwd_c"],
+                   **runner["fwd_c_paths"]}
     bwd_c_paths = {**data["bwd_c_paths"], **cli_runs["bwd_c_paths"],
                    "sharded": shard_n["bwd_c"],
                    "train_cached": cached["launches"]["cached"][5],
-                   "import_rt_finetune": roundtrip["fine"]["bwd_c"]}
+                   "import_rt_finetune": roundtrip["fine"]["bwd_c"],
+                   **runner["bwd_c_paths"]}
     bwd_xf_paths = {"sharded": shard_n["bwd_xf"],
                     "train_exact_fast": cached["launches"]["exact-fast"][6],
                     **data["bwd_xf_paths"]}
@@ -3063,6 +3210,12 @@ def main() -> None:
               f"ms); launches {paths}")
         _check(all(n > 0 for n in paths.values()),
                f"{name} launched on every path it serves: {paths}")
+    for name, _src, _rep, paths, _err, ms, _plain, (b_ms, b_by) in probes:
+        print(f"[bound] {card}: {name} {ms:.4f} ms against a bound of "
+              f"{b_ms:.4f} ms ({b_by}); launches {paths}")
+        _check(all(n > 0 for n in paths.values()),
+               f"{name} launched on its probe's path: {paths}")
+    entries += probes
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": sum(paths.values()),

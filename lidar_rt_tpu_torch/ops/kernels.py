@@ -1,15 +1,17 @@
 """Build, binding and launch counters of the hand-written CUDA kernels.
 
 Each kernel source under `csrc/` (`tracer_forward.cu`, `tracer_backward.cu`;
-both include `tracer_common.cuh`) is compiled with nvcc for sm_90a into its
-own shared library with a plain C entry point, loaded with ctypes, at first
-use.  Each library holds every mode of its kernel, chosen per launch:
+both include `tracer_common.cuh`; and the two probes of
+`lidar_rt_tpu_torch/scripts/`, `kernel_microbench.cu` and
+`bf16_microbench.cu`) is compiled with nvcc for sm_90a into its own shared
+library with a plain C entry point, loaded with ctypes, at first use.
+Each tracer library holds every mode of its kernel, chosen per launch:
 tile order and exact (per-ray depth) order; in tile order the forward may
 also write its per-pair residuals (the cache) and the backward decode
 them in place of a replay; the backward may take its d_sh sums in one
-TF32 product per term (fast) where float32 takes three.  The nvcc
-processes of all
-missing libraries start together.  The libraries go to
+TF32 product per term (fast) where float32 takes three.  `build()` starts
+the nvcc processes of all missing libraries together; a first launch
+builds only its own library.  The libraries go to
 `lidar_rt_tpu_torch/_build/`, keyed by a hash of every file under `csrc/`
 and the flags, so an edited source or header rebuilds and an unchanged
 tree does not.  Nothing here runs at import: the module imports
@@ -46,8 +48,19 @@ ENTRY_POINTS = {
         "tracer_backward": [_P] * 16 + [_I] * 5 + [_P],
         "tracer_backward_occupancy": [_I, _I, _P],
     },
+    "kernel_microbench": {
+        "kernel_microbench": [_P] * 8 + [_I] * 4 + [_P],
+    },
+    "bf16_microbench": {
+        "bf16_microbench": [_P] * 3 + [_I] * 4 + [_P],
+    },
 }
 KERNELS = tuple(ENTRY_POINTS)
+# Each library's `const char* (int)` entry point naming a CUDA error.
+ERROR_STRINGS = {"tracer_forward": "tracer_error_string",
+                 "tracer_backward": "tracer_error_string",
+                 "kernel_microbench": "probe_error_string",
+                 "bf16_microbench": "probe_error_string"}
 # The device kernels of each library, in the index order of its
 # `<library>_occupancy` entry point.  tracer_forward_kernel<cache>;
 # tracer_backward_kernel<source, fast>, source 0 the tile-order replay, 1
@@ -161,12 +174,13 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}_{source_digest()}.so"
 
 
-def build() -> dict[str, Path]:
-    """Compile every kernel library not built for the current sources, one
-    nvcc process per source, all started together; returns {name: path}.
-    Each compiler's output (the ptxas register and spill report) is kept
-    beside its library as a `.log`.  Raises if any nvcc fails."""
-    paths = {name: library_path(name) for name in KERNELS}
+def build(names: tuple[str, ...] = KERNELS) -> dict[str, Path]:
+    """Compile every kernel library of `names` (default: all) not built for
+    the current sources, one nvcc process per source, all started
+    together; returns {name: path}.  Each compiler's output (the ptxas
+    register and spill report) is kept beside its library as a `.log`.
+    Raises if any nvcc fails."""
+    paths = {name: library_path(name) for name in names}
     missing = {name: p for name, p in paths.items() if not p.exists()}
     if not missing:
         return paths
@@ -200,14 +214,16 @@ def load_library(path: Path, name: str) -> ctypes.CDLL:
         fn = getattr(lib, entry)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    lib.tracer_error_string.argtypes = [ctypes.c_int]
-    lib.tracer_error_string.restype = ctypes.c_char_p
+    errors = getattr(lib, ERROR_STRINGS[name])
+    errors.argtypes = [ctypes.c_int]
+    errors.restype = ctypes.c_char_p
+    lib.error_string = errors
     return lib
 
 
 def _library(name: str) -> ctypes.CDLL:
     if name not in _libs:
-        _libs[name] = load_library(build()[name], name)
+        _libs[name] = load_library(build((name,))[name], name)
     return _libs[name]
 
 
@@ -225,7 +241,7 @@ def occupancy(k: int) -> dict[str, tuple[int, int]]:
                                                    ctypes.addressof(res))
             if rc != 0:
                 raise RuntimeError(f"{kernel} occupancy query failed: "
-                                   + lib.tracer_error_string(rc).decode())
+                                   + lib.error_string(rc).decode())
             out[kernel] = (res[0], res[1])
     return out
 
@@ -268,14 +284,17 @@ def _check(kernel: str, expected: dict) -> torch.device:
     return dev
 
 
-def _launch(name: str, dev: torch.device, pointers, dims) -> None:
+def launch(name: str, dev: torch.device, pointers, dims) -> None:
+    """Call library `name`'s entry point of the same name with the
+    pointers, then the ints `dims`, then the current stream of `dev`;
+    raises if it returns a CUDA error (a refused launch)."""
     lib = _library(name)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = getattr(lib, name)(*pointers, *dims, stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: "
-                           + lib.tracer_error_string(rc).decode())
+                           + lib.error_string(rc).decode())
 
 
 class TracerCache(NamedTuple):
@@ -337,12 +356,12 @@ def tracer_forward(cnt, dirs, mind, t0, axes, plane, inv_scale, opac, sign,
             pairs, cache_shape(t, k, r), torch.bfloat16)})
         res = TracerCache(pairs, torch.empty((t, r), dtype=torch.int32,
                                              device=dev))
-    _launch("tracer_forward", dev,
-            [x.data_ptr() for x, _, _ in expected.values()]
-            + [chans.data_ptr(), accum.data_ptr()]
-            + ([None, None] if res is None
-               else [res.pairs.data_ptr(), res.last.data_ptr()]),
-            (t, r, k, int(exact)))
+    launch("tracer_forward", dev,
+           [x.data_ptr() for x, _, _ in expected.values()]
+           + [chans.data_ptr(), accum.data_ptr()]
+           + ([None, None] if res is None
+              else [res.pairs.data_ptr(), res.last.data_ptr()]),
+           (t, r, k, int(exact)))
     if exact:
         forward_exact_launches += 1
     elif cache:
@@ -390,11 +409,11 @@ def tracer_backward(cnt, dirs, mind, t0, axes, plane, inv_scale, opac, sign,
              if exact else None)
     arrays = [x.data_ptr() for name, (x, _, _) in expected.items()
               if name not in ("cache", "last")]
-    _launch("tracer_backward", dev,
-            arrays + [None if pairs is None else pairs.data_ptr()]
-            + ([None, None] if cache is None
-               else [cache.pairs.data_ptr(), cache.last.data_ptr()])
-            + [grads.data_ptr()], (t, r, k, int(exact), int(fast)))
+    launch("tracer_backward", dev,
+           arrays + [None if pairs is None else pairs.data_ptr()]
+           + ([None, None] if cache is None
+              else [cache.pairs.data_ptr(), cache.last.data_ptr()])
+           + [grads.data_ptr()], (t, r, k, int(exact), int(fast)))
     if exact and fast:
         backward_exact_fast_launches += 1
     elif exact:

@@ -1,0 +1,354 @@
+"""The end-to-end rehearsal through the port's command line (counterpart
+of the reference's `scripts/e2e_rehearsal.py`).
+
+    python -m lidar_rt_tpu_torch.scripts.e2e_rehearsal gen
+    python -m lidar_rt_tpu_torch.scripts.e2e_rehearsal train {waymo|kitti}
+    python -m lidar_rt_tpu_torch.scripts.e2e_rehearsal eval {waymo|kitti}
+    python -m lidar_rt_tpu_torch.scripts.e2e_rehearsal collect
+        [--data /tmp/e2e_data] [--out output/rehearsal] [--device cuda]
+        [-ec configs/rehearsal/exp.yaml]
+
+`gen` renders both rehearsal datasets with the port's `synthetic` on the
+device and writes them in their wire formats under --data: a Waymo
+segment (50 frames, 64 x 2650, two returns, a street scene and 3 moving
+vehicles) and a KITTI-360 sequence (40 frames, 66 x 1030, one car).
+`train` and `eval` run `python -m lidar_rt_tpu_torch.cli train` and
+`eval -t all -e -i` on `configs/rehearsal/<which>.yaml` and the
+experiment config as child processes and print each command's seconds.
+`collect` writes `<out>/e2e_torch.json` in the schema of the reference's
+record `E2E_r05.json` (per dataset: mean metrics, the held-out PSNR
+history with the alive surfels, final loss, iterations, the U-Net's
+digest and steady-state iterations per second), plus the card's name and
+power limit, and prints each dataset's stage seconds, ms per step at
+each candidate budget and peak memory from `logs/log.json`.
+
+With the defaults the configs run as they are (their `source_dir` is
+/tmp/e2e_data/<dataset>, their `model_dir`/`task_name` output/rehearsal);
+any other --data, --out or -ec runs through a child experiment config
+written under --out that points them there.
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+
+from lidar_rt_tpu_torch import cli
+from lidar_rt_tpu_torch import config as config_lib
+from lidar_rt_tpu_torch.scripts.import_roundtrip import REPO, run
+
+DATA = "/tmp/e2e_data"
+OUT = os.path.join("output", "rehearsal")
+EXP = os.path.join(REPO, "configs", "rehearsal", "exp.yaml")
+# Dataset -> (data config, directory under --data, key in the record).
+DATASETS = {"waymo": ("waymo.yaml", "waymo", "waymo"),
+            "kitti": ("kitti.yaml", "kitti360", "kitti360")}
+SHAPES = {"waymo": [50, 64, 2650, 2], "kitti360": [40, 66, 1030, 1]}
+
+
+def waymo_scene(synthetic):
+    """The rehearsal's Waymo street scene: corridor walls and facades over
+    the full azimuth circle, three moving vehicles."""
+    box = synthetic.Box
+    walls = [
+        box(np.array([25.0, -9.0, 2.5]), np.array([50.0, 1.5, 5.0]),
+            yaw=0.05, albedo=0.7),
+        box(np.array([20.0, 8.5, 2.0]), np.array([40.0, 1.5, 4.0]),
+            yaw=-0.03, albedo=0.65),
+        box(np.array([-30.0, -12.0, 3.0]), np.array([25.0, 2.0, 6.0]),
+            yaw=0.3, albedo=0.6),
+        box(np.array([-22.0, 14.0, 2.5]), np.array([30.0, 2.0, 5.0]),
+            yaw=-0.2, albedo=0.75),
+        box(np.array([55.0, 3.0, 4.0]), np.array([3.0, 18.0, 8.0]),
+            albedo=0.8),
+        box(np.array([-5.0, 35.0, 3.0]), np.array([20.0, 3.0, 6.0]),
+            yaw=1.2, albedo=0.55),
+        box(np.array([8.0, -30.0, 2.0]), np.array([14.0, 2.5, 4.0]),
+            yaw=-0.9, albedo=0.6),
+        box(np.array([3.0, 18.0, 0.8]), np.array([1.0, 1.0, 1.6]),
+            albedo=0.9),
+    ]
+    actors = [
+        box(np.array([12.0, -3.5, 0.85]), np.array([4.6, 1.9, 1.7]),
+            yaw=0.0, albedo=0.9),
+        box(np.array([30.0, 3.2, 0.9]), np.array([4.2, 1.8, 1.8]),
+            yaw=3.1, albedo=0.85),
+        box(np.array([-18.0, 2.8, 1.1]), np.array([8.5, 2.4, 2.2]),
+            yaw=0.1, albedo=0.8),
+    ]
+    velocities = [np.array([0.9, 0.02, 0.0]), np.array([-0.7, 0.0, 0.0]),
+                  np.array([0.5, -0.01, 0.0])]
+    return synthetic.SyntheticScene(
+        walls=walls, ground_albedo=0.45, actor=actors[0],
+        actor_velocity=velocities[0], extra_actors=actors[1:],
+        extra_velocities=velocities[1:], max_range=75.0)
+
+
+def gen_waymo(base: str, dev, frames: int = 50, h: int = 64,
+              w: int = 2650) -> dict[str, np.ndarray]:
+    """Render the Waymo rehearsal segment on `dev` and write it as a
+    TFRecord under `base` (the TOP lidar's ascending beam table, an
+    extrinsic with a yaw offset); returns the rendered images."""
+    from lidar_rt_tpu_torch.core import rays as rays_lib
+    from lidar_rt_tpu_torch.data import synthetic, writers
+
+    scene = waymo_scene(synthetic)
+    beams = np.linspace(-0.31, 0.04, h)
+    yaw_e = 0.05
+    extrinsic = np.eye(4)
+    extrinsic[:2, :2] = [[np.cos(yaw_e), -np.sin(yaw_e)],
+                         [np.sin(yaw_e), np.cos(yaw_e)]]
+    extrinsic[2, 3] = 2.1
+    grid = rays_lib.SensorGrid.from_beams(
+        np.asarray(beams, np.float32), pixel_offset=0.5, angle_offset=yaw_e,
+        device=dev)
+    ego2world = np.tile(np.eye(4), (frames, 1, 1))
+    for f in range(frames):
+        ego2world[f, :3, 3] = [f * 0.55, 0.02 * f, 0.0]
+    images = np.zeros((4, frames, h, w), np.float32)
+    labels = []
+    for f in range(frames):
+        out = synthetic.render_frame_gt_dual(scene, grid, w,
+                                             ego2world[f] @ extrinsic, f)
+        for i, img in enumerate(out):
+            images[i, f] = img.cpu().numpy()
+        inv_e = np.linalg.inv(ego2world[f])
+        labels.append([(f"veh_{a}", inv_e[:3, :3] @ center + inv_e[:3, 3],
+                        box.size[[0, 1, 2]], box.yaw)
+                       for a, (box, center) in enumerate(
+                           scene.moving_boxes(f))])
+    r1, i1, r2, i2 = images
+    writers.write_waymo_segment(
+        base, ego2world=ego2world, extrinsic=extrinsic,
+        beam_inclinations=beams, range1=r1, intensity1=i1, range2=r2,
+        intensity2=i2, labels_per_frame=labels)
+    return {"range1": r1, "intensity1": i1, "range2": r2, "intensity2": i2}
+
+
+def gen_kitti(base: str, dev, frames: int = 40) -> dict[str, np.ndarray]:
+    """Render the KITTI-360 rehearsal sequence on `dev` and write it as a
+    bin/pose/XML tree under `base`; returns the rendered images."""
+    from lidar_rt_tpu_torch.core import rays as rays_lib
+    from lidar_rt_tpu_torch.data import kitti, synthetic, writers
+
+    box = synthetic.Box
+    walls = [
+        box(np.array([20.0, -7.0, 2.0]), np.array([45.0, 1.2, 4.0]),
+            yaw=0.02, albedo=0.7),
+        box(np.array([15.0, 7.5, 1.8]), np.array([35.0, 1.4, 3.6]),
+            yaw=-0.04, albedo=0.6),
+        box(np.array([-20.0, -10.0, 2.5]), np.array([18.0, 2.0, 5.0]),
+            yaw=0.4, albedo=0.65),
+        box(np.array([45.0, 0.0, 3.0]), np.array([2.5, 14.0, 6.0]),
+            albedo=0.75),
+        box(np.array([-2.0, 20.0, 1.5]), np.array([10.0, 2.0, 3.0]),
+            yaw=1.0, albedo=0.55),
+    ]
+    actor = box(np.array([10.0, -2.5, 0.8]), np.array([4.3, 1.8, 1.6]),
+                yaw=0.05, albedo=0.9)
+    scene = synthetic.SyntheticScene(
+        walls=walls, ground_albedo=0.4, actor=actor,
+        actor_velocity=np.array([0.6, 0.0, 0.0]), max_range=79.0)
+    grid = rays_lib.SensorGrid.from_bounds(
+        kitti.H, (kitti.INC_BOTTOM, kitti.INC_TOP), pixel_offset=0.0,
+        angle_offset=0.0, device=dev)
+    poses = np.tile(np.eye(4), (frames, 1, 1))
+    for f in range(frames):
+        poses[f, :3, 3] = [f * 0.5, 0.0, 1.73]
+    r1 = np.zeros((frames, kitti.H, kitti.W), np.float32)
+    i1 = np.zeros_like(r1)
+    boxes = {}
+    for f in range(frames):
+        r, i = synthetic.render_frame_gt(scene, grid, kitti.W, poses[f], f)
+        r1[f], i1[f] = r.cpu().numpy(), i.cpu().numpy()
+        t = np.eye(4)
+        t[:3, :3] = actor.rotation() @ np.diag(actor.size)
+        t[:3, 3] = actor.center + f * scene.actor_velocity
+        boxes[f] = t
+    writers.write_kitti360_sequence(base, seq="0000", sensor2world=poses,
+                                    range1=r1, intensity1=i1,
+                                    boxes=[("11", boxes)])
+    return {"range1": r1, "intensity1": i1}
+
+
+def configs(a, which: str) -> tuple[str, str]:
+    """(data config, experiment config) of `which` for the options `a`:
+    the rehearsal's own with the defaults, else a child experiment config
+    under --out that sends the run's data and outputs where `a` says."""
+    dc = os.path.join(REPO, "configs", "rehearsal", DATASETS[which][0])
+    if (os.path.abspath(a.data) == DATA and os.path.abspath(a.out)
+            == os.path.abspath(OUT) and os.path.abspath(a.exp_config)
+            == EXP):
+        return dc, EXP
+    out = os.path.abspath(a.out)
+    os.makedirs(out, exist_ok=True)
+    ec = os.path.join(out, f"{which}_exp.yaml")
+    with open(ec, "w") as f:
+        f.write(f"""# The rehearsal's experiment, its data and outputs moved.
+parent_config: "{os.path.abspath(a.exp_config)}"
+model_dir: "{os.path.dirname(out)}"
+task_name: "{os.path.basename(out)}"
+source_dir: "{os.path.join(os.path.abspath(a.data), DATASETS[which][1])}"
+""")
+    return dc, ec
+
+
+def run_cli(a, kind: str, which: str) -> float:
+    """`cli train` or `cli eval -t all -e -i` on `which` as a child
+    process; its seconds."""
+    dc, ec = configs(a, which)
+    cmd = [sys.executable, "-m", "lidar_rt_tpu_torch.cli", kind, "-dc", dc,
+           "-ec", ec, "--device", a.device]
+    if kind == "eval":
+        cmd += ["-t", "all", "-e", "-i"]
+    secs = run(cmd)
+    print(f"{kind} {which}: {secs:.2f} s", flush=True)
+    return secs
+
+
+def card() -> str | None:
+    """The card's name and power limit as nvidia-smi reports them, or
+    None where nvidia-smi is missing."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout
+    except (OSError, subprocess.CalledProcessError):
+        return None
+    return out.strip().splitlines()[0]
+
+
+def schedule(args) -> str:
+    """The training schedule a config sets, in words."""
+    opt, tr = args.opt, args.get("tracer")
+    budget = f"K={int(tr.max_per_tile)}" if "max_per_tile" in tr else \
+        "the default K"
+    if "warmup_max_per_tile" in tr:
+        budget = (f"K={int(tr.warmup_max_per_tile)} to iteration "
+                  f"{int(tr.warmup_until)}, then {budget}")
+    return (f"{int(opt.iterations)} iterations (densify/prune from "
+            f"{int(opt.densify_from_iter)} to {int(opt.densify_until_iter)},"
+            f" opacity reset every {int(opt.opacity_reset_interval)}, "
+            f"held-out PSNR every {int(args.testing_iterations)}; {budget},"
+            f" {int(tr.get('tail_passes', 0))} tail pass(es)), UNet refine "
+            f"{int(args.refine.epochs)} epochs")
+
+
+def step_ms(history: list[dict], until: int) -> dict[str, float]:
+    """Mean ms per step between the stamped history entries (every
+    log_every iterations; `elapsed` is the trainer's own wall time) on
+    either side of the budget switch at `until`, from the second stamp."""
+    stamped = [h for h in history if "elapsed" in h][1:]
+    out = {}
+    for label, part in (("warm-up", [h for h in stamped
+                                     if h["iteration"] <= until]),
+                        ("after", [h for h in stamped
+                                   if h["iteration"] >= until])):
+        if len(part) > 1 and part[-1]["iteration"] > part[0]["iteration"]:
+            out[label] = 1e3 * ((part[-1]["elapsed"] - part[0]["elapsed"])
+                                / (part[-1]["iteration"]
+                                   - part[0]["iteration"]))
+    return out
+
+
+def entry(mdir: str) -> dict:
+    """One dataset's part of the record, from its model directory (the
+    reference's `collect`)."""
+    out = {}
+    res_path = os.path.join(mdir, "metrics", "results_all.json")
+    if os.path.exists(res_path):
+        with open(res_path) as f:
+            out["metrics_mean"] = json.load(f)["mean"]
+    unet = os.path.join(mdir, "models", "unet.npz")
+    if os.path.exists(unet):
+        with open(unet, "rb") as f:
+            out["unet_npz_sha256"] = hashlib.sha256(f.read()).hexdigest()
+        out["unet_npz_bytes"] = os.path.getsize(unet)
+    else:
+        out["unet_npz_sha256"] = None
+    log_path = os.path.join(mdir, "logs", "log.json")
+    if os.path.exists(log_path):
+        with open(log_path) as f:
+            log = json.load(f)
+        hist = log["history"]
+        out["eval_history"] = log.get("eval_history", [])
+        stamped = [h for h in hist if "elapsed" in h]
+        if len(stamped) > 2:
+            a, b = stamped[1], stamped[-1]
+            span = b["elapsed"] - a["elapsed"]
+            if span > 0:
+                out["steady_state_it_per_s"] = round(
+                    (b["iteration"] - a["iteration"]) / span, 2)
+        out["final_loss"] = hist[-1]["loss"]
+        out["iterations_recorded"] = len(hist)
+    return out
+
+
+def collect(a) -> dict:
+    """Write `<out>/e2e_torch.json` and print each dataset's stages."""
+    # "round": that of the reference's record, E2E_r05.json, whose schema
+    # and configs the run keeps.
+    rec = {"round": 5, "shapes": SHAPES, "schedule": None, "results": {},
+           "card": card()}
+    for which, (_, _, key) in DATASETS.items():
+        dc, ec = configs(a, which)
+        args = config_lib.parse(dc, config_lib.parse(ec))
+        rec["schedule"] = schedule(args)
+        mdir = cli._model_dir(args)
+        rec["results"][key] = entry(mdir)
+        log_path = os.path.join(mdir, "logs", "log.json")
+        if os.path.exists(log_path):
+            with open(log_path) as f:
+                log = json.load(f)
+            until = int(args.tracer.get("warmup_until", 0))
+            ms = step_ms(log["history"], until)
+            print(f"{key}: stages (s) {log['seconds']}; ms per step "
+                  + ", ".join(f"{k} {v:.1f}" for k, v in ms.items())
+                  + f" (budget switch at {until}); peak {log['peak_mib']} "
+                  f"MiB; launches {log['launches']}",
+                  flush=True)
+    os.makedirs(a.out, exist_ok=True)
+    path = os.path.join(a.out, "e2e_torch.json")
+    with open(path, "w") as f:
+        json.dump(rec, f, indent=1)
+    print(json.dumps(rec, indent=1))
+    return rec
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(
+        prog="python -m lidar_rt_tpu_torch.scripts.e2e_rehearsal")
+    p.add_argument("command", choices=["gen", "train", "eval", "collect"])
+    p.add_argument("dataset", nargs="?", choices=sorted(DATASETS))
+    p.add_argument("--data", default=DATA,
+                   help="where gen writes and the runs read the datasets")
+    p.add_argument("--out", default=OUT,
+                   help="model_dir/task_name of the runs, and the record's "
+                        "directory")
+    p.add_argument("-ec", "--exp_config", default=EXP)
+    p.add_argument("--device", default="cuda")
+    a = p.parse_args(argv)
+    if a.command in ("train", "eval") and a.dataset is None:
+        p.error(f"{a.command} needs a dataset: waymo or kitti")
+    if a.command == "gen":
+        import torch
+
+        dev = torch.device(a.device)
+        gen_kitti(os.path.join(a.data, DATASETS["kitti"][1]), dev)
+        gen_waymo(os.path.join(a.data, DATASETS["waymo"][1]), dev)
+        print(f"wrote {a.data}", flush=True)
+    elif a.command in ("train", "eval"):
+        return run_cli(a, a.command, a.dataset)
+    else:
+        return collect(a)
+
+
+if __name__ == "__main__":
+    main()

@@ -51,6 +51,9 @@ def test_port_imports_no_jax():
         "import lidar_rt_tpu_torch.parallel.world\n"
         "import lidar_rt_tpu_torch.core.camera\n"
         "import lidar_rt_tpu_torch.viewer\n"
+        "import lidar_rt_tpu_torch.scripts.e2e_rehearsal\n"
+        "import lidar_rt_tpu_torch.scripts.kernel_microbench\n"
+        "import lidar_rt_tpu_torch.scripts.bf16_microbench\n"
         "from lidar_rt_tpu_torch.ops.tracer import (bin_tail_chain,\n"
         "                                           render_multi_return)\n"
         "from lidar_rt_tpu_torch.ops.kernels import check_exact_k\n"
@@ -116,7 +119,8 @@ def test_cli_imports_no_jax_yaml_flax_optax():
 
 
 def test_scripts_import_no_jax():
-    """The reference-checkpoint commands (`lidar_rt_tpu_torch.scripts`)
+    """The commands of `lidar_rt_tpu_torch.scripts` (the
+    reference-checkpoint commands, the rehearsal runner, the two probes)
     load no jax, yaml or module of `lidar_rt_tpu`, and each answers
     --help as a `python -m` entry point."""
     proc = _python(
@@ -124,6 +128,9 @@ def test_scripts_import_no_jax():
         "import lidar_rt_tpu_torch.scripts\n"
         "import lidar_rt_tpu_torch.scripts.import_reference_ckpt\n"
         "import lidar_rt_tpu_torch.scripts.import_roundtrip\n"
+        "import lidar_rt_tpu_torch.scripts.e2e_rehearsal\n"
+        "import lidar_rt_tpu_torch.scripts.kernel_microbench\n"
+        "import lidar_rt_tpu_torch.scripts.bf16_microbench\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'yaml',\n"
         "                                    'lidar_rt_tpu'))\n"
@@ -131,13 +138,17 @@ def test_scripts_import_no_jax():
         "print('clean')\n")
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "clean"
-    for module in ("import_reference_ckpt", "import_roundtrip"):
+    for module, option in (("import_reference_ckpt", "--device"),
+                           ("import_roundtrip", "--device"),
+                           ("e2e_rehearsal", "--device"),
+                           ("kernel_microbench", "--seed"),
+                           ("bf16_microbench", "--seed")):
         help_ = subprocess.run(
             [sys.executable, "-m", f"lidar_rt_tpu_torch.scripts.{module}",
              "--help"], cwd=ROOT, capture_output=True, text=True,
             timeout=300)
         assert help_.returncode == 0, help_.stderr
-        assert "--device" in help_.stdout
+        assert option in help_.stdout
 
 
 def test_chip_smoke_scene_is_bench_scene():

@@ -30,6 +30,7 @@ from lidar_rt_tpu_torch.ops import cuda_tracer, geometry, kernels
 from lidar_rt_tpu_torch.ops import tracer as t_tracer
 from lidar_rt_tpu_torch.ops.binning import TileConfig
 from lidar_rt_tpu_torch.ops.composite import SurfelBundle
+from lidar_rt_tpu_torch.scripts import bf16_microbench, kernel_microbench
 
 torch.set_num_threads(1)
 
@@ -93,11 +94,11 @@ def test_library_is_keyed_by_source(tmp_path, monkeypatch):
 
 
 def _c_signatures(source: str) -> dict[str, list]:
-    """The `extern "C" int tracer_*(...)` entry points of a CUDA source,
+    """The `extern "C" int ...(...)` entry points of a CUDA source,
     each parameter as the ctypes type that passes it: c_void_p for a
     pointer, c_int for an int (None for anything else)."""
     out = {}
-    for name, params in re.findall(r'extern "C" int (tracer_\w+)\(([^)]*)\)',
+    for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)',
                                    source):
         types = []
         for param in params.split(","):
@@ -948,3 +949,34 @@ def test_cached_training_step_on_card(cuda_device):
             kernels.forward_launches, kernels.backward_launches) == (
         1, 1, 2, 1)
     _assert_fast_bars(got[True], got[False])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("level", kernel_microbench.LEVELS)
+def test_ablation_probe_matches_plain_on_card(cuda_device, level):
+    """Each level of the forward body's ablation probe against its plain
+    version, at a reduced reference shape (4 tiles of 1024 rays, K=128)
+    and with a ragged last block (R = 1000)."""
+    for r in (1024, 1000):
+        inputs = kernel_microbench.make_inputs(0, 4, r, 128, cuda_device)
+        before = kernel_microbench.launches[level]
+        got = kernel_microbench.ablation(level, inputs)
+        torch.cuda.synchronize()
+        assert kernel_microbench.launches[level] == before + 1
+        want = kernel_microbench.ablation_reference(level, inputs)
+        err, ratio = kernel_microbench.error(got, want)
+        assert ratio <= 1.0, (level, r, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,with_exp", bf16_microbench.MODES)
+def test_bf16_probe_matches_plain_on_card(cuda_device, dtype, with_exp):
+    a, b = bf16_microbench.make_inputs(dtype, 0, 64, 1024, cuda_device)
+    name = bf16_microbench.mode_name(dtype, with_exp)
+    before = bf16_microbench.launches[name]
+    got = bf16_microbench.probe(a, b, with_exp)
+    torch.cuda.synchronize()
+    assert bf16_microbench.launches[name] == before + 1
+    want = bf16_microbench.probe_reference(a, b, with_exp)
+    err, ratio = bf16_microbench.error(got, want)
+    assert got.dtype == a.dtype and ratio <= 1.0, (name, err, ratio)

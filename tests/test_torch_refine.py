@@ -3,7 +3,9 @@ module and optax loop: the eval-mode forward from converted weights
 (atol 1e-5), the train-mode BatchNorm statistics and gradients of the
 submodules (atol 1e-5; gradients compared after scaling by the reference's
 largest magnitude), the refine's BCE clip (1e-6 relative), its Adam
-steps per epoch, and that it learns a toy mask."""
+steps per epoch, that it learns a toy mask, and that in eval mode, not in
+train mode, its output moves with a frame's ray origin, as the
+reference's does."""
 
 import jax
 import jax.numpy as jnp
@@ -223,3 +225,52 @@ def test_dropout_needs_a_generator():
     model.train()
     with pytest.raises(ValueError, match="generator"):
         model(torch.zeros(1, 3, 16, 16))
+
+
+def test_eval_mode_sees_a_frames_ray_origin_train_mode_does_not():
+    """The refine trains one frame a forward, so each BatchNorm layer
+    normalises with that frame's own statistics, which remove an input
+    channel that is constant over the frame, as each ray-origin component
+    is (one sensor position a frame); eval mode normalises with running
+    statistics, which do not.  So shifting the origin channels by a
+    trajectory's length (the Waymo rehearsal's 27 m) moves the eval-mode
+    drop probability by 0.2 or more and at least ten times as far as the
+    train-mode one (one dropout mask), in the port as in the reference,
+    whose eval outputs agree at every shift (ROADMAP C4: the U-Net's
+    accuracy falls towards a trajectory's end)."""
+    import copy
+
+    h, w = 32, 64
+    rng = np.random.default_rng(0)
+    x = rng.uniform(size=(1, h, w, 9)).astype(np.float32)
+    x[..., 3:6] = 0.0                       # the sensor at the origin
+    model = ref_unet.RayDropUNet(in_ch=9)
+    v = _to_numpy(model.init({"params": jax.random.key(1)}, jnp.asarray(x),
+                             train=False))
+    v["batch_stats"] = _random_stats(v["batch_stats"], rng)
+    port = unet.make_unet(9, "cpu")
+    port.load_state_dict({k: torch.as_tensor(a) for k, a in
+                          unet.unet_state_from_flax(v).items()})
+    ref, got = {}, {}
+    for shift in (0.0, 27.0):
+        xs = x.copy()
+        xs[..., 3] += shift                 # along the trajectory
+        xt = torch.as_tensor(xs).permute(0, 3, 1, 2)
+        ref["eval", shift] = np.asarray(
+            model.apply(v, jnp.asarray(xs), train=False))[0, ..., 0]
+        ref["train", shift] = np.asarray(model.apply(
+            v, jnp.asarray(xs), train=True, rngs={"dropout":
+                                                  jax.random.key(2)},
+            mutable=["batch_stats"])[0])[0, ..., 0]
+        port.eval()
+        with torch.no_grad():
+            got["eval", shift] = port(xt)[0, 0].numpy()
+            trained = copy.deepcopy(port).train()
+            got["train", shift] = trained(
+                xt, torch.Generator().manual_seed(2))[0, 0].numpy()
+        np.testing.assert_allclose(got["eval", shift], ref["eval", shift],
+                                   rtol=0, atol=1e-5)
+    for out in (ref, got):
+        moved = {m: np.abs(out[m, 27.0] - out[m, 0.0]).max()
+                 for m in ("train", "eval")}
+        assert moved["eval"] >= 0.2 and moved["eval"] >= 10 * moved["train"]
