@@ -128,7 +128,18 @@ On one CUDA card it:
      packed bfloat16 pairs, with and without the exp): each probe's main
      path with its launches counted, then every level and mode against its
      plain version (errors and bars printed), ms, bounds and the ptxas
-     registers and spills per level.
+     registers and spills per level;
+ 20. (run after 18, in phase 13's directory) the tile-order kernels,
+     uncached and cached, against their twins at the tools' shapes
+     (quality_check's 16x32 K=128 with its tail pass at 32 x 512,
+     nan_forensics' 8x256 K=128 at 64 x 2650; errors by tool in the
+     kernel table's `max_abs_err_by_path`); then the user tools as child
+     processes on this card: `python -m
+     lidar_rt_tpu_torch.scripts.quality_check` on two configs (8x128
+     K=256, 16x32 K=128 with a tail pass) at 32 x 512 for 50 iterations,
+     `...nan_forensics` for 20 steps (every gradient finite) and
+     `...refine_spread` on phase 14's checkpoint (2 seeds of 2 epochs,
+     the test frames): each one's results, engine and launches.
 
 Every failed check raises.  Without a CUDA device it exits non-zero before
 any phase.  The last two lines of standard output are the kernel table
@@ -2033,6 +2044,206 @@ refine:
                         for key, n in launches.items()}}
 
 
+# Phase 20: the user tools at a cut depth.
+TOOLS_QUALITY = ("50", "32x512", "0",
+                 "8x128 K=256 rebin10,16x32 K=128 rebin10 tail1")
+TOOLS_NAN = ("8", "256", "128", "20")
+TOOLS_SEEDS, TOOLS_EPOCHS = ("0", "1"), "2"
+
+
+def tool_shapes(card: str, dev, gen) -> dict:
+    """Phase 20's kernel checks: the tile-order kernels, uncached and
+    cached, against their twins at the tools' own shapes, which no other
+    phase gives them: quality_check's 16x32 K=128 tail1 config at
+    TOOLS_QUALITY's 32 x 512 (R=512, both passes of the tail chain, the
+    second carrying the first's transmittance) and nan_forensics' 8x256
+    K=128 on its 64 x 2650 scene (R=2048), each on one training frame of
+    the tool's synthetic scene as the tool assembles it.  Returns the
+    largest errors per tool and kernel (fwd, bwd, fwd_c, bwd_c)."""
+    import random
+
+    from lidar_rt_tpu_torch.core import transforms
+    from lidar_rt_tpu_torch.data import build, synthetic
+    from lidar_rt_tpu_torch.ops import cuda_tracer, kernels
+    from lidar_rt_tpu_torch.ops import tracer as tracer_lib
+    from lidar_rt_tpu_torch.ops.binning import TileConfig
+    from lidar_rt_tpu_torch.scene import compose
+    from lidar_rt_tpu_torch.scripts import quality_check
+    from lidar_rt_tpu_torch.train import options
+
+    names = ("d_axes", "d_plane", "d_inv_scale", "d_opac", "d_sh")
+    qc = next(c for c in quality_check.CONFIGS
+              if c[0] == "16x32 K=128 rebin10 tail1")
+    h_q, w_q = (int(v) for v in TOOLS_QUALITY[1].split("x"))
+    th, tw, k_n = (int(v) for v in TOOLS_NAN[:3])
+    cases = (("quality_check", qc[1], qc[4], h_q, w_q),
+             ("nan_forensics", TileConfig(tile_h=th, tile_w=tw,
+                                          max_per_tile=k_n, binner="hier"),
+              0, 64, 2650))
+    out = {}
+    host_rngs = random.getstate(), np.random.get_state()
+    for tool, tile, tail, h, w in cases:
+        # The tools' scene: their host generators and the assembly's
+        # explicit one seeded with 0.
+        random.seed(0)
+        np.random.seed(0)
+        frames, track = synthetic.generate(num_frames=4, height=h, width=w,
+                                           device=dev)
+        scene = build.assemble_scene(
+            frames, [track], options.experiment_options(),
+            torch.Generator(device=dev).manual_seed(0),
+            capacity_headroom=2.0)
+        f0 = frames.train_frames[0]
+        s2w = frames.pose(f0)
+        errs = dict.fromkeys(("fwd", "bwd", "fwd_c", "bwd_c"), 0.0)
+        with torch.no_grad():
+            bundle, _ = compose(scene, f0)
+            chain = tracer_lib.bin_tail_chain(
+                bundle, frames.grid, w, transforms.invert_se3(s2w), tile,
+                tail)
+        carry = None
+        for p, asg in enumerate(chain):
+            what = (f"{tool}'s scene, frame {f0}, {tile.tile_h}x"
+                    f"{tile.tile_w} K={tile.max_per_tile} pass {p} of "
+                    f"{len(chain)}")
+            with torch.no_grad():
+                inputs, _ = cuda_tracer.tile_inputs(
+                    bundle, frames.grid, w, s2w,
+                    scene.background.active_sh_degree, tile, asg,
+                    init_trans=carry)
+                chans, acc = kernels.tracer_forward(*inputs)
+                chans_p, acc_p = cuda_tracer.forward_tiles_reference(
+                    *inputs)
+                g = torch.randn(chans.shape, generator=gen, device=dev)
+                g[:, 9:] = 0.0     # raw T: never read by the training loss
+                grads = kernels.tracer_backward(*inputs, chans, g)
+                grads_p = cuda_tracer.backward_tiles_reference(
+                    *inputs, chans, g)
+                torch.cuda.synchronize()
+            err = (chans - chans_p).abs().max().item()
+            acc_err, acc_ok = _accum_err(acc, acc_p)
+            g_err = _grad_errors(grads, grads_p, names)
+            print(f"[tools-kernel] {what}: T={inputs.dirs.shape[0]} "
+                  f"R={inputs.dirs.shape[1]}, "
+                  f"{inputs.cnt.float().mean().item():.1f} candidates/"
+                  f"tile, min carried T {inputs.t0.min().item():.4f}; "
+                  f"forward channels max abs err {err:.3e} (bar "
+                  f"{CHAN_ATOL}), accum {acc_err:.3e}; backward "
+                  f"{_fmt_grads(g_err)} ({card})", flush=True)
+            _check(err <= CHAN_ATOL and acc_ok, f"{what}: forward vs twin")
+            _check_grads(g_err, f"{what}: backward vs twin")
+            pair = check_cached_pair(
+                inputs, chans, acc, g, what,
+                lambda line: print(f"[tools-cache] {line}", flush=True))
+            for key, v in (("fwd", err), ("bwd", max(
+                    (a - b).abs().max().item()
+                    for a, b in zip(grads, grads_p))),
+                           ("fwd_c", pair["fwd_err"]),
+                           ("bwd_c", pair["bwd_err"])):
+                errs[key] = max(errs[key], v)
+            carry = cuda_tracer.from_tiles(chans.transpose(1, 2), tile, h,
+                                           w)[..., 9]
+            del inputs, chans, chans_p, grads, grads_p, g, pair
+        out[tool] = errs
+        del scene, frames, bundle, chain, carry
+    random.setstate(host_rngs[0])
+    np.random.set_state(host_rngs[1])
+    return out
+
+
+def tools_phase(tmp: str, card: str, dev, gen) -> dict:
+    """Phase 20: the tile-order kernels at the tools' shapes
+    (`tool_shapes`), then `python -m
+    lidar_rt_tpu_torch.scripts.quality_check` on two configs,
+    `...nan_forensics` and `...refine_spread` on phase 14's checkpoint (2
+    seeds of 2 epochs, the test frames), each a child process on this
+    card; checks each one's results and launches, prints its lines and
+    seconds.  Returns the tracer kernels' launches per tool and the
+    errors at the tools' shapes."""
+    shape_errs = tool_shapes(card, dev, gen)
+    runs = {
+        "quality_check": list(TOOLS_QUALITY),
+        "nan_forensics": list(TOOLS_NAN),
+        "refine_spread": ["-dc", "configs/rehearsal/waymo.yaml", "-ec",
+                          os.path.join(tmp, "cli_exp.yaml"), "--seeds",
+                          *TOOLS_SEEDS, "--epochs", TOOLS_EPOCHS, "-t",
+                          "test"]}
+    out, secs = {}, {}
+    log_path = os.path.join(tmp, "tools.log")
+    for tool, argv in runs.items():
+        path = os.path.join(tmp, f"{tool}.json")
+        with open(log_path, "a") as log:
+            proc, secs[tool] = _timed(lambda: subprocess.run(
+                [sys.executable, "-m", f"lidar_rt_tpu_torch.scripts.{tool}",
+                 *argv, "--json", path], stdout=log,
+                stderr=subprocess.STDOUT))
+        if proc.returncode != 0:
+            with open(log_path) as log:
+                print(log.read()[-6000:])
+            _check(False, f"{tool} exited {proc.returncode}")
+        with open(path) as f:
+            out[tool] = json.load(f)
+    n = {}
+    qc = out["quality_check"]
+    _check([r["name"] for r in qc] == TOOLS_QUALITY[3].split(",")
+           and all(r["engine"] == "cuda" and np.isfinite(r["losses"]).all()
+                   and 0 <= r["metrics"]["hit_acc"] <= 1 for r in qc),
+           f"quality_check: {qc}")
+    n["quality_check"] = {k: sum(r["launches"][c] for r in qc)
+                          for k, c in zip(LAUNCH_KEYS, LAUNCH_COUNTERS)}
+    for r in qc:
+        print(f"[tools] {card}: quality_check {TOOLS_QUALITY[1]}, "
+              f"{TOOLS_QUALITY[0]} iterations: {r['name']}: "
+              f"{r['it_per_s']:.1f} it/s, alive {r['alive']}, engine "
+              f"{r['engine']}, " + ", ".join(
+                  f"{k} {v:.4f}" for k, v in r["metrics"].items()))
+    nf = out["nan_forensics"]
+    _check(nf["report"] is None and nf["engine"] == "cuda",
+           f"nan_forensics: {nf}")
+    n["nan_forensics"] = {k: nf["launches"][c]
+                          for k, c in zip(LAUNCH_KEYS, LAUNCH_COUNTERS)}
+    print(f"[tools] {card}: nan_forensics {' '.join(TOOLS_NAN)}: no "
+          f"non-finite gradient in {TOOLS_NAN[3]} steps, engine "
+          f"{nf['engine']}")
+    rs = out["refine_spread"]
+    for line in rs["seeds"]:
+        # The point metrics are nan where a frame's U-Net drops every ray
+        # (an empty cloud), as `cli eval`'s are; the image metrics not.
+        _check(all(0 <= a[m] <= 1 for a in line["accuracy"].values()
+                   for m in ("eval", "train"))
+               and all(np.isfinite(v) for k, v in line["mean"].items()
+                       if not k.startswith("points/")),
+               f"refine_spread seed {line['seed']}: {line}")
+        print(f"[tools] {card}: refine_spread seed {line['seed']} "
+              f"({line['epochs']} epochs): accuracy eval/train "
+              + ", ".join(f"frame {f} {a['eval']:.4f}/{a['train']:.4f}"
+                          for f, a in line["accuracy"].items())
+              + "; test frames " + ", ".join(
+                  f"{k} {v:.4f}" for k, v in line["mean"].items()))
+    _check(rs["spread"]["card"] == card, f"refine_spread card "
+           f"{rs['spread']['card']}")
+    n["refine_spread"] = {k: rs["spread"]["launches"][c]
+                          for k, c in zip(LAUNCH_KEYS, LAUNCH_COUNTERS)}
+    _check(all(n[t]["fwd_c"] > 0 and n[t]["fwd_c"] == n[t]["bwd_c"]
+               for t in ("quality_check", "nan_forensics"))
+           and n["quality_check"]["fwd"] > 0
+           and n["refine_spread"]["fwd"] > 0
+           and n["refine_spread"]["fwd_c"] == 0,
+           f"the tools train cached and render uncached: {n}")
+    print(f"[tools] {card}: seconds (child processes, host clock): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in secs.items())
+          + f"; launches {LAUNCH_KEYS}: " + ", ".join(
+              f"{t} {tuple(c.values())}" for t, c in n.items()))
+    return {
+        "fwd_paths": {t: n[t]["fwd"]
+                      for t in ("quality_check", "refine_spread")},
+        "fwd_c_paths": {t: n[t]["fwd_c"]
+                        for t in ("quality_check", "nan_forensics")},
+        "bwd_c_paths": {t: n[t]["bwd_c"]
+                        for t in ("quality_check", "nan_forensics")},
+        "errs": shape_errs}
+
+
 def probe_phase(card: str, seed: int, ptxas: dict[str, str]) -> list:
     """Phase 19: the two probe kernels.  Drives each probe's main path,
     `kernel_microbench.run` over every level and `bf16_microbench.run`
@@ -3106,6 +3317,8 @@ def main() -> None:
         roundtrip = import_phase(tmp, card, dev)
         # 18. The rehearsal runner on both of phase 13's datasets.
         runner = runner_phase(tmp, card)
+        # 20. The user tools; refine_spread on phase 14's checkpoint.
+        tools = tools_phase(tmp, card, dev, gen)
     # 16. The training modes at the flagship shape.
     cached = cache_phase(
         card, dev, f_inputs, g_fixed, t_inputs, g_train, inputs, chans_x,
@@ -3125,6 +3338,17 @@ def main() -> None:
                     sharded["fwd_c_err"])
     bwd_c_err = max(cached["bwd_c_err"], data["bwd_c_err"],
                     sharded["bwd_c_err"])
+    # Each tile-order kernel's largest error at the tools' shapes, by tool.
+    tool_errs = {key: {t: e[key] for t, e in tools["errs"].items()}
+                 for key in ("fwd", "bwd", "fwd_c", "bwd_c")}
+    kern_err = max(kern_err, *tool_errs["fwd"].values())
+    bwd_abs = max(bwd_abs, *tool_errs["bwd"].values())
+    fwd_c_err = max(fwd_c_err, *tool_errs["fwd_c"].values())
+    bwd_c_err = max(bwd_c_err, *tool_errs["bwd_c"].values())
+    errs_by_path = {"tracer_forward": tool_errs["fwd"],
+                    "tracer_backward": tool_errs["bwd"],
+                    "tracer_forward_cache": tool_errs["fwd_c"],
+                    "tracer_backward_cache": tool_errs["bwd_c"]}
     bwd_xf_err = max(cached["bwd_xf_err"], sharded["bwd_xf_err"])
     shard_n = sharded["launches"]
 
@@ -3134,7 +3358,7 @@ def main() -> None:
                  **cli_runs["fwd_paths"], "sharded": shard_n["fwd"],
                  "import_rt_finetune": roundtrip["fine"]["fwd"],
                  "import_rt_eval": roundtrip["eval"]["fwd"],
-                 **runner["fwd_paths"]}
+                 **runner["fwd_paths"], **tools["fwd_paths"]}
     bwd_paths = {"train": train_bwd, "train_tail": mode_launches["tail"][1],
                  **data["bwd_paths"], "sharded": shard_n["bwd"]}
     fwd_x_paths = {"serve_exact": serve_exact,
@@ -3148,12 +3372,12 @@ def main() -> None:
                    "sharded": shard_n["fwd_c"],
                    "train_cached": cached["launches"]["cached"][4],
                    "import_rt_finetune": roundtrip["fine"]["fwd_c"],
-                   **runner["fwd_c_paths"]}
+                   **runner["fwd_c_paths"], **tools["fwd_c_paths"]}
     bwd_c_paths = {**data["bwd_c_paths"], **cli_runs["bwd_c_paths"],
                    "sharded": shard_n["bwd_c"],
                    "train_cached": cached["launches"]["cached"][5],
                    "import_rt_finetune": roundtrip["fine"]["bwd_c"],
-                   **runner["bwd_c_paths"]}
+                   **runner["bwd_c_paths"], **tools["bwd_c_paths"]}
     bwd_xf_paths = {"sharded": shard_n["bwd_xf"],
                     "train_exact_fast": cached["launches"]["exact-fast"][6],
                     **data["bwd_xf_paths"]}
@@ -3219,7 +3443,8 @@ def main() -> None:
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": sum(paths.values()),
-        "launches_by_path": paths, "max_abs_err": err, "ms": ms,
+        "launches_by_path": paths, "max_abs_err": err,
+        "max_abs_err_by_path": errs_by_path.get(name, {}), "ms": ms,
         "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": None,
     } for name, source, replaces, paths, err, ms, plain_ms, (b_ms, b_by)

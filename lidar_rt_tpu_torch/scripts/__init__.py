@@ -12,5 +12,12 @@
     kernels as H100 kernels (the forward body's ablation ladder; float32
     against packed bfloat16);
   * `densify_stats`: the densification statistic of the rehearsal's Waymo
-    scene in each of the port's training paths from one state.
+    scene in each of the port's training paths from one state;
+  * `refine_spread`: the refine U-Net over several seeds on a trained
+    rehearsal model, per-frame accuracy in eval and train mode and the
+    eval metrics of each;
+  * `quality_check`: each tracer config's convergence on the synthetic
+    scene (how a user picks a tile shape and budget);
+  * `nan_forensics`: the first non-finite gradient in training, named by
+    loss term, parameter leaf and surfels.
 """

@@ -40,6 +40,7 @@ from lidar_rt_tpu_torch.scene import convert
 from lidar_rt_tpu_torch.scene.tracks import ActorTrack
 from lidar_rt_tpu_torch.train import loop as t_loop
 from lidar_rt_tpu_torch.train import options
+from _torch_parity import carried, port_frames
 from test_torch_data import _port_grid, _waymo_arrays
 
 torch.set_num_threads(1)
@@ -296,33 +297,9 @@ STEPS = 4
 
 
 def _carried(j_scene, j_frames):
-    """The reference's scene, its surfels jittered by 5 cm (assembled
-    surfels tie in range to rounding, and the packages round the range
-    differently), and its port copy."""
-    rng = np.random.default_rng(0)
-
-    def jitter(asset):
-        noise = rng.normal(scale=0.05, size=asset.xyz.shape)
-        return dataclasses.replace(asset, xyz=asset.xyz + noise.astype(
-            np.float32))
-
-    j_scene = dataclasses.replace(j_scene,
-                                  background=jitter(j_scene.background),
-                                  actors=jitter(j_scene.actors))
-    arrays = {f"tracks.{f}": np.asarray(getattr(j_scene.tracks, f))
-              for f in convert.TRACK_FIELDS}
-    for part in ("background", "actors"):
-        a = getattr(j_scene, part)
-        for f in convert.ASSET_FIELDS + ("active_sh_degree",):
-            arrays[f"{part}.{f}"] = np.asarray(getattr(a, f))
-        arrays[f"{part}.extent"] = np.float32(a.extent)
-        arrays[f"{part}.max_sh_degree"] = np.int32(a.max_sh_degree)
-    t_frames = LiDARFrames.from_numpy(
-        _port_grid(j_frames.grid), j_frames.sensor2world, j_frames.range1,
-        j_frames.intensity1, device="cpu",
-        train_frames=j_frames.train_frames,
-        eval_frames=j_frames.eval_frames)
-    return j_scene, convert.scene_from_numpy(arrays, device="cpu"), t_frames
+    """The reference's scene, its surfels jittered by 5 cm (`carried`),
+    its port copy and the port's frames."""
+    return *carried(j_scene), port_frames(j_frames)
 
 
 @pytest.fixture(scope="module")

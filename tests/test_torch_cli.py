@@ -28,7 +28,7 @@ from lidar_rt_tpu_torch.scene import Scene, convert
 from lidar_rt_tpu_torch.train import loop, options
 from lidar_rt_tpu_torch.utils import (checkpoint, console, export,
                                       import_torch, profiling, record)
-from test_torch_scene_sim import scene_arrays
+from _torch_parity import scene_arrays
 
 torch.set_num_threads(1)
 

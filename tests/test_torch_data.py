@@ -43,6 +43,7 @@ from lidar_rt_tpu_torch.data.frames import LiDARFrames
 from lidar_rt_tpu_torch.ops import knn as t_knn
 from lidar_rt_tpu_torch.scene import tracks as t_tracks
 from lidar_rt_tpu_torch.train import options
+from _torch_parity import port_grid as _port_grid
 
 torch.set_num_threads(1)
 
@@ -71,11 +72,6 @@ def _t(x):
 def _rotations(rng, n):
     q = f32(rng.normal(size=(n, 4)))
     return np.array(j_quat.to_rotation_matrix(jnp.asarray(q)), np.float32)
-
-
-def _port_grid(grid) -> t_rays.SensorGrid:
-    return t_rays.SensorGrid(_t(grid.row_inclinations), grid.pixel_offset,
-                             grid.angle_offset)
 
 
 # -- quaternions, transforms, rays ----------------------------------------

@@ -35,7 +35,7 @@ from lidar_rt_tpu_torch.ops.binning import TileConfig
 from lidar_rt_tpu_torch.scene import convert
 from lidar_rt_tpu_torch.train import refine
 from test_torch_data import _port_grid
-from test_torch_scene_sim import scene_arrays
+from _torch_parity import scene_arrays
 
 torch.set_num_threads(1)
 

@@ -21,7 +21,7 @@ from lidar_rt_tpu_torch import cli
 from lidar_rt_tpu_torch.scene import convert
 from lidar_rt_tpu_torch.scripts import import_reference_ckpt, import_roundtrip
 from lidar_rt_tpu_torch.utils import checkpoint, import_torch
-from test_torch_scene_sim import scene_arrays
+from _torch_parity import scene_arrays
 
 torch.set_num_threads(1)
 

@@ -120,9 +120,10 @@ def test_cli_imports_no_jax_yaml_flax_optax():
 
 def test_scripts_import_no_jax():
     """The commands of `lidar_rt_tpu_torch.scripts` (the
-    reference-checkpoint commands, the rehearsal runner, the two probes)
-    load no jax, yaml or module of `lidar_rt_tpu`, and each answers
-    --help as a `python -m` entry point."""
+    reference-checkpoint commands, the rehearsal runner, the two probes,
+    the densify and refine diagnostics and the two user tools) load no
+    jax, yaml or module of `lidar_rt_tpu`, and each answers --help as a
+    `python -m` entry point."""
     proc = _python(
         "import sys\n"
         "import lidar_rt_tpu_torch.scripts\n"
@@ -131,6 +132,10 @@ def test_scripts_import_no_jax():
         "import lidar_rt_tpu_torch.scripts.e2e_rehearsal\n"
         "import lidar_rt_tpu_torch.scripts.kernel_microbench\n"
         "import lidar_rt_tpu_torch.scripts.bf16_microbench\n"
+        "import lidar_rt_tpu_torch.scripts.densify_stats\n"
+        "import lidar_rt_tpu_torch.scripts.refine_spread\n"
+        "import lidar_rt_tpu_torch.scripts.quality_check\n"
+        "import lidar_rt_tpu_torch.scripts.nan_forensics\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'yaml',\n"
         "                                    'lidar_rt_tpu'))\n"
@@ -138,17 +143,24 @@ def test_scripts_import_no_jax():
         "print('clean')\n")
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "clean"
-    for module, option in (("import_reference_ckpt", "--device"),
-                           ("import_roundtrip", "--device"),
-                           ("e2e_rehearsal", "--device"),
-                           ("kernel_microbench", "--seed"),
-                           ("bf16_microbench", "--seed")):
-        help_ = subprocess.run(
-            [sys.executable, "-m", f"lidar_rt_tpu_torch.scripts.{module}",
-             "--help"], cwd=ROOT, capture_output=True, text=True,
-            timeout=300)
-        assert help_.returncode == 0, help_.stderr
-        assert option in help_.stdout
+    # Every command's --help at once, each its own process.
+    helps = {(module, option): subprocess.Popen(
+        [sys.executable, "-m", f"lidar_rt_tpu_torch.scripts.{module}",
+         "--help"], cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for module, option in (
+            ("import_reference_ckpt", "--device"),
+            ("import_roundtrip", "--device"),
+            ("e2e_rehearsal", "--device"),
+            ("kernel_microbench", "--seed"),
+            ("bf16_microbench", "--seed"),
+            ("densify_stats", "--repeats"),
+            ("refine_spread", "--seeds"),
+            ("quality_check", "--device"),
+            ("nan_forensics", "--device"))}
+    for (module, option), help_ in helps.items():
+        out, err = help_.communicate(timeout=300)
+        assert help_.returncode == 0, (module, err)
+        assert option in out, module
 
 
 def test_chip_smoke_scene_is_bench_scene():

@@ -13,8 +13,6 @@ scaling by the reference's largest magnitude; losses 1e-4 relative; a
 trainer's per-iteration losses 2e-3 relative.
 """
 
-import dataclasses
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -22,6 +20,7 @@ import pytest
 import torch
 
 import torch_parallel_workers as workers
+from _torch_parity import jittered, scene_arrays
 from lidar_rt_tpu.config import Args, default_experiment
 from lidar_rt_tpu.core import rays as j_rays
 from lidar_rt_tpu.data import build, synthetic
@@ -143,24 +142,8 @@ def scene_data():
     d["model"].update(obj_pt_num=128, voxel_size=0.3)
     scene = build.assemble_scene(frames, [track], Args(d),
                                  capacity_headroom=1.5)
-    rng = np.random.default_rng(0)
-
-    def jitter(asset):
-        noise = rng.normal(scale=0.05, size=asset.xyz.shape)
-        return dataclasses.replace(asset, xyz=asset.xyz + f32(noise))
-
-    scene = dataclasses.replace(scene, background=jitter(scene.background),
-                                actors=jitter(scene.actors))
-    arrays = {f"tracks.{f}": np.asarray(getattr(scene.tracks, f))
-              for f in ("size", "translations", "quats", "present")}
-    for part in ("background", "actors"):
-        a = getattr(scene, part)
-        for f in ("xyz", "f_dc", "f_rest", "log_scale", "quat",
-                  "opacity_logit", "alive", "active_sh_degree"):
-            arrays[f"{part}.{f}"] = np.asarray(getattr(a, f))
-        arrays[f"{part}.extent"] = np.float32(a.extent)
-        arrays[f"{part}.max_sh_degree"] = np.int32(a.max_sh_degree)
-    data = {"scene": arrays, "frames": dict(
+    scene = jittered(scene)
+    data = {"scene": scene_arrays(scene), "frames": dict(
         row_inclinations=np.asarray(frames.grid.row_inclinations),
         pixel_offset=frames.grid.pixel_offset,
         angle_offset=frames.grid.angle_offset,

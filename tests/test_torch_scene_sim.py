@@ -27,6 +27,7 @@ from lidar_rt_tpu_torch.ops import tracer as t_tracer
 from lidar_rt_tpu_torch.ops.binning import TileConfig as TTileConfig
 from lidar_rt_tpu_torch.scene import compose as t_compose
 from lidar_rt_tpu_torch.scene import convert
+from _torch_parity import scene_arrays
 
 torch.set_num_threads(1)
 
@@ -35,22 +36,6 @@ H, W = 16, 256
 TILE = dict(tile_h=8, tile_w=128, max_per_tile=128, binner="hier")
 J_CFG = j_tracer.TraceConfig(tile=JTileConfig(**TILE), tile_batch=2,
                              engine="jax")
-
-
-def scene_arrays(sc) -> dict[str, np.ndarray]:
-    """A `lidar_rt_tpu` Scene as the port's `<part>.<field>` arrays."""
-    out = {}
-    parts = [("background", sc.background)]
-    if sc.actors is not None:
-        parts.append(("actors", sc.actors))
-        out.update({f"tracks.{f}": np.asarray(getattr(sc.tracks, f))
-                    for f in convert.TRACK_FIELDS})
-    for part, asset in parts:
-        for f in convert.ASSET_FIELDS + ("active_sh_degree",):
-            out[f"{part}.{f}"] = np.asarray(getattr(asset, f))
-        out[f"{part}.extent"] = np.float32(asset.extent)
-        out[f"{part}.max_sh_degree"] = np.int32(asset.max_sh_degree)
-    return out
 
 
 @pytest.fixture(scope="module")

@@ -10,7 +10,6 @@ reference renders with its jax engine (exact top-k); the port with its
 kernel path, whose plain twins run on the CPU.
 """
 
-import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -31,21 +30,19 @@ from lidar_rt_tpu.train import density as j_density
 from lidar_rt_tpu.train import loop as j_loop
 from lidar_rt_tpu.train import losses as j_losses
 from lidar_rt_tpu.train import optim as j_optim
-from lidar_rt_tpu_torch.core import rays as t_rays
-from lidar_rt_tpu_torch.data.frames import LiDARFrames
 from lidar_rt_tpu_torch.ops import chamfer as t_chamfer
 from lidar_rt_tpu_torch.ops import kernels
 from lidar_rt_tpu_torch.ops import ssim as t_ssim
 from lidar_rt_tpu_torch.ops import tracer as t_tracer
 from lidar_rt_tpu_torch.ops.binning import TileConfig as TTileConfig
 from lidar_rt_tpu_torch.scene import asset as t_asset
-from lidar_rt_tpu_torch.scene import convert
 from lidar_rt_tpu_torch.scene.tracks import ActorTrack
 from lidar_rt_tpu_torch.train import density as t_density
 from lidar_rt_tpu_torch.train import loop as t_loop
 from lidar_rt_tpu_torch.train import losses as t_losses
 from lidar_rt_tpu_torch.train import optim as t_optim
 from lidar_rt_tpu_torch.train import options
+from _torch_parity import jittered, port_frames, port_scene
 
 torch.set_num_threads(1)
 
@@ -464,22 +461,7 @@ def _j_args():
 
 
 def _port_inputs(j_scene, frames):
-    arrays = {f"tracks.{f}": np.asarray(getattr(j_scene.tracks, f))
-              for f in convert.TRACK_FIELDS}
-    for part in ("background", "actors"):
-        a = getattr(j_scene, part)
-        for f in convert.ASSET_FIELDS + ("active_sh_degree",):
-            arrays[f"{part}.{f}"] = np.asarray(getattr(a, f))
-        arrays[f"{part}.extent"] = np.float32(a.extent)
-        arrays[f"{part}.max_sh_degree"] = np.int32(a.max_sh_degree)
-    grid = t_rays.SensorGrid(_t(frames.grid.row_inclinations),
-                             frames.grid.pixel_offset,
-                             frames.grid.angle_offset)
-    t_frames = LiDARFrames.from_numpy(
-        grid, frames.sensor2world, frames.range1, frames.intensity1,
-        device="cpu", train_frames=frames.train_frames,
-        eval_frames=frames.eval_frames)
-    return convert.scene_from_numpy(arrays, device="cpu"), t_frames
+    return port_scene(j_scene), port_frames(frames)
 
 
 @pytest.fixture(scope="module")
@@ -491,16 +473,7 @@ def synthetic_scene():
     frames, track = synthetic.generate(num_frames=3, height=16, width=128)
     scene = build.assemble_scene(frames, [track], _j_args(),
                                  capacity_headroom=1.5)
-    rng = np.random.default_rng(0)
-
-    def jitter(asset):
-        noise = rng.normal(scale=0.05, size=asset.xyz.shape)
-        return dataclasses.replace(asset, xyz=asset.xyz + noise.astype(
-            np.float32))
-
-    return frames, dataclasses.replace(
-        scene, background=jitter(scene.background),
-        actors=jitter(scene.actors))
+    return frames, jittered(scene)
 
 
 def _trainers(frames, scene):
