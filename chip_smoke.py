@@ -139,7 +139,20 @@ On one CUDA card it:
      K=256, 16x32 K=128 with a tail pass) at 32 x 512 for 50 iterations,
      `...nan_forensics` for 20 steps (every gradient finite) and
      `...refine_spread` on phase 14's checkpoint (2 seeds of 2 epochs,
-     the test frames): each one's results, engine and launches.
+     the test frames): each one's results, engine and launches;
+ 21. (run after 19) the tile-order kernels, uncached and cached, against
+     their twins at the two shapes `scripts/sweep_perf.py` adds (4x128 and
+     8x64 at K=128, on the street scene: errors by shape in the kernel
+     table's `max_abs_err_by_path`), the cached decode also against the
+     float32 replay on an upstream draw from --seed; then the eight
+     design probes of `lidar_rt_tpu_torch/scripts/` in this process at
+     the bench's full shape (64 x 2650, 131,072 surfels), printing their
+     lines:
+     `survivor_stats`, `overcount_probe`, `subtile_demand`,
+     `occlusion_stats`, `selection_probe`, `profile_binner`, `sweep_perf`
+     (both modes) and `compact_probe`, the tracer kernels' launches of
+     the last two counted per path.  The JAX checkpoints' export needs jax
+     and is tested on the CPU only.
 
 Every failed check raises.  Without a CUDA device it exits non-zero before
 any phase.  The last two lines of standard output are the kernel table
@@ -165,6 +178,10 @@ import time
 
 import numpy as np
 import torch
+
+# bench.py's street soup, drawn with numpy from the seed: the port's one
+# copy (`lidar_rt_tpu_torch/scripts/street.py`).
+from lidar_rt_tpu_torch.scripts.street import street_soup
 
 H, W = 64, 2650
 N_BACKGROUND = 131_072
@@ -221,34 +238,6 @@ BWD_SH_FLOPS = 96
 # locals without the exp, the gates or the transmittance product.
 CACHE_PAIR_FLOPS = 22
 CACHE_BYTES = 4        # per cached (ray, candidate) step: two bfloat16
-
-
-def street_soup(n: int, seed: int) -> dict[str, np.ndarray]:
-    """bench.py's street-like surfel soup (ground annulus + wall bands),
-    drawn in the same order from the same generator: activated arrays."""
-    rng = np.random.default_rng(seed)
-    n_ground = n // 2
-    n_wall = n - n_ground
-    r = np.sqrt(rng.uniform(3.0 ** 2, 60.0 ** 2, n_ground))
-    th = rng.uniform(-np.pi, np.pi, n_ground)
-    ground = np.stack([r * np.cos(th), r * np.sin(th),
-                       rng.normal(0, 0.05, n_ground)], 1)
-    x = rng.uniform(-60, 60, n_wall)
-    side = rng.choice([-1, 1], n_wall)
-    y = side * rng.uniform(6, 25, n_wall)
-    z = rng.uniform(0, 6, n_wall)
-    means = np.concatenate([ground, np.stack([x, y, z], 1)]).astype(np.float32)
-    quats = np.zeros((n, 4), np.float32)
-    quats[:n_ground, 0] = 1.0
-    quats[n_ground:, 0] = np.sqrt(0.5)
-    quats[n_ground:, 1] = np.sqrt(0.5)
-    quats += rng.normal(0, 0.1, (n, 4)).astype(np.float32)
-    sh = np.zeros((n, 16, 3), np.float32)
-    sh[:, 0, :] = rng.uniform(-0.5, 1.0, (n, 3))
-    scales = rng.uniform(0.1, 0.35, (n, 2)).astype(np.float32)
-    opacities = rng.uniform(0.3, 0.95, n).astype(np.float32)
-    return {"means": means, "rotations": quats, "scales": scales,
-            "opacities": opacities, "sh": sh}
 
 
 def _raw_asset(part: str, act: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
@@ -2051,6 +2040,47 @@ TOOLS_NAN = ("8", "256", "128", "20")
 TOOLS_SEEDS, TOOLS_EPOCHS = ("0", "1"), "2"
 
 
+def hold_tile_pair(inputs, what: str, card: str, dev, gen, tag: str
+                   ) -> tuple[dict, torch.Tensor]:
+    """The tile-order kernels, uncached and cached, against their twins on
+    one render's tile inputs: the forward's channels and accum, the
+    backward's gradients for an upstream gradient drawn from `gen` (none on
+    raw T, which the training loss never reads), then the cached pair
+    (`check_cached_pair`, its decode held to the float32 replay too), at
+    PERF.md section 2's bars; prints
+    `[tag-kernel]` and `[tag-cache]` lines.  Returns the largest errors
+    ({fwd, bwd, fwd_c, bwd_c}) and the forward's channels."""
+    from lidar_rt_tpu_torch.ops import cuda_tracer, kernels
+
+    with torch.no_grad():
+        chans, acc = kernels.tracer_forward(*inputs)
+        chans_p, acc_p = cuda_tracer.forward_tiles_reference(*inputs)
+        g = torch.randn(chans.shape, generator=gen, device=dev)
+        g[:, 9:] = 0.0     # raw T: never read by the training loss
+        grads = kernels.tracer_backward(*inputs, chans, g)
+        grads_p = cuda_tracer.backward_tiles_reference(*inputs, chans, g)
+        torch.cuda.synchronize()
+    err = (chans - chans_p).abs().max().item()
+    acc_err, acc_ok = _accum_err(acc, acc_p)
+    g_err = _grad_errors(grads, grads_p, TWIN_GRADS)
+    print(f"[{tag}-kernel] {what}: T={inputs.dirs.shape[0]} "
+          f"R={inputs.dirs.shape[1]}, "
+          f"{inputs.cnt.float().mean().item():.1f} candidates/"
+          f"tile, min carried T {inputs.t0.min().item():.4f}; "
+          f"forward channels max abs err {err:.3e} (bar "
+          f"{CHAN_ATOL}), accum {acc_err:.3e}; backward "
+          f"{_fmt_grads(g_err)} ({card})", flush=True)
+    _check(err <= CHAN_ATOL and acc_ok, f"{what}: forward vs twin")
+    _check_grads(g_err, f"{what}: backward vs twin")
+    pair = check_cached_pair(
+        inputs, chans, acc, g, what,
+        lambda line: print(f"[{tag}-cache] {line}", flush=True))
+    return {"fwd": err,
+            "bwd": max((a - b).abs().max().item()
+                       for a, b in zip(grads, grads_p)),
+            "fwd_c": pair["fwd_err"], "bwd_c": pair["bwd_err"]}, chans
+
+
 def tool_shapes(card: str, dev, gen) -> dict:
     """Phase 20's kernel checks: the tile-order kernels, uncached and
     cached, against their twins at the tools' own shapes, which no other
@@ -2064,14 +2094,13 @@ def tool_shapes(card: str, dev, gen) -> dict:
 
     from lidar_rt_tpu_torch.core import transforms
     from lidar_rt_tpu_torch.data import build, synthetic
-    from lidar_rt_tpu_torch.ops import cuda_tracer, kernels
+    from lidar_rt_tpu_torch.ops import cuda_tracer
     from lidar_rt_tpu_torch.ops import tracer as tracer_lib
     from lidar_rt_tpu_torch.ops.binning import TileConfig
     from lidar_rt_tpu_torch.scene import compose
     from lidar_rt_tpu_torch.scripts import quality_check
     from lidar_rt_tpu_torch.train import options
 
-    names = ("d_axes", "d_plane", "d_inv_scale", "d_opac", "d_sh")
     qc = next(c for c in quality_check.CONFIGS
               if c[0] == "16x32 K=128 rebin10 tail1")
     h_q, w_q = (int(v) for v in TOOLS_QUALITY[1].split("x"))
@@ -2111,39 +2140,13 @@ def tool_shapes(card: str, dev, gen) -> dict:
                     bundle, frames.grid, w, s2w,
                     scene.background.active_sh_degree, tile, asg,
                     init_trans=carry)
-                chans, acc = kernels.tracer_forward(*inputs)
-                chans_p, acc_p = cuda_tracer.forward_tiles_reference(
-                    *inputs)
-                g = torch.randn(chans.shape, generator=gen, device=dev)
-                g[:, 9:] = 0.0     # raw T: never read by the training loss
-                grads = kernels.tracer_backward(*inputs, chans, g)
-                grads_p = cuda_tracer.backward_tiles_reference(
-                    *inputs, chans, g)
-                torch.cuda.synchronize()
-            err = (chans - chans_p).abs().max().item()
-            acc_err, acc_ok = _accum_err(acc, acc_p)
-            g_err = _grad_errors(grads, grads_p, names)
-            print(f"[tools-kernel] {what}: T={inputs.dirs.shape[0]} "
-                  f"R={inputs.dirs.shape[1]}, "
-                  f"{inputs.cnt.float().mean().item():.1f} candidates/"
-                  f"tile, min carried T {inputs.t0.min().item():.4f}; "
-                  f"forward channels max abs err {err:.3e} (bar "
-                  f"{CHAN_ATOL}), accum {acc_err:.3e}; backward "
-                  f"{_fmt_grads(g_err)} ({card})", flush=True)
-            _check(err <= CHAN_ATOL and acc_ok, f"{what}: forward vs twin")
-            _check_grads(g_err, f"{what}: backward vs twin")
-            pair = check_cached_pair(
-                inputs, chans, acc, g, what,
-                lambda line: print(f"[tools-cache] {line}", flush=True))
-            for key, v in (("fwd", err), ("bwd", max(
-                    (a - b).abs().max().item()
-                    for a, b in zip(grads, grads_p))),
-                           ("fwd_c", pair["fwd_err"]),
-                           ("bwd_c", pair["bwd_err"])):
+            pair_errs, chans = hold_tile_pair(inputs, what, card, dev, gen,
+                                              "tools")
+            for key, v in pair_errs.items():
                 errs[key] = max(errs[key], v)
             carry = cuda_tracer.from_tiles(chans.transpose(1, 2), tile, h,
                                            w)[..., 9]
-            del inputs, chans, chans_p, grads, grads_p, g, pair
+            del inputs, chans
         out[tool] = errs
         del scene, frames, bundle, chain, carry
     random.setstate(host_rngs[0])
@@ -2323,6 +2326,115 @@ def probe_phase(card: str, seed: int, ptxas: dict[str, str]) -> list:
             {"probe": gate_n[name]}, err, r["ms"], plain_ms,
             (r["bound_ms"], r["bound_by"])))
     return entries
+
+
+# Phase 21: the design probes on the street scene.
+DESIGN_PROBES = ("survivor_stats", "overcount_probe", "subtile_demand",
+                 "occlusion_stats", "selection_probe", "profile_binner",
+                 "sweep_perf", "compact_probe")
+
+
+def design_shapes(card: str, dev, seed: int) -> dict:
+    """Phase 21's kernel checks: the tile-order kernels, uncached and
+    cached, against their twins (`hold_tile_pair`) at the two shapes that
+    `scripts/sweep_perf.py` adds and no other phase gives them, 4x128 and
+    8x64 at K=128 (512 rays a tile; at 8x64 each warp holds half a tile
+    row), on one render of the street scene (131,072 surfels at 64 x
+    2650, the probes' pose), with upstream gradients drawn on all nine
+    rows from a generator seeded here with `seed`, so that the cached
+    decode's distance from the float32 replay is a state the seed alone
+    fixes and is held to the cache bar, as phase 16 holds it.  (Drawn
+    from a generator the earlier phases had advanced, it read 3.4e-3 to
+    2.2e-2 of d_plane's max from one draw to the next, PERF.md section 6;
+    on the CPU the reference's own cached backward strays from its replay
+    as far as the port's twin does at these shapes,
+    tests/test_torch_cache_shapes.py.)  Returns the largest errors per
+    shape and kernel."""
+    from lidar_rt_tpu_torch.ops import cuda_tracer
+    from lidar_rt_tpu_torch.scripts import street, sweep_perf
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    bundle = street.street_scene_bundle(street.N_SURFELS, 0, dev)
+    grid, s2w = street.sensor(street.H, dev)
+    out = {}
+    for th, tw, k, _ in sweep_perf.CONFIGS[1:]:
+        tile = sweep_perf.trace_config(th, tw, k, False).tile
+        with torch.no_grad():
+            inputs, _ = cuda_tracer.tile_inputs(bundle, grid, street.W, s2w,
+                                                3, tile)
+        what = f"street scene, {th}x{tw} K={k}"
+        out[f"sweep_{th}x{tw}_k{k}"] = hold_tile_pair(
+            inputs, what, card, dev, gen, "design")[0]
+        del inputs
+    return out
+
+
+def design_phase(card: str, dev, seed: int) -> dict:
+    """Phase 21: the kernels at sweep_perf's new shapes (`design_shapes`),
+    then the eight design probes of `lidar_rt_tpu_torch/scripts/` in this
+    process at the bench's full shape (64 x 2650, 131,072 surfels), each
+    through its command's `main` on this card, printing its lines:
+    `sweep_perf` in both modes and `compact_probe` (whose dense step is the
+    flagship tile-order pair) with the tracer kernels' counts set to 0
+    just before each and read just after.  The JAX checkpoints' export
+    (`export_jax_ckpt.py`) needs jax, which this machine lacks: it is held
+    to the JAX package on the CPU only (`tests/test_torch_jax_ckpt.py`).
+    Returns the launches per path and the errors per shape."""
+    import importlib
+
+    from lidar_rt_tpu_torch.ops import kernels
+
+    errs = design_shapes(card, dev, seed)
+    launches, secs, results = {}, {}, {}
+    counted = {"sweep_perf": ["--device", "cuda"],
+               "sweep_perf_fast": ["--device", "cuda", "--fast"],
+               "compact_probe": ["--device", "cuda"]}
+    for name in DESIGN_PROBES:
+        mod = importlib.import_module(f"lidar_rt_tpu_torch.scripts.{name}")
+        for path, argv in ([(p, a) for p, a in counted.items()
+                            if p.startswith(name)]
+                           or [(name, ["--device", "cuda"])]):
+            print(f"[design] {path}: python -m lidar_rt_tpu_torch.scripts."
+                  f"{name} {' '.join(argv)}", flush=True)
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            results[path], secs[path] = _timed(lambda: mod.main(argv))
+            torch.cuda.synchronize()
+            launches[path] = dict(zip(LAUNCH_KEYS, _launch_counts()))
+    oc = results["overcount_probe"]
+    _check(all(c["gate"] > 0 and c["gate_not_int"] <= 1e-3 * c["gate"]
+               for c in oc.values()),
+           f"overcount_probe: gate passes inside the footprint box: {oc}")
+    _check(all(c["truncated"] == 0 for key, c in oc.items()
+               if key.endswith("topk")),
+           f"overcount_probe: its topk rows list every candidate: {oc}")
+    _check(all(np.isfinite(r[k]) and r[k] > 0
+               for rows in (results["sweep_perf"], results["sweep_perf_fast"])
+               for r in rows for k in ("fwd_ms", "fwd_bwd_ms", "bin_ms")),
+           "sweep_perf times")
+    n = launches
+    _check(n["sweep_perf"]["fwd"] > 0 and n["sweep_perf"]["bwd"] > 0
+           and n["sweep_perf"]["fwd_c"] == 0
+           and n["sweep_perf_fast"]["fwd_c"] > 0
+           and n["sweep_perf_fast"]["fwd_c"] == n["sweep_perf_fast"]["bwd_c"]
+           and n["sweep_perf_fast"]["bwd"] == 0
+           and n["compact_probe"]["fwd"] > 0
+           and n["compact_probe"]["bwd"] > 0
+           and all(sum(n[p].values()) == 0 for p in DESIGN_PROBES
+                   if p not in ("sweep_perf", "compact_probe")),
+           f"the probes' kernel launches: {n}")
+    print(f"[design] {card}: seconds (host clock): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in secs.items()) + f"; launches "
+          f"{LAUNCH_KEYS}: " + ", ".join(
+              f"{p} {tuple(c.values())}" for p, c in n.items()
+              if sum(c.values())), flush=True)
+    return {
+        "fwd_paths": {p: n[p]["fwd"] for p in counted},
+        "bwd_paths": {p: n[p]["bwd"] for p in ("sweep_perf",
+                                                "compact_probe")},
+        "fwd_c_paths": {"sweep_perf_fast": n["sweep_perf_fast"]["fwd_c"]},
+        "bwd_c_paths": {"sweep_perf_fast": n["sweep_perf_fast"]["bwd_c"]},
+        "errs": errs}
 
 
 EXACT_FAST_STEPS = 5       # exact-order training steps with the fast sums
@@ -3330,6 +3442,8 @@ def main() -> None:
         replay_step_ms, ptxas)
     # 19. The probe kernels.
     probes = probe_phase(card, args.seed, ptxas)
+    # 21. The design probes on the street scene.
+    design = design_phase(card, dev, args.seed)
     kern_err = max(kern_err, data["fwd_err"], sharded["fwd_err"])
     bwd_abs = max(bwd_abs, data["bwd_err"], sharded["bwd_err"])
     exact_fwd_err = max(exact_fwd_err, sharded["fwd_x_err"])
@@ -3338,8 +3452,10 @@ def main() -> None:
                     sharded["fwd_c_err"])
     bwd_c_err = max(cached["bwd_c_err"], data["bwd_c_err"],
                     sharded["bwd_c_err"])
-    # Each tile-order kernel's largest error at the tools' shapes, by tool.
-    tool_errs = {key: {t: e[key] for t, e in tools["errs"].items()}
+    # Each tile-order kernel's largest error at the tools' shapes, by tool,
+    # and at the sweep's shapes.
+    tool_errs = {key: {t: e[key] for t, e in {**tools["errs"],
+                                              **design["errs"]}.items()}
                  for key in ("fwd", "bwd", "fwd_c", "bwd_c")}
     kern_err = max(kern_err, *tool_errs["fwd"].values())
     bwd_abs = max(bwd_abs, *tool_errs["bwd"].values())
@@ -3358,9 +3474,11 @@ def main() -> None:
                  **cli_runs["fwd_paths"], "sharded": shard_n["fwd"],
                  "import_rt_finetune": roundtrip["fine"]["fwd"],
                  "import_rt_eval": roundtrip["eval"]["fwd"],
-                 **runner["fwd_paths"], **tools["fwd_paths"]}
+                 **runner["fwd_paths"], **tools["fwd_paths"],
+                 **design["fwd_paths"]}
     bwd_paths = {"train": train_bwd, "train_tail": mode_launches["tail"][1],
-                 **data["bwd_paths"], "sharded": shard_n["bwd"]}
+                 **data["bwd_paths"], "sharded": shard_n["bwd"],
+                 **design["bwd_paths"]}
     fwd_x_paths = {"serve_exact": serve_exact,
                    "train_exact": mode_launches["exact"][2],
                    "sharded": shard_n["fwd_x"],
@@ -3372,12 +3490,14 @@ def main() -> None:
                    "sharded": shard_n["fwd_c"],
                    "train_cached": cached["launches"]["cached"][4],
                    "import_rt_finetune": roundtrip["fine"]["fwd_c"],
-                   **runner["fwd_c_paths"], **tools["fwd_c_paths"]}
+                   **runner["fwd_c_paths"], **tools["fwd_c_paths"],
+                   **design["fwd_c_paths"]}
     bwd_c_paths = {**data["bwd_c_paths"], **cli_runs["bwd_c_paths"],
                    "sharded": shard_n["bwd_c"],
                    "train_cached": cached["launches"]["cached"][5],
                    "import_rt_finetune": roundtrip["fine"]["bwd_c"],
-                   **runner["bwd_c_paths"], **tools["bwd_c_paths"]}
+                   **runner["bwd_c_paths"], **tools["bwd_c_paths"],
+                   **design["bwd_c_paths"]}
     bwd_xf_paths = {"sharded": shard_n["bwd_xf"],
                     "train_exact_fast": cached["launches"]["exact-fast"][6],
                     **data["bwd_xf_paths"]}

@@ -19,5 +19,20 @@
   * `quality_check`: each tracer config's convergence on the synthetic
     scene (how a user picks a tile shape and budget);
   * `nan_forensics`: the first non-finite gradient in training, named by
-    loss term, parameter leaf and surfels.
+    loss term, parameter leaf and surfels;
+  * `street`: the bench's street scene (131,072 surfels, 64 x 2650), the
+    port's one copy, and what the design probes below share;
+  * the design probes on it, each a function returning its statistics
+    and a command printing the reference's lines (`--device cuda` unless
+    `--device cpu`): `survivor_stats` (per-ray gate-passers and live
+    pairs, per-row and per-tile demand), `overcount_probe` (the binner's
+    footprint overcount), `subtile_demand` (per-sub-tile demand),
+    `occlusion_stats` (the T_MIN latch cull), `selection_probe` (K=128
+    under three selection rules), `profile_binner` (binner stage times
+    and per-tile candidates), `sweep_perf` (tile shape x K on the
+    kernels) and `compact_probe` (a compacted design's gather, scatter
+    and list costs);
+  * `import_jax_ckpt`: checkpoints of the JAX package, exported by the
+    repository's `export_jax_ckpt.py`, into the port's format where `cli
+    train --resume` and `cli eval` find them.
 """

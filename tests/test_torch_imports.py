@@ -121,7 +121,9 @@ def test_cli_imports_no_jax_yaml_flax_optax():
 def test_scripts_import_no_jax():
     """The commands of `lidar_rt_tpu_torch.scripts` (the
     reference-checkpoint commands, the rehearsal runner, the two probes,
-    the densify and refine diagnostics and the two user tools) load no
+    the densify and refine diagnostics, the two user tools, the street
+    scene and its eight design probes, and the JAX checkpoints' import)
+    load no
     jax, yaml or module of `lidar_rt_tpu`, and each answers --help as a
     `python -m` entry point."""
     proc = _python(
@@ -136,6 +138,16 @@ def test_scripts_import_no_jax():
         "import lidar_rt_tpu_torch.scripts.refine_spread\n"
         "import lidar_rt_tpu_torch.scripts.quality_check\n"
         "import lidar_rt_tpu_torch.scripts.nan_forensics\n"
+        "import lidar_rt_tpu_torch.scripts.street\n"
+        "import lidar_rt_tpu_torch.scripts.survivor_stats\n"
+        "import lidar_rt_tpu_torch.scripts.overcount_probe\n"
+        "import lidar_rt_tpu_torch.scripts.subtile_demand\n"
+        "import lidar_rt_tpu_torch.scripts.occlusion_stats\n"
+        "import lidar_rt_tpu_torch.scripts.selection_probe\n"
+        "import lidar_rt_tpu_torch.scripts.profile_binner\n"
+        "import lidar_rt_tpu_torch.scripts.sweep_perf\n"
+        "import lidar_rt_tpu_torch.scripts.compact_probe\n"
+        "import lidar_rt_tpu_torch.scripts.import_jax_ckpt\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'yaml',\n"
         "                                    'lidar_rt_tpu'))\n"
@@ -156,7 +168,16 @@ def test_scripts_import_no_jax():
             ("densify_stats", "--repeats"),
             ("refine_spread", "--seeds"),
             ("quality_check", "--device"),
-            ("nan_forensics", "--device"))}
+            ("nan_forensics", "--device"),
+            ("survivor_stats", "--device"),
+            ("overcount_probe", "--device"),
+            ("subtile_demand", "--device"),
+            ("occlusion_stats", "--device"),
+            ("selection_probe", "--device"),
+            ("profile_binner", "--device"),
+            ("sweep_perf", "--fast"),
+            ("compact_probe", "--device"),
+            ("import_jax_ckpt", "--models_dir"))}
     for (module, option), help_ in helps.items():
         out, err = help_.communicate(timeout=300)
         assert help_.returncode == 0, (module, err)
@@ -175,6 +196,21 @@ def test_chip_smoke_scene_is_bench_scene():
         "print('same')\n", JAX_PLATFORMS="cpu")
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().endswith("same")
+
+
+def test_jax_checkpoint_export_imports_no_port():
+    """`export_jax_ckpt.py` reads the JAX package's checkpoints: it loads
+    that package and jax, and nothing of the port, nor torch."""
+    proc = _python(
+        "import sys\n"
+        "import export_jax_ckpt\n"
+        "assert 'lidar_rt_tpu.utils.checkpoint' in sys.modules\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('torch', 'lidar_rt_tpu_torch'))\n"
+        "assert not bad, bad\n"
+        "print('clean')\n", JAX_PLATFORMS="cpu")
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("clean")
 
 
 def test_chip_smoke_fails_without_card_or_repo(tmp_path):
