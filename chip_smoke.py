@@ -121,7 +121,11 @@ On one CUDA card it:
      (`cli eval -t all -e -i`) on both of phase 13's datasets and
      `collect`, at phase 14's reduced depth: the record's keys are
      E2E_r05.json's plus the card, every metric finite, each stage's
-     seconds, the children's launches;
+     seconds, the children's launches; then `train kitti --split 10`
+     once more, densifying every 5 steps: 10 + 10 steps, the second chunk
+     resumed from the first one's checkpoint, must leave one contiguous
+     log.json (history, densify events, held-out evals) and refine the
+     U-Net once;
  19. the two probe kernels (`lidar_rt_tpu_torch/scripts/
      kernel_microbench.py`, the forward body's ablation ladder, every
      level; `bf16_microbench.py`, a gate-shaped body in float32 and on
@@ -151,8 +155,12 @@ On one CUDA card it:
      `survivor_stats`, `overcount_probe`, `subtile_demand`,
      `occlusion_stats`, `selection_probe`, `profile_binner`, `sweep_perf`
      (both modes) and `compact_probe`, the tracer kernels' launches of
-     the last two counted per path.  The JAX checkpoints' export needs jax
-     and is tested on the CPU only.
+     the last two counted per path; `profile_binner`'s m1024 row (the hier
+     binner's macro-column level) beside plain hier's with its macro
+     truncation, and the macro level held to plain hier's lists at the
+     smallest macro_factor (or thinned soup) where no macro sector
+     truncates.  The JAX checkpoints' export needs jax and is tested on
+     the CPU only.
 
 Every failed check raises.  Without a CUDA device it exits non-zero before
 any phase.  The last two lines of standard output are the kernel table
@@ -1914,6 +1922,7 @@ tracer:
 
 RUNNER_TESTING = 5         # phase 18: four held-out evals in 20 steps, so
 # that the record's steady-state rate has stamps to span.
+RUNNER_SPLIT = 10          # phase 18's split run: 10 + 10 steps
 
 
 def runner_phase(tmp: str, card: str) -> dict:
@@ -2020,17 +2029,89 @@ refine:
               f"{mean['points']['chamfer_dist']:.4f}, F-score "
               f"{mean['points']['fscore']:.4f}; launches {LAUNCH_KEYS}: "
               f"train {tuple(t_n.values())}, eval {tuple(e_n.values())}")
+    split = split_run(tmp, exp_cfg, log_path, card)
+    secs["train kitti --split"] = split.pop("seconds")
     print(f"[runner] {card}: stage seconds (child processes, host clock): "
           + ", ".join(f"{k} {v:.2f}" for k, v in secs.items())
           + "; the record's keys are E2E_r05.json's and the card's")
+    launches["kitti360_split"] = (split["launches"], None)
     return {
         "fwd_paths": {f"runner_{stage}_{key}": n[i]["fwd"]
                       for key, n in launches.items()
-                      for i, stage in enumerate(("train", "eval"))},
+                      for i, stage in enumerate(("train", "eval"))
+                      if n[i] is not None},
         "fwd_c_paths": {f"runner_train_{key}": n[0]["fwd_c"]
                         for key, n in launches.items()},
         "bwd_c_paths": {f"runner_train_{key}": n[0]["bwd_c"]
                         for key, n in launches.items()}}
+
+
+def split_run(tmp: str, exp_cfg: str, log_path: str, card: str) -> dict:
+    """Phase 18's split run: `e2e_rehearsal train kitti --split
+    RUNNER_SPLIT` on phase 18's reduced config, densifying every 5 steps
+    from the start, under its own --out.  Checks that log.json is one
+    contiguous run (history 1-20, held-out evals every RUNNER_TESTING,
+    one densify event every 5 steps), that only the last chunk refined
+    and that each chunk ran the cached pair per pass and step.  Returns
+    the command's seconds and the train's launches."""
+    split_cfg = os.path.join(tmp, "runner_split_exp.yaml")
+    with open(split_cfg, "w") as f:
+        f.write(f"""# Phase 18's config, densifying every 5 steps.
+parent_config: "{exp_cfg}"
+opt:
+  densify_from_iter: 0
+  densification_interval: 5
+""")
+    out = os.path.join(tmp, "rehearsal_split")
+    with open(log_path, "a") as log:
+        proc, secs = _timed(lambda: subprocess.run(
+            [sys.executable, "-m",
+             "lidar_rt_tpu_torch.scripts.e2e_rehearsal", "train", "kitti",
+             "--data", tmp, "--out", out, "-ec", split_cfg, "--split",
+             str(RUNNER_SPLIT)], stdout=log, stderr=subprocess.STDOUT))
+    if proc.returncode != 0:
+        with open(log_path) as log:
+            print(log.read()[-6000:])
+        _check(False, f"e2e_rehearsal train kitti --split exited "
+               f"{proc.returncode}")
+    mdir = os.path.join(out, "exp", "scene_ke1")
+    with open(os.path.join(mdir, "logs", "log.json")) as f:
+        log = json.load(f)
+    with open(os.path.join(mdir, "logs", "chunks.json")) as f:
+        chunks = json.load(f)
+    its = [h["iteration"] for h in log["history"]]
+    evals = [e["iteration"] for e in log["eval_history"]]
+    dens = [e["iteration"] for e in log["densify"]]
+    every = list(range(RUNNER_TESTING, CLI_ITERATIONS + 1, RUNNER_TESTING))
+    print(f"[runner] {card}: split run, train kitti --split {RUNNER_SPLIT}:"
+          f" chunks {[(c['from'], c['to']) for c in chunks]}, seconds "
+          f"{[round(c['command_s'], 2) for c in chunks]} (host clock); "
+          f"history {its[0]}-{its[-1]} ({len(its)} entries), held-out "
+          f"evals at {evals} (PSNR "
+          f"{[round(e['eval_psnr'], 3) for e in log['eval_history']]}), "
+          f"densify events at {dens} (alive "
+          f"{[e['alive'] for e in log['densify']]}), refined in chunk "
+          f"{['refine_epochs' in c['seconds'] for c in chunks]}, "
+          f"U-Net loss {[round(x, 5) for x in log['refine_loss']]}")
+    _check(its == list(range(1, CLI_ITERATIONS + 1)) and evals == every
+           and sorted(set(dens)) == every
+           and all(np.isfinite(h["loss"]) for h in log["history"]),
+           f"split run: one contiguous log: history {its}, evals {evals}, "
+           f"densify {dens}")
+    _check([(c["from"], c["to"]) for c in chunks]
+           == [(0, RUNNER_SPLIT), (RUNNER_SPLIT, CLI_ITERATIONS)]
+           and ["refine_epochs" in c["seconds"] for c in chunks]
+           == [False, True] and len(log["refine_loss"]) == CLI_EPOCHS
+           and os.path.exists(os.path.join(mdir, "models", "unet.npz")),
+           f"split run: the U-Net refined once, by the last chunk: "
+           f"{chunks}")
+    n = [dict(zip(LAUNCH_KEYS, (c["launches"][k] for k in LAUNCH_COUNTERS)))
+         for c in chunks]
+    _check(all(c["fwd_c"] == c["bwd_c"] == 2 * RUNNER_SPLIT for c in n),
+           f"split run: the cached pair per pass and step in each chunk: "
+           f"{n}")
+    return {"seconds": secs,
+            "launches": {k: sum(c[k] for c in n) for k in LAUNCH_KEYS}}
 
 
 # Phase 20: the user tools at a cut depth.
@@ -2369,6 +2450,43 @@ def design_shapes(card: str, dev, seed: int) -> dict:
     return out
 
 
+def macro_level(card: str, dev, binner: dict) -> None:
+    """Phase 21's hier macro-column level: `profile_binner`'s m1024 row
+    (1,024-column sectors, K_a = 4 x 2,048) beside plain hier's at 8x128
+    K=256, with its macro truncation; then `profile_binner.exact_macro`:
+    at the smallest macro_factor (or the soup thinned) whose sectors
+    truncate nothing, its index, valid and truncated must equal plain
+    hier's."""
+    from lidar_rt_tpu_torch.scripts import profile_binner, street
+
+    plain = binner["hier  8x128 K256 cf8"]
+    macro = binner["hier  8x128 K256 cf8 m1024"]
+    m = macro["macro_trunc"]
+    _check(m is not None and macro["ms"] > 0,
+           "profile_binner's m1024 row runs the macro level")
+    print(f"[design] {card}: hier 8x128 K=256 with macro_cols 1024 "
+          f"(K_a = 8,192) {macro['ms']:.3f} ms against plain hier's "
+          f"{plain['ms']:.3f} ms (CUDA events, {profile_binner.ITERS} "
+          f"calls); macro truncation: {int((m > 0).sum())} of {m.size} "
+          f"sectors, {int(m.sum())} surfels past K_a; truncated tiles "
+          f"{int((macro['truncated'] > 0).sum())} (plain "
+          f"{int((plain['truncated'] > 0).sum())}), overflow "
+          f"{int(macro['truncated'].sum())} (plain "
+          f"{int(plain['truncated'].sum())})", flush=True)
+    grid, s2w = street.sensor(street.H, dev)
+    ex = profile_binner.exact_macro(
+        street.street_scene_bundle(street.N_SURFELS, 0, dev), grid,
+        street.W, s2w, dev)
+    print(f"[design] {card}: the macro level without macro truncation: "
+          f"macro_factor {ex['factor']} (K_a = {ex['factor'] * 2048:,}) on "
+          f"the street soup (thinned {ex['thinned']}x), "
+          f"{ex['surfels']:,} surfels: index, valid and truncated "
+          f"{'equal' if ex['equal'] else 'NOT equal'} to plain hier's; "
+          f"{ex['ms']:.3f} ms against {ex['plain_ms']:.3f} ms", flush=True)
+    _check(ex["equal"], "the macro level's lists are plain hier's where no "
+           "macro sector truncates")
+
+
 def design_phase(card: str, dev, seed: int) -> dict:
     """Phase 21: the kernels at sweep_perf's new shapes (`design_shapes`),
     then the eight design probes of `lidar_rt_tpu_torch/scripts/` in this
@@ -2423,6 +2541,7 @@ def design_phase(card: str, dev, seed: int) -> dict:
            and all(sum(n[p].values()) == 0 for p in DESIGN_PROBES
                    if p not in ("sweep_perf", "compact_probe")),
            f"the probes' kernel launches: {n}")
+    macro_level(card, dev, results["profile_binner"])
     print(f"[design] {card}: seconds (host clock): " + ", ".join(
         f"{k} {v:.2f}" for k, v in secs.items()) + f"; launches "
           f"{LAUNCH_KEYS}: " + ", ".join(

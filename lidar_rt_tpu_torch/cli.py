@@ -14,10 +14,11 @@ runs on `--device` (the card by default) in chunks of
 visual, best-checkpoint retention and `logs/log.json`; then the U-Net
 ray-drop refine and `models/unet.npz`.  Eval renders with the refined
 ray-drop and writes `metrics/results_all.json`, PNGs, an APNG and PLYs.
-The `tracer:` block's TPU options (approx_topk, macro_cols, ray_block)
-select nothing here: the port bins with exact top-k, one thread per ray,
-and the CLI says so.  Its `fast_math` and `cache_fwd` select the tracer
-kernels' training modes on the card (`train.options.trace_configs`).
+The `tracer:` block's TPU options (approx_topk, ray_block) select nothing
+here: the port bins with exact top-k, as the reference does off a TPU,
+one thread per ray, and the CLI says so.  Its `fast_math` and `cache_fwd`
+select the tracer kernels' training modes on the card
+(`train.options.trace_configs`).
 """
 
 from __future__ import annotations
@@ -89,7 +90,8 @@ def trace_configs(args, device: torch.device):
     mapped = {k: block[k] for k in options.TPU_ONLY if k in block}
     if mapped:
         console.log(f"tracer: {mapped} select TPU code paths; the port "
-                    "bins with exact top-k, one thread per ray")
+                    "bins with exact top-k (as jax does off a TPU), one "
+                    "thread per ray")
     cfg, warmup_cfg, warmup_until = options.trace_configs(args, device)
     budgets = [("budget", cfg)] if warmup_cfg is None else [
         ("warm-up budget", warmup_cfg), ("then", cfg)]
@@ -279,9 +281,11 @@ def main_train(argv=None):
                        "eval_history": eval_history,
                        "seconds": clock.seconds,
                        "launches": kernels.launches_since(launches),
-                       "peak_mib": profiling.peak_mib(device)},
+                       "peak_mib": profiling.peak_mib(device),
+                       "refine_loss": refine_loss},
                       fp, indent=1)
 
+    refine_loss: list[float] = []      # mean U-Net loss per epoch
     dump_log()
     if a.only_refine or bool(args.refine.use_refine):
         from lidar_rt_tpu_torch.train import refine as refine_lib
@@ -298,6 +302,7 @@ def main_train(argv=None):
             lr=float(args.refine.lr),
             use_rot=bool(args.refine.get("use_rot", False)))
         clock.add("refine_epochs", t0)
+        refine_loss.extend(hist)
         ckpt_lib.save(os.path.join(models_dir, "unet.npz"),
                       model.state_dict(),
                       {"in_ch": int(inputs.shape[1]),

@@ -13,8 +13,10 @@ emits up to dup_rows x 2 dup_cols (tile, surfel) pairs per surfel and
 groups them by one stable sort of (tile, quantized range) keys, so its
 lists order near-equal ranges by surfel index.  All three take a per-tile
 `min_range`, the re-binning half of tail re-tracing, and a column band
-`col_offset`/`num_cols`, the unit of ray sharding (`parallel/`).  The
-reference's `macro_cols` and `approx_topk` are not ported.
+`col_offset`/`num_cols`, the unit of ray sharding (`parallel/`).  The hier
+binner's optional macro-column level (`macro_cols`) pre-selects per wider
+sector.  The reference's `approx_topk` is not ported: off a TPU,
+`jax.lax.approx_max_k` falls back to an exact sort, as the port selects.
 """
 
 from __future__ import annotations
@@ -43,6 +45,11 @@ class TileConfig:
     only when footprint and tile share an integer sample, with int_eps
     slack, which must stay <= 0.5 to keep binners' lists supersets of the
     hit set.
+
+    macro_cols (hier only; 0 = off): a macro level first keeps the
+    nearest K_a = macro_factor * coarse K surfels per sector macro_cols
+    wide, so that the per-tile-column stage scores (tiles_x, K_a) in
+    place of (tiles_x, N); its overflow is counted in `truncated`.
     """
 
     tile_h: int = 32
@@ -53,6 +60,8 @@ class TileConfig:
     dup_rows: int = 2
     dup_cols: int = 8
     coarse_factor: int = 8
+    macro_cols: int = 0
+    macro_factor: int = 4
     pad_px: float = 0.0
     sample_snap: bool = True
     snap_pad_px: float | None = None
@@ -215,6 +224,31 @@ def footprint_bounds(grid: rays_lib.SensorGrid, width: int,
     return row_lo, row_hi, col_c, col_half, rng, live
 
 
+def macro_candidates(cfg: TileConfig, g: int, m_total: int, k_a: int,
+                      width: int, col_offset: int, col_c, col_half, rng,
+                      live, sector_min=None) -> tuple[Tensor, Tensor, Tensor]:
+    """The hier binner's macro level: per sector of g tile columns, the
+    nearest k_a overlapping surfels as (M, k_a) indices, their validity
+    and the (M,) overflow counts.  The overlap is the centre-distance test
+    with a g * tile_w / 2 + 0.5 margin, with or without int_overlap; under
+    min_range a sector keeps what its most permissive tile column may
+    list (sector_min (tiles_x,), padded with +inf to M g)."""
+    mx = torch.arange(m_total, dtype=torch.float32, device=rng.device)
+    macro_c = torch.remainder(col_offset + (mx * g + g / 2.0) * cfg.tile_w,
+                              float(width))
+    dcol = (col_c[None, :] - macro_c[:, None]).abs()
+    dcol = torch.minimum(dcol, width - dcol)               # azimuth wrap
+    over = (dcol <= (col_half[None, :] + g * cfg.tile_w / 2.0 + 0.5)) \
+        & live                                             # (M, N)
+    if sector_min is not None:
+        pad = m_total * g - sector_min.shape[0]
+        macro_min = torch.nn.functional.pad(
+            sector_min, (0, pad), value=torch.inf).view(m_total, g).amin(1)
+        over = over & (rng[None, :] > macro_min[:, None])
+    top, idx = _nearest(torch.where(over, rng, torch.inf), k_a)
+    return idx, torch.isfinite(top), (over.sum(-1) - k_a).clamp_min(0)
+
+
 def _pad_k(index: Tensor, valid: Tensor, k: int, n: int):
     """Pad (T, kk) selections to the configured K (tiny scenes)."""
     pad = k - index.shape[1]
@@ -303,14 +337,40 @@ def bin_surfels(grid: rays_lib.SensorGrid, width: int, world2sensor: Tensor,
     # may list: a candidate consumed by one row tile may still be rank
     # K+1 of a sibling.
     k_c = min(cfg.coarse_factor * k, n)
-    col_overlap = col_overlap_of(col_c[None], col_half[None]) & live
+    sector_min = None
     if min_range is not None:
         min_range = min_range.reshape(tiles_y, tiles_x)
-        col_overlap = col_overlap & (rng[None, :]
-                                     > min_range.amin(0)[:, None])
-    top_c, idx_c = _nearest(torch.where(col_overlap, rng, torch.inf), k_c)
+        sector_min = min_range.amin(0)                     # (tiles_x,)
+    macro_trunc = 0
+    if cfg.macro_cols > cfg.tile_w and cfg.macro_factor * k_c < n:
+        # The macro level: nearest K_a per sector of g tile columns, then
+        # each tile column selects over its parent's list.  A footprint
+        # that meets a tile column meets its parent (the margins
+        # telescope), so the level only adds its counted overflow.
+        g = max(cfg.macro_cols // cfg.tile_w, 1)
+        cand, cand_ok, macro_trunc = macro_candidates(
+            cfg, g, -(-tiles_x // g), min(cfg.macro_factor * k_c, n), width,
+            col_offset, col_c, col_half, rng, live, sector_min)
+        parent = torch.arange(tiles_x, device=dev) // g
+        cand, cand_ok = cand[parent], cand_ok[parent]      # (tiles_x, K_a)
+        macro_trunc = macro_trunc[parent]
+        rng_x = rng[cand]
+        col_overlap = col_overlap_of(col_c[cand], col_half[cand]) & cand_ok
+        if sector_min is not None:
+            col_overlap = col_overlap & (rng_x > sector_min[:, None])
+        k_c = min(k_c, cand.shape[1])
+        # Ties keep the lower place in the parent's list.
+        top_c, sel_c = _nearest(torch.where(col_overlap, rng_x, torch.inf),
+                                k_c)
+        idx_c = torch.gather(cand, 1, sel_c)
+    else:
+        col_overlap = col_overlap_of(col_c[None], col_half[None]) & live
+        if sector_min is not None:
+            col_overlap = col_overlap & (rng[None, :] > sector_min[:, None])
+        top_c, idx_c = _nearest(torch.where(col_overlap, rng, torch.inf),
+                                k_c)
     valid_c = torch.isfinite(top_c)                        # (tiles_x, K_c)
-    coarse_trunc = (col_overlap.sum(-1) - k_c).clamp_min(0)
+    coarse_trunc = (col_overlap.sum(-1) - k_c).clamp_min(0) + macro_trunc
 
     # Stage 2: row-tile refinement over the sector candidates.
     rng_c = rng[idx_c]

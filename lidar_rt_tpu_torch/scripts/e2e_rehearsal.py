@@ -3,6 +3,7 @@ of the reference's `scripts/e2e_rehearsal.py`).
 
     python -m lidar_rt_tpu_torch.scripts.e2e_rehearsal gen
     python -m lidar_rt_tpu_torch.scripts.e2e_rehearsal train {waymo|kitti}
+        [--split N[,M...]]
     python -m lidar_rt_tpu_torch.scripts.e2e_rehearsal eval {waymo|kitti}
     python -m lidar_rt_tpu_torch.scripts.e2e_rehearsal collect
         [--data /tmp/e2e_data] [--out output/rehearsal] [--device cuda]
@@ -15,12 +16,24 @@ vehicles) and a KITTI-360 sequence (40 frames, 66 x 1030, one car).
 `train` and `eval` run `python -m lidar_rt_tpu_torch.cli train` and
 `eval -t all -e -i` on `configs/rehearsal/<which>.yaml` and the
 experiment config as child processes and print each command's seconds.
+`-ec configs/rehearsal/full.yaml` runs the configs' uncompressed 30,000-step
+schedule.  `train --split N,M` runs it as chunks ending at N, M and the
+schedule's end, each a `cli train --iterations` resumed with `-m` from
+the previous chunk's checkpoint (for a run longer than one sitting): only
+the last chunk refines the U-Net, every chunk starts by re-binning (the
+bin cache is not checkpointed), `log.json` goes on from the checkpoint's
+iteration, and `logs/chunks.json` keeps each chunk's stage seconds,
+launches and peak memory.  Split points must be multiples of
+`testing_iterations` and of `rebin_interval`.
 `collect` writes `<out>/e2e_torch.json` in the schema of the reference's
 record `E2E_r05.json` (per dataset: mean metrics, the held-out PSNR
 history with the alive surfels, final loss, iterations, the U-Net's
 digest and steady-state iterations per second), plus the card's name and
 power limit, and prints each dataset's stage seconds, ms per step at
-each candidate budget and peak memory from `logs/log.json`.
+each candidate budget and peak memory from `logs/log.json`; beside it,
+`<out>/e2e_torch_logs.json` keeps what that schema leaves out (per
+dataset `train_log`: those figures and the U-Net's loss per epoch;
+`densify_events`: every densify event with its dropped count).
 
 With the defaults the configs run as they are (their `source_dir` is
 /tmp/e2e_data/<dataset>, their `model_dir`/`task_name` output/rehearsal);
@@ -200,15 +213,87 @@ source_dir: "{os.path.join(os.path.abspath(a.data), DATASETS[which][1])}"
 
 
 def run_cli(a, kind: str, which: str) -> float:
-    """`cli train` or `cli eval -t all -e -i` on `which` as a child
-    process; its seconds."""
+    """`cli train` (split at `a.split`, if any) or `cli eval -t all -e -i`
+    on `which` as child processes; their seconds."""
     dc, ec = configs(a, which)
+    if kind == "train" and a.split:
+        secs = train_chunks(dc, ec, a.split, os.path.abspath(a.out),
+                            a.device)
+        print(f"train {which} in {len(a.split) + 1} chunks: {secs:.2f} s",
+              flush=True)
+        return secs
     cmd = [sys.executable, "-m", "lidar_rt_tpu_torch.cli", kind, "-dc", dc,
            "-ec", ec, "--device", a.device]
     if kind == "eval":
         cmd += ["-t", "all", "-e", "-i"]
     secs = run(cmd)
     print(f"{kind} {which}: {secs:.2f} s", flush=True)
+    return secs
+
+
+def chunk_configs(dc: str, ec: str, splits: list[int], out: str
+                  ) -> list[tuple[str, int]]:
+    """(experiment config, last iteration) of each chunk of a run of `ec`
+    split at `splits`: the chunks before the last run `ec` with the U-Net
+    refine off (child configs under `out`), the last runs `ec` itself."""
+    args = config_lib.parse(dc, config_lib.parse(ec))
+    total = int(args.opt.iterations)
+    steps = (int(args.get("testing_iterations", 1000)),
+             max(int(args.opt.get("rebin_interval", 1) or 1), 1))
+    if list(splits) != sorted(set(splits)) or not all(
+            0 < n < total and n % steps[0] == 0 and n % steps[1] == 0
+            for n in splits):
+        raise ValueError(f"split points {splits} must rise inside (0, "
+                         f"{total}) at multiples of testing_iterations "
+                         f"{steps[0]} and rebin_interval {steps[1]}")
+    os.makedirs(out, exist_ok=True)
+    chunks = []
+    for i, end in enumerate(splits):
+        path = os.path.join(out, f"chunk{i}_{os.path.basename(ec)}")
+        with open(path, "w") as f:
+            f.write(f"""# Chunk {i} of a split run: to {end}, no refine.
+parent_config: "{os.path.abspath(ec)}"
+refine:
+  use_refine: false
+""")
+        chunks.append((path, end))
+    return chunks + [(ec, total)]
+
+
+def chunk_checkpoint(models_dir: str, iteration: int) -> str:
+    """The checkpoint a chunk saved at its last iteration."""
+    for suffix in ("_good", ""):
+        path = os.path.join(models_dir, f"ckpt_it_{iteration}{suffix}.npz")
+        if os.path.exists(path):
+            return path
+    raise FileNotFoundError(f"no checkpoint of iteration {iteration} "
+                            f"under {models_dir}")
+
+
+def train_chunks(dc: str, ec: str, splits: list[int], out: str,
+                 device: str) -> float:
+    """`cli train` of `ec` split at `splits` (`chunk_configs`), each chunk
+    resumed with `-m` from the last one's checkpoint; writes
+    `logs/chunks.json` and returns the seconds of all chunks."""
+    mdir = cli._model_dir(config_lib.parse(dc, config_lib.parse(ec)))
+    secs, start, chunks = 0.0, None, []
+    for chunk_ec, end in chunk_configs(dc, ec, splits, out):
+        cmd = [sys.executable, "-m", "lidar_rt_tpu_torch.cli", "train",
+               "-dc", dc, "-ec", chunk_ec, "--device", device,
+               "--iterations", str(end)]
+        if start is not None:
+            cmd += ["-m", chunk_checkpoint(os.path.join(mdir, "models"),
+                                           start)]
+        t = run(cmd)
+        secs += t
+        with open(os.path.join(mdir, "logs", "log.json")) as f:
+            log = json.load(f)
+        chunks.append({"from": start or 0, "to": end, "command_s": t,
+                       **{k: log[k] for k in ("seconds", "launches",
+                                              "peak_mib")}})
+        start = end
+    with open(os.path.join(mdir, "logs", "chunks.json"), "w") as f:
+        json.dump(chunks, f, indent=1)
     return secs
 
 
@@ -241,20 +326,36 @@ def schedule(args) -> str:
             f"{int(args.refine.epochs)} epochs")
 
 
+def _segments(history: list[dict]) -> list[list[dict]]:
+    """The stamped history entries (every log_every iterations; `elapsed`
+    is the trainer's own wall time, which restarts in each chunk of a
+    split run) in runs of one process, each from its second stamp."""
+    segs: list[list[dict]] = []
+    for h in (h for h in history if "elapsed" in h):
+        if not segs or h["elapsed"] < segs[-1][-1]["elapsed"]:
+            segs.append([])
+        segs[-1].append(h)
+    return [s[1:] for s in segs]
+
+
+def _rate(parts: list[list[dict]]) -> tuple[int, float]:
+    """(iterations, seconds) spanned by runs of stamped entries."""
+    its = sum(p[-1]["iteration"] - p[0]["iteration"] for p in parts if p)
+    return its, sum(p[-1]["elapsed"] - p[0]["elapsed"] for p in parts if p)
+
+
 def step_ms(history: list[dict], until: int) -> dict[str, float]:
-    """Mean ms per step between the stamped history entries (every
-    log_every iterations; `elapsed` is the trainer's own wall time) on
-    either side of the budget switch at `until`, from the second stamp."""
-    stamped = [h for h in history if "elapsed" in h][1:]
+    """Mean ms per step between the stamped history entries on either
+    side of the budget switch at `until`, from each process's second
+    stamp."""
     out = {}
-    for label, part in (("warm-up", [h for h in stamped
-                                     if h["iteration"] <= until]),
-                        ("after", [h for h in stamped
-                                   if h["iteration"] >= until])):
-        if len(part) > 1 and part[-1]["iteration"] > part[0]["iteration"]:
-            out[label] = 1e3 * ((part[-1]["elapsed"] - part[0]["elapsed"])
-                                / (part[-1]["iteration"]
-                                   - part[0]["iteration"]))
+    segs = _segments(history)
+    for label, keep in (("warm-up", lambda i: i <= until),
+                        ("after", lambda i: i >= until)):
+        its, secs = _rate([[h for h in s if keep(h["iteration"])]
+                           for s in segs])
+        if its > 0:
+            out[label] = 1e3 * secs / its
     return out
 
 
@@ -279,13 +380,9 @@ def entry(mdir: str) -> dict:
             log = json.load(f)
         hist = log["history"]
         out["eval_history"] = log.get("eval_history", [])
-        stamped = [h for h in hist if "elapsed" in h]
-        if len(stamped) > 2:
-            a, b = stamped[1], stamped[-1]
-            span = b["elapsed"] - a["elapsed"]
-            if span > 0:
-                out["steady_state_it_per_s"] = round(
-                    (b["iteration"] - a["iteration"]) / span, 2)
+        its, span = _rate(_segments(hist))
+        if its > 0 and span > 0:
+            out["steady_state_it_per_s"] = round(its / span, 2)
         out["final_loss"] = hist[-1]["loss"]
         out["iterations_recorded"] = len(hist)
     return out
@@ -297,6 +394,7 @@ def collect(a) -> dict:
     # and configs the run keeps.
     rec = {"round": 5, "shapes": SHAPES, "schedule": None, "results": {},
            "card": card()}
+    logs = {}
     for which, (_, _, key) in DATASETS.items():
         dc, ec = configs(a, which)
         args = config_lib.parse(dc, config_lib.parse(ec))
@@ -309,15 +407,34 @@ def collect(a) -> dict:
                 log = json.load(f)
             until = int(args.tracer.get("warmup_until", 0))
             ms = step_ms(log["history"], until)
-            print(f"{key}: stages (s) {log['seconds']}; ms per step "
-                  + ", ".join(f"{k} {v:.1f}" for k, v in ms.items())
-                  + f" (budget switch at {until}); peak {log['peak_mib']} "
-                  f"MiB; launches {log['launches']}",
-                  flush=True)
+            # A split run: each chunk's stages, launches and peak.
+            chunks = None
+            if os.path.exists(os.path.join(mdir, "logs", "chunks.json")):
+                with open(os.path.join(mdir, "logs", "chunks.json")) as f:
+                    chunks = json.load(f)
+            for c in chunks or [log]:
+                part = (f" iterations {c['from']}-{c['to']}" if "to" in c
+                        else "")
+                print(f"{key}{part}: stages (s) {c['seconds']}; peak "
+                      f"{c['peak_mib']} MiB; launches {c['launches']}",
+                      flush=True)
+            print(f"{key}: ms per step " + ", ".join(
+                f"{k} {v:.1f}" for k, v in ms.items())
+                  + f" (budget switch at {until})", flush=True)
+            logs[key] = {
+                "train_log": {
+                    **{k: log[k] for k in ("seconds", "launches",
+                                           "peak_mib")},
+                    "chunks": chunks,
+                    "ms_per_step": ms, "budget_switch": until,
+                    "refine_loss": log.get("refine_loss")},
+                "densify_events": log["densify"]}
     os.makedirs(a.out, exist_ok=True)
     path = os.path.join(a.out, "e2e_torch.json")
     with open(path, "w") as f:
         json.dump(rec, f, indent=1)
+    with open(os.path.join(a.out, "e2e_torch_logs.json"), "w") as f:
+        json.dump(logs, f, indent=1)
     print(json.dumps(rec, indent=1))
     return rec
 
@@ -334,6 +451,9 @@ def main(argv=None):
                         "directory")
     p.add_argument("-ec", "--exp_config", default=EXP)
     p.add_argument("--device", default="cuda")
+    p.add_argument("--split", type=lambda v: [int(x) for x in v.split(",")],
+                   default=None, help="train: chunk ends before the "
+                   "schedule's end, comma-separated")
     a = p.parse_args(argv)
     if a.command in ("train", "eval") and a.dataset is None:
         p.error(f"{a.command} needs a dataset: waymo or kitti")

@@ -123,9 +123,10 @@ def rehearsal_options(dataset: str) -> SimpleNamespace:
     return ns
 
 
-# Keys of a `tracer` block that select TPU code paths: the port always
-# bins with exact top-k, over whole rows of tiles, one thread per ray.
-TPU_ONLY = ("approx_topk", "macro_cols", "ray_block")
+# Keys of a `tracer` block that select TPU code paths: the port bins with
+# exact top-k (as the reference does off a TPU: `jax.lax.approx_max_k`
+# falls back to an exact sort there) and runs one thread per ray.
+TPU_ONLY = ("approx_topk", "ray_block")
 # The reference's TraceConfig defaults of its two training modes, which a
 # `tracer` block without the key takes (lidar_rt_tpu/ops/tracer.py:85,93).
 REFERENCE_FAST_MATH = True
@@ -162,7 +163,8 @@ def trace_configs(args, device: str | torch.device = "cuda"
         tile_w=int(t.get("tile_w", ft.tile_w)),
         max_per_tile=int(t.get("max_per_tile", ft.max_per_tile)),
         binner=str(t.get("binner", ft.binner)),
-        coarse_factor=int(t.get("coarse_factor", ft.coarse_factor)))
+        coarse_factor=int(t.get("coarse_factor", ft.coarse_factor)),
+        macro_cols=int(t.get("macro_cols", ft.macro_cols)))
     cfg = tracer_lib.TraceConfig(
         tile=tile, exact_order=bool(t.get("exact_order", fd.exact_order)),
         tile_batch=int(t.get("tile_batch", fd.tile_batch)),

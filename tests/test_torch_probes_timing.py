@@ -85,12 +85,16 @@ def test_profile_binner_counts_are_the_references(scene):
     want = {ln[:28].strip(): ln for ln in out.splitlines()[1:]}
     assert list(got) == list(want)
     for label, ln in got.items():
-        if "m1024" in label:
-            assert r[label] is None and "not ported" in ln
-            continue
         # cand/tile mean, p95, max; truncated tiles and their overflow.
-        assert numbers(ln.split(" ms ")[1]) == \
-            numbers(want[label].split(" ms ")[1]), label
+        want_n = numbers(want[label].split(" ms ")[1])
+        if "m1024" in label:
+            # K_a = 4 x 2048 = N here: the macro level is off, as in the
+            # reference, and the line says so after the reference's
+            # numbers.
+            assert r[label]["macro_trunc"] is None
+            assert ln.endswith("macro level off (K_a >= N)")
+            ln = ln[:ln.index("   macro")]
+        assert numbers(ln.split(" ms ")[1]) == want_n, label
     assert r["footprint_ms"] > 0.0
 
 
@@ -173,6 +177,6 @@ def test_probe_commands_run_on_the_cpu(capsys, monkeypatch):
     sweep_perf.main(argv + ["--fast"])
     lines = capsys.readouterr().out.splitlines()
     assert lines[0].startswith("CPU; street scene 2048 surfels, 8 x 256")
-    assert sum("not ported" in ln for ln in lines) == 1
+    assert sum("macro level off" in ln for ln in lines) == 1
     assert sum(" fast: fwd " in ln for ln in lines) == 3
     assert (ROOT / "bench.py").exists()

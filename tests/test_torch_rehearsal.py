@@ -177,6 +177,12 @@ refine:
     rec = runner.main(["collect", *common])
     with open(out / "e2e_torch.json") as f:
         assert json.load(f) == json.loads(json.dumps(rec))
+    with open(out / "e2e_torch_logs.json") as f:
+        logs = json.load(f)
+    assert list(logs) == ["waymo"]
+    assert len(logs["waymo"]["train_log"]["refine_loss"]) == 1
+    assert logs["waymo"]["train_log"]["chunks"] is None
+    assert isinstance(logs["waymo"]["densify_events"], list)
     with open(ROOT / "E2E_r05.json") as f:
         ref = json.load(f)
     assert set(rec) == set(ref) | {"card"}

@@ -112,7 +112,7 @@ def test_trace_configs_by_device():
     assert not resolve({"fast_math": False}, "cuda").fast_math
     exact = resolve({"exact_order": True}, "cuda")
     assert exact.fast_math and not exact.use_cache
-    assert options.TPU_ONLY == ("approx_topk", "macro_cols", "ray_block")
+    assert options.TPU_ONLY == ("approx_topk", "ray_block")
 
 
 # -- losses, SSIM, Chamfer -----------------------------------------------
