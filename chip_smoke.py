@@ -143,7 +143,13 @@ On one CUDA card it:
      K=256, 16x32 K=128 with a tail pass) at 32 x 512 for 50 iterations,
      `...nan_forensics` for 20 steps (every gradient finite) and
      `...refine_spread` on phase 14's checkpoint (2 seeds of 2 epochs,
-     the test frames): each one's results, engine and launches;
+     the test frames): each one's results, engine and launches; and
+     `...truncation_trace` on the KITTI-360 sequence for two chunks of 10
+     steps (each pass's truncation), then three trainers in this
+     process, one read by `chain_truncation` after each chunk: each read
+     leaves the state and generators bit-identical, and the read
+     trainer's history equals an unread one's bit for bit where the card
+     trains bit-reproducibly;
  21. (run after 19) the tile-order kernels, uncached and cached, against
      their twins at the two shapes `scripts/sweep_perf.py` adds (4x128 and
      8x64 at K=128, on the street scene: errors by shape in the kernel
@@ -173,6 +179,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import dataclasses
 import hashlib
 import json
@@ -2235,15 +2242,161 @@ def tool_shapes(card: str, dev, gen) -> dict:
     return out
 
 
+# Phase 20's truncation reading: two chunks of TRACE_CHUNK steps on phase
+# 13's KITTI-360 sequence, the warm-up budget (K=512) in the first.
+TRACE_CHUNK = 10
+
+
+def _trainer_digest(trainer) -> str:
+    """Digest of what a trainer's next steps read: the scene's leaves and
+    alive masks, the Adam state, the densify statistics, the bin cache
+    and its ages, the densify generator, the host and torch generators,
+    the frame stack and the iteration."""
+    import random
+
+    st = trainer.state
+    parts = []
+    for asset, opt, stats in (
+            (st.scene.background, st.opt_bg, st.stats_bg),
+            (st.scene.actors, st.opt_actors, st.stats_actors)):
+        if asset is None:
+            continue
+        parts += [*asset.params().values(), asset.alive, *stats]
+        for s in opt.adam.state.values():
+            parts += [v for v in s.values() if torch.is_tensor(v)]
+    parts += [st.bins.index, st.bins.valid, st.generator.get_state(),
+              torch.get_rng_state(), torch.cuda.get_rng_state()]
+    host = np.random.get_state()
+    return _digest(parts) + hashlib.sha256(repr((
+        st.bins.age, st.bins.rebins, [o.steps for o in (st.opt_bg,
+                                                        st.opt_actors)
+                                      if o is not None],
+        trainer._frame_stack, trainer.iteration, random.getstate(),
+        host[0], host[1].tobytes(), host[2:])).encode()).hexdigest()
+
+
+def _history_bits(history) -> list:
+    """A trainer's history with every float as its bits (without the
+    wall-clock `elapsed`)."""
+    return [{k: (v.hex() if isinstance(v, float) else v)
+             for k, v in h.items() if k != "elapsed"} for h in history]
+
+
+def trace_check(tmp: str, card: str, dev) -> dict:
+    """Phase 20's truncation reading on phase 13's KITTI-360 sequence, the
+    rehearsal's experiment cut to two chunks of TRACE_CHUNK steps (K=512
+    in the first, K=256 with its tail pass in the second): `python -m
+    lidar_rt_tpu_torch.scripts.truncation_trace`'s `main` in this process
+    (the kernels are built), each chunk's per-pass truncation checked for
+    shape and order; then three trainers from one assembled scene, one
+    read by `chain_truncation` after each chunk and two not.  Every read
+    must leave the trainer's whole state and every generator bit-identical
+    (`_trainer_digest`), and the read trainer's history and final state
+    must equal an unread one's bit for bit wherever the card trains
+    bit-reproducibly (the two unread trainers agree); the loss gaps of
+    both pairs are printed.  Returns the command's launches and seconds."""
+    import random
+
+    from lidar_rt_tpu_torch.scripts import truncation_trace as tt
+    from lidar_rt_tpu_torch.train import loop
+
+    exp_cfg = os.path.join(tmp, "trace_exp.yaml")
+    with open(exp_cfg, "w") as f:
+        f.write(f"""# The rehearsal's experiment cut to two chunks.
+parent_config: "{os.path.abspath('configs/rehearsal/exp.yaml')}"
+source_dir: "{os.path.join(tmp, 'kitti360')}"
+testing_iterations: {TRACE_CHUNK}
+tracer:
+  warmup_until: {TRACE_CHUNK}
+""")
+    dc = os.path.abspath("configs/rehearsal/kitti.yaml")
+    total = 2 * TRACE_CHUNK
+    host_rngs = random.getstate(), np.random.get_state()
+    with open(os.path.join(tmp, "tools.log"), "a") as log, \
+            contextlib.redirect_stdout(log):
+        rec, cmd_s = _timed(lambda: tt.main(
+            ["-dc", dc, "-ec", exp_cfg, "--iterations", str(total)]))
+    rows = rec["chunks"]
+    _check([r["iteration"] for r in rows] == [TRACE_CHUNK, total]
+           and [r["chain"][0]["K"] for r in rows] == [512, 256]
+           and rec["card"] == card, f"truncation_trace chunks {rows}")
+    for r in rows:
+        ch = r["chain"]
+        _check(len(ch) == 2 and np.isfinite([r["eval_psnr"], r["loss"]]).all()
+               and all(0 <= p["tiles"] <= p["tiles_binned"]
+                       and 0 <= p["max"] <= p["truncated"] for p in ch)
+               and ch[1]["truncated"] <= ch[0]["truncated"]
+               and ch[1]["tiles"] <= ch[0]["tiles"],
+               f"truncation_trace chunk {r}")
+        print(f"[tools] {card}: truncation_trace KITTI-360 at iteration "
+              f"{r['iteration']} (K={ch[0]['K']}): held-out PSNR "
+              f"{r['eval_psnr']:.3f}, loss {r['loss']:.4f}, alive "
+              f"{r['alive']}, per pass (truncated, tiles of "
+              f"{ch[0]['tiles_binned']}, max) " + ", ".join(
+                  f"{p['truncated']}/{p['tiles']}/{p['max']}" for p in ch)
+              + f"; read {r['read_s']:.3f} s")
+    n = {k: rec["launches"][c] for k, c in zip(LAUNCH_KEYS, LAUNCH_COUNTERS)}
+    _check(n["fwd_c"] == n["bwd_c"] == 2 * total and n["fwd"] > 0,
+           f"truncation_trace trains cached (2 passes a step) and renders "
+           f"uncached: {n}")
+
+    t0 = time.perf_counter()
+    first, args = tt.build_trainer(dc, exp_cfg, dev)
+    trainers = [first] + [
+        loop.Trainer(first.state.scene, first.frames, args,
+                     first.trace_cfg, warmup_cfg=first.step_cfg,
+                     warmup_until=first.warmup_until) for _ in range(2)]
+    runs, reads = [], 0
+    for i, trainer in enumerate(trainers):
+        # Each trainer seeds the host generators when it is made; the
+        # steps draw from them, so each run starts from those seeds.
+        random.seed(int(args.get("seed", 1)))
+        np.random.seed(int(args.get("seed", 1)))
+        while trainer.iteration < total:
+            trainer.run(iterations=TRACE_CHUNK, log_every=100)
+            if i == 0:
+                before = _trainer_digest(trainer)
+                tt.chain_truncation(trainer, trainer.frames.train_frames)
+                torch.cuda.synchronize()
+                _check(_trainer_digest(trainer) == before,
+                       f"chain_truncation changed the trainer's state at "
+                       f"iteration {trainer.iteration}")
+                reads += 1
+        runs.append((_history_bits(trainer.history),
+                     [h["loss"] for h in trainer.history],
+                     _state_digest(trainer)))
+    del first, trainers
+    random.setstate(host_rngs[0])
+    np.random.set_state(host_rngs[1])
+    same = runs[0][0] == runs[1][0] and runs[0][2] == runs[1][2]
+    reproducible = runs[1][0] == runs[2][0] and runs[1][2] == runs[2][2]
+    gap = max(abs(a - b) for a, b in zip(runs[0][1], runs[1][1]))
+    floor = max(abs(a - b) for a, b in zip(runs[2][1], runs[1][1]))
+    print(f"[tools] {card}: chain_truncation read {reads} times, the "
+          f"state and generators bit-identical after each; read vs unread "
+          f"trainer over {total} steps: history and final state "
+          f"{'bit-identical' if same else 'DIFFER'} (largest loss gap "
+          f"{gap:.3e}); two unread trainers "
+          f"{'bit-identical' if reproducible else 'DIFFER'} (largest loss "
+          f"gap {floor:.3e}); truncation_trace {cmd_s:.2f} s, the three "
+          f"trainers {time.perf_counter() - t0:.2f} s")
+    # The kernels' float atomics sum in no fixed order, so a card need not
+    # train bit-reproducibly; where it does, the read must change nothing.
+    _check(same or not reproducible,
+           "the read trainer's history and state equal an unread one's")
+    return {"launches": n, "seconds": cmd_s}
+
+
 def tools_phase(tmp: str, card: str, dev, gen) -> dict:
     """Phase 20: the tile-order kernels at the tools' shapes
     (`tool_shapes`), then `python -m
     lidar_rt_tpu_torch.scripts.quality_check` on two configs,
     `...nan_forensics` and `...refine_spread` on phase 14's checkpoint (2
     seeds of 2 epochs, the test frames), each a child process on this
-    card; checks each one's results and launches, prints its lines and
-    seconds.  Returns the tracer kernels' launches per tool and the
-    errors at the tools' shapes."""
+    card, then `trace_check` (`...truncation_trace`); checks each one's
+    results and launches, prints its lines and seconds.  Returns the
+    tracer kernels' launches per tool and the errors at the tools'
+    shapes."""
     shape_errs = tool_shapes(card, dev, gen)
     runs = {
         "quality_check": list(TOOLS_QUALITY),
@@ -2314,17 +2467,23 @@ def tools_phase(tmp: str, card: str, dev, gen) -> dict:
            and n["refine_spread"]["fwd"] > 0
            and n["refine_spread"]["fwd_c"] == 0,
            f"the tools train cached and render uncached: {n}")
+    trace = trace_check(tmp, card, dev)
+    secs["truncation_trace"] = trace["seconds"]
+    n["truncation_trace"] = trace["launches"]
     print(f"[tools] {card}: seconds (child processes, host clock): "
           + ", ".join(f"{k} {v:.2f}" for k, v in secs.items())
           + f"; launches {LAUNCH_KEYS}: " + ", ".join(
               f"{t} {tuple(c.values())}" for t, c in n.items()))
     return {
-        "fwd_paths": {t: n[t]["fwd"]
-                      for t in ("quality_check", "refine_spread")},
-        "fwd_c_paths": {t: n[t]["fwd_c"]
-                        for t in ("quality_check", "nan_forensics")},
-        "bwd_c_paths": {t: n[t]["bwd_c"]
-                        for t in ("quality_check", "nan_forensics")},
+        "fwd_paths": {t: n[t]["fwd"] for t in ("quality_check",
+                                               "refine_spread",
+                                               "truncation_trace")},
+        "fwd_c_paths": {t: n[t]["fwd_c"] for t in ("quality_check",
+                                                   "nan_forensics",
+                                                   "truncation_trace")},
+        "bwd_c_paths": {t: n[t]["bwd_c"] for t in ("quality_check",
+                                                   "nan_forensics",
+                                                   "truncation_trace")},
         "errs": shape_errs}
 
 

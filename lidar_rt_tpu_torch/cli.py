@@ -102,6 +102,24 @@ def trace_configs(args, device: torch.device):
     return cfg, warmup_cfg, warmup_until
 
 
+def held_out_psnr(trainer) -> tuple[float, list[float], dict]:
+    """The held-out intensity PSNR of a trainer's scene: its mean over the
+    eval frames (frame 0 without any), each frame's, and the first
+    frame's render."""
+    from lidar_rt_tpu_torch.train import losses
+
+    frames = trainer.frames
+    psnrs, first = [], None
+    for f in frames.eval_frames or [0]:
+        out = trainer.render_eval(f)
+        if first is None:
+            first = out
+        psnrs.append(float(losses.psnr(out["intensity"].clamp(0, 1),
+                                       frames.intensity(f),
+                                       frames.mask(f))))
+    return float(np.mean(psnrs)), psnrs, first
+
+
 class _Stopwatch:
     """Seconds per named stage on the host clock, each ending once the
     device's queued work is done."""
@@ -149,7 +167,6 @@ def main_train(argv=None):
     """Train, and return the Trainer."""
     from lidar_rt_tpu_torch.ops import kernels
     from lidar_rt_tpu_torch.train import loop as loop_lib
-    from lidar_rt_tpu_torch.train import losses
     from lidar_rt_tpu_torch.utils import profiling
     from lidar_rt_tpu_torch.utils.export import colormap, write_png
 
@@ -236,15 +253,7 @@ def main_train(argv=None):
         # Periodic eval, visuals and best-checkpoint retention
         # (train.py:271-302, 328-380).
         t0 = time.perf_counter()
-        psnrs, vis = [], None
-        for f in eval_frames:
-            out = trainer.render_eval(f)
-            if vis is None:
-                vis = out
-            psnrs.append(float(losses.psnr(out["intensity"].clamp(0, 1),
-                                           frames.intensity(f),
-                                           frames.mask(f))))
-        mean_psnr = float(np.mean(psnrs))
+        mean_psnr, psnrs, vis = held_out_psnr(trainer)
         is_best = mean_psnr > best_psnr
         best_psnr = max(best_psnr, mean_psnr)
         it = trainer.iteration

@@ -72,3 +72,24 @@ def carried(j_scene):
     copy."""
     j_scene = jittered(j_scene)
     return j_scene, port_scene(j_scene)
+
+
+def binner_range_cutoff(assignment, means, world2sensor):
+    """The reference's `ops/tracer.py` `_tile_range_cutoff` with the range
+    its binner compares `min_range` against (`ops/binning.py:207-212`, the
+    port's cutoff): the reference's own takes the range in another
+    rounding, which can fall one ulp under the binner's and list a tile's
+    K-th candidate again in the tail pass (ROADMAP, reference quirks)."""
+    import jax.numpy as jnp
+
+    n = means.shape[0]
+    mx, my, mz = means[:, 0], means[:, 1], means[:, 2]
+    r = world2sensor
+    px = r[0, 0] * mx + r[0, 1] * my + r[0, 2] * mz + r[0, 3]
+    py = r[1, 0] * mx + r[1, 1] * my + r[1, 2] * mz + r[1, 3]
+    pz = r[2, 0] * mx + r[2, 1] * my + r[2, 2] * mz + r[2, 3]
+    rng = jnp.sqrt(px * px + py * py + pz * pz)
+    rng_sel = jnp.where(assignment.valid,
+                        rng[jnp.clip(assignment.index, 0, n - 1)], -jnp.inf)
+    return jnp.where(assignment.truncated > 0, jnp.max(rng_sel, axis=-1),
+                     jnp.inf)

@@ -42,7 +42,7 @@ def _same(a, b) -> bool:
 
 
 def test_every_config_file_is_found():
-    assert len(CONFIGS) == 32
+    assert len(CONFIGS) == 34
 
 
 @pytest.mark.parametrize("path", CONFIGS)

@@ -26,7 +26,11 @@ quantiles within QUANTILE_RTOL, and the count at or above
 `densify_grad_threshold`, split by the clone/split size boundary, within
 COUNT_RTOL (how far the card's own training paths part from one state).
 `run_pair` returns every number, which the test prints, with how many
-of the reference's top 0.1% of surfels the port puts higher.
+of the reference's top 0.1% of surfels the port puts higher.  The
+comparison stays in float32: under `jax.enable_x64` the reference still
+rounds parts of this path to float32 (its Chamfer cross term, its xyz
+learning rate, its frames and rays; `test_torch_x64_islands.py`), so
+float64 cannot decide it without editing the reference.
 
     python -m pytest tests/test_torch_densify_full.py -m slow -s
 """
@@ -52,7 +56,7 @@ from lidar_rt_tpu_torch.data import waymo as t_waymo
 from lidar_rt_tpu_torch.scripts import e2e_rehearsal
 from lidar_rt_tpu_torch.train import loop as t_loop
 from lidar_rt_tpu_torch.train import options
-from _torch_parity import carried
+from _torch_parity import binner_range_cutoff, carried
 
 pytestmark = pytest.mark.slow
 
@@ -74,27 +78,6 @@ def _reference_args(source_dir: str) -> Args:
               parse("configs/rehearsal/exp.yaml")).to_dict()
     d["source_dir"] = source_dir
     return Args(d)
-
-
-def binner_range_cutoff(assignment, means, world2sensor):
-    """The reference's `ops/tracer.py` `_tile_range_cutoff` with the range
-    its binner compares `min_range` against (`ops/binning.py:207-212`, the
-    port's cutoff): the reference's own takes the range in another
-    rounding, which can fall one ulp under the binner's and list a tile's
-    K-th candidate again in the tail pass (ROADMAP, reference quirks)."""
-    import jax.numpy as jnp
-
-    n = means.shape[0]
-    mx, my, mz = means[:, 0], means[:, 1], means[:, 2]
-    r = world2sensor
-    px = r[0, 0] * mx + r[0, 1] * my + r[0, 2] * mz + r[0, 3]
-    py = r[1, 0] * mx + r[1, 1] * my + r[1, 2] * mz + r[1, 3]
-    pz = r[2, 0] * mx + r[2, 1] * my + r[2, 2] * mz + r[2, 3]
-    rng = jnp.sqrt(px * px + py * py + pz * pz)
-    rng_sel = jnp.where(assignment.valid,
-                        rng[jnp.clip(assignment.index, 0, n - 1)], -jnp.inf)
-    return jnp.where(assignment.truncated > 0, jnp.max(rng_sel, axis=-1),
-                     jnp.inf)
 
 
 def statistic(grad_accum, denom, alive, max_scale, opt, extent) -> dict:
