@@ -2117,8 +2117,84 @@ opt:
     _check(all(c["fwd_c"] == c["bwd_c"] == 2 * RUNNER_SPLIT for c in n),
            f"split run: the cached pair per pass and step in each chunk: "
            f"{n}")
+    fork_run(tmp, out, mdir, log_path, card)
     return {"seconds": secs,
             "launches": {k: sum(c[k] for c in n) for k in LAUNCH_KEYS}}
+
+
+RUNNER_FORK_TO = CLI_ITERATIONS + 5      # phase 18's fork: 5 steps
+# A child process: `cli train` (its arguments) with the Trainer's opacity
+# resets and each densify's use_size recorded, printed as the last line.
+FORK_CHILD = """
+import json, sys
+from lidar_rt_tpu_torch import cli
+from lidar_rt_tpu_torch.train import loop
+seen = {"resets": [], "use_size": []}
+reset, kwargs = loop.Trainer._reset_opacity, loop.Trainer._densify_kwargs
+def _reset(self):
+    seen["resets"].append(self.iteration)
+    reset(self)
+def _kwargs(self, asset, use_size):
+    seen["use_size"].append([self.iteration, use_size])
+    return kwargs(self, asset, use_size)
+loop.Trainer._reset_opacity, loop.Trainer._densify_kwargs = _reset, _kwargs
+cli.main(["train", *sys.argv[1:]])
+print(json.dumps(seen))
+"""
+
+
+def fork_run(tmp: str, out: str, mdir: str, log_path: str, card: str
+             ) -> None:
+    """Phase 18's fork: the split run's checkpoint at CLI_ITERATIONS
+    resumed (`cli train -m`, its own model directory, no refine) to
+    RUNNER_FORK_TO under its config with `opacity_reset_interval` at the
+    resume point, as `configs/rehearsal/full_noreset8k.yaml` forks
+    full.yaml at 8,000.  Checks that the resumed run takes the new
+    schedule: no opacity reset (none at the interval it resumed at, none
+    after), its densify event at 25 with the size and box prunes on
+    (`use_size`, off at 5-20 under the parent's interval of 1,000), a
+    contiguous history from the resume on and finite losses."""
+    fork_cfg = os.path.join(tmp, "runner_fork_exp.yaml")
+    with open(fork_cfg, "w") as f:
+        f.write(f"""# Phase 18's split run forked at {CLI_ITERATIONS}.
+parent_config: "{os.path.join(out, 'kitti_exp.yaml')}"
+task_name: rehearsal_fork
+opt:
+  opacity_reset_interval: {CLI_ITERATIONS}
+refine:
+  use_refine: false
+""")
+    from lidar_rt_tpu_torch.scripts.e2e_rehearsal import chunk_checkpoint
+
+    ckpt = chunk_checkpoint(os.path.join(mdir, "models"), CLI_ITERATIONS)
+    with open(log_path, "a") as log:
+        proc, secs = _timed(lambda: subprocess.run(
+            [sys.executable, "-c", FORK_CHILD, "-dc",
+             "configs/rehearsal/kitti.yaml", "-ec", fork_cfg, "-m", ckpt,
+             "--iterations", str(RUNNER_FORK_TO)], stdout=subprocess.PIPE,
+            stderr=log, text=True))
+    if proc.returncode != 0:
+        with open(log_path) as log:
+            print(log.read()[-6000:])
+        _check(False, f"the fork of the split run exited {proc.returncode}")
+    seen = json.loads(proc.stdout.strip().splitlines()[-1])
+    with open(os.path.join(tmp, "rehearsal_fork", "exp", "scene_ke1",
+                           "logs", "log.json")) as f:
+        log = json.load(f)
+    its = [h["iteration"] for h in log["history"]]
+    print(f"[runner] {card}: fork of the split run at {CLI_ITERATIONS} "
+          f"with opacity_reset_interval {CLI_ITERATIONS} (of 1000), to "
+          f"{RUNNER_FORK_TO}: {secs:.2f} s (host clock); resets at "
+          f"{seen['resets']}, densify (iteration, use_size) "
+          f"{seen['use_size']}, history {its[0]}-{its[-1]}, loss "
+          f"{[round(h['loss'], 5) for h in log['history']]}")
+    _check(seen["resets"] == []
+           and {tuple(u) for u in seen["use_size"]}
+           == {(RUNNER_FORK_TO, True)} and len(seen["use_size"]) >= 2
+           and its == list(range(CLI_ITERATIONS + 1, RUNNER_FORK_TO + 1))
+           and all(np.isfinite(h["loss"]) for h in log["history"]),
+           f"fork of the split run: the resumed run takes the new "
+           f"schedule: {seen}, history {its}")
 
 
 # Phase 20: the user tools at a cut depth.

@@ -8,6 +8,8 @@ of the reference's `scripts/e2e_rehearsal.py`).
     python -m lidar_rt_tpu_torch.scripts.e2e_rehearsal collect
         [--data /tmp/e2e_data] [--out output/rehearsal] [--device cuda]
         [-ec configs/rehearsal/exp.yaml]
+    python -m lidar_rt_tpu_torch.scripts.e2e_rehearsal train|collect
+        waymo --fork N [--fork_to M] --forks CONFIG[:COUNT],...
 
 `gen` renders both rehearsal datasets with the port's `synthetic` on the
 device and writes them in their wire formats under --data: a Waymo
@@ -25,6 +27,14 @@ bin cache is not checkpointed), `log.json` goes on from the checkpoint's
 iteration, and `logs/chunks.json` keeps each chunk's stage seconds,
 launches and peak memory.  Split points must be multiples of
 `testing_iterations` and of `rebin_interval`.
+`train --fork N --fork_to M --forks ...` trains to N once (a chunk, no
+refine), then runs each fork side by side as `cli train -m <its
+checkpoint at N> --iterations M` under its own experiment config and
+model directory (`<out>/forks/<name>`, refine off); `collect --fork N
+--forks ...` writes `<out>/forks.json` (`collect_forks`: each run's evals,
+loss and ms per step per 1,000 steps, densify events, and each fork's
+drop: the base's mean held-out PSNR at N and one testing interval
+before, less the fork's at its last eval and one interval before).
 `collect` writes `<out>/e2e_torch.json` in the schema of the reference's
 record `E2E_r05.json` (per dataset: mean metrics, the held-out PSNR
 history with the alive surfels, final loss, iterations, the U-Net's
@@ -49,12 +59,13 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 import numpy as np
 
 from lidar_rt_tpu_torch import cli
 from lidar_rt_tpu_torch import config as config_lib
-from lidar_rt_tpu_torch.scripts.import_roundtrip import REPO, run
+from lidar_rt_tpu_torch.scripts.import_roundtrip import REPO, child_env, run
 
 DATA = "/tmp/e2e_data"
 OUT = os.path.join("output", "rehearsal")
@@ -297,6 +308,195 @@ def train_chunks(dc: str, ec: str, splits: list[int], out: str,
     return secs
 
 
+def fork_specs(specs: list[str]) -> list[tuple[str, str]]:
+    """(name, experiment config) of each fork of `--forks`: each entry
+    `config[:count]` gives `count` forks (default 1) named
+    `<config's stem>_<j>`, j from 1."""
+    out = []
+    for spec in specs:
+        path, _, count = spec.partition(":")
+        stem = os.path.splitext(os.path.basename(path))[0]
+        out += [(f"{stem}_{j}", os.path.abspath(path))
+                for j in range(1, int(count or 1) + 1)]
+    return out
+
+
+def fork_configs(dc: str, ec: str, specs: list[str], out: str
+                 ) -> list[tuple[str, str, str]]:
+    """(name, experiment config, model directory) of each fork of
+    `specs`: its config written under `<out>/forks` with the run's data,
+    the model directory `<out>/forks/<name>/...` and the U-Net refine
+    off."""
+    source = config_lib.parse(dc, config_lib.parse(ec)).source_dir
+    os.makedirs(os.path.join(out, "forks"), exist_ok=True)
+    forks = []
+    for name, path in fork_specs(specs):
+        cfg = os.path.join(out, "forks", f"{name}.yaml")
+        with open(cfg, "w") as f:
+            f.write(f"""# Fork {name}: {path} resumed from the base run, no refine.
+parent_config: "{path}"
+source_dir: "{source}"
+model_dir: "{os.path.join(out, 'forks')}"
+task_name: "{name}"
+refine:
+  use_refine: false
+""")
+        forks.append((name, cfg, cli._model_dir(
+            config_lib.parse(dc, config_lib.parse(cfg)))))
+    return forks
+
+
+def train_forks(dc: str, ec: str, at: int, to: int, specs: list[str],
+                out: str, device: str) -> dict[str, float]:
+    """`cli train` of `ec` to `at` (a chunk of `chunk_configs`, no
+    refine), then every fork of `specs` side by side as child processes,
+    each `cli train -m <the base's checkpoint at at> --iterations to` in
+    its own model directory, its output in `<out>/forks/<name>.log`.
+    The base run writes the loader's cache before any fork reads it.
+    Returns each command's seconds."""
+    base_ec = chunk_configs(dc, ec, [at], out)[0][0]
+    secs = {"base": run([sys.executable, "-m", "lidar_rt_tpu_torch.cli",
+                         "train", "-dc", dc, "-ec", base_ec, "--device",
+                         device, "--iterations", str(at)])}
+    base_dir = cli._model_dir(config_lib.parse(dc, config_lib.parse(ec)))
+    ckpt = chunk_checkpoint(os.path.join(base_dir, "models"), at)
+    procs = []
+    for name, cfg, _ in fork_configs(dc, ec, specs, out):
+        cmd = [sys.executable, "-m", "lidar_rt_tpu_torch.cli", "train",
+               "-dc", dc, "-ec", cfg, "--device", device, "--iterations",
+               str(to), "-m", ckpt]
+        print("+", " ".join(cmd), flush=True)
+        log = open(os.path.join(out, "forks", f"{name}.log"), "w")
+        proc = subprocess.Popen(cmd, env=child_env(), stdout=log,
+                                stderr=subprocess.STDOUT)
+        procs.append((name, proc, log, time.perf_counter()))
+    failed = []
+    for name, proc, log, t0 in procs:
+        rc = proc.wait()
+        secs[name] = time.perf_counter() - t0
+        log.close()
+        print(f"fork {name}: rc {rc}, {secs[name]:.2f} s", flush=True)
+        if rc:
+            failed.append(name)
+    if failed:
+        raise RuntimeError(f"forks {failed} failed; see {out}/forks/")
+    return secs
+
+
+# A fork's drop: the base run's mean held-out PSNR over its evals at the
+# fork and one testing interval before, less the fork's over its last
+# eval and one base testing interval before.  A fork at a drop of
+# DECLINE or more declines, at HOLD or less holds, and between is partial.
+DECLINE, HOLD = 2.0, 0.5
+
+
+def run_summary(mdir: str) -> dict:
+    """What a run's `logs/log.json` holds, per 1,000-step chunk: held-out
+    PSNR and the background's alive surfels at each eval, the mean loss
+    and ms per step (from the history's stamps, each process from its
+    second stamp), every densify event and their sums per asset, a digest
+    of the frame order, the mean
+    loss over the first and the last tenth of the steps between two
+    events, the mean held-out PSNR at the evals right after an event and
+    at the others, and the stage seconds, launches and peak memory."""
+    with open(os.path.join(mdir, "logs", "log.json")) as f:
+        log = json.load(f)
+    hist = log["history"]
+    loss, ms = {}, {}
+    for h in hist:
+        loss.setdefault(-(-h["iteration"] // 1000) * 1000, []).append(
+            h["loss"])
+    for seg in _segments(hist):
+        for a, b in zip(seg, seg[1:]):
+            chunk = -(-b["iteration"] // 1000) * 1000
+            ms.setdefault(chunk, []).append(
+                (b["iteration"] - a["iteration"], b["elapsed"] - a["elapsed"]))
+    # The loss over the first and the last tenth of the steps between two
+    # densify events: what an event does to the next steps' loss.
+    events = sorted({e["iteration"] for e in log["densify"]})
+    loss_at = {h["iteration"]: h["loss"] for h in hist}
+    first, last = [], []
+    for a, b in zip(events, events[1:]):
+        n = max((b - a) // 10, 1)
+        first += [loss_at[i] for i in range(a + 1, a + n + 1) if i in loss_at]
+        last += [loss_at[i] for i in range(b - n + 1, b + 1) if i in loss_at]
+    # Held-out PSNR at the evals that follow a densify event's own step
+    # (the event runs before the eval) and at the other evals after the
+    # first event.
+    at_event, between = [], []
+    for e in log["eval_history"]:
+        if events and e["iteration"] > events[0]:
+            (at_event if e["iteration"] in events else between).append(
+                e["eval_psnr"])
+    totals = {}
+    for e in log["densify"]:
+        t = totals.setdefault(e["asset"], dict.fromkeys(
+            ("events", "cloned", "split", "pruned", "dropped"), 0))
+        t["events"] += 1
+        for k in ("cloned", "split", "pruned", "dropped"):
+            t[k] += e[k]
+    return {
+        "eval": [{k: e[k] for k in ("iteration", "eval_psnr", "alive")}
+                 for e in log["eval_history"]],
+        "densify_totals": totals,
+        # Runs that drew one frame order share this digest.
+        "frame_order_sha256": hashlib.sha256(json.dumps(
+            [h.get("frame") for h in hist]).encode()).hexdigest(),
+        "loss_between_events": {
+            "first_tenth": float(np.mean(first)) if first else None,
+            "last_tenth": float(np.mean(last)) if last else None},
+        "eval_psnr_vs_events": {
+            "at_event": float(np.mean(at_event)) if at_event else None,
+            "n_at_event": len(at_event),
+            "between": float(np.mean(between)) if between else None,
+            "n_between": len(between)},
+        "loss_per_1000": {k: float(np.mean(v)) for k, v in loss.items()},
+        "ms_per_step": {k: 1e3 * sum(t for _, t in v) / sum(n for n, _ in v)
+                        for k, v in ms.items()},
+        "densify": log["densify"],
+        **{k: log[k] for k in ("seconds", "launches", "peak_mib")}}
+
+
+def pair(evals: list[dict], end: int, gap: int) -> list[dict]:
+    """The evals at `end - gap` and `end`: the two a drop reads, `gap`
+    the base's `testing_iterations` (a fork may eval more often)."""
+    by_it = {e["iteration"]: e for e in evals}
+    return [by_it[end - gap], by_it[end]]
+
+
+def collect_forks(dc: str, ec: str, at: int, specs: list[str], out: str
+                  ) -> dict:
+    """Write `<out>/forks.json`: the card, the base run's and each fork's
+    `run_summary`, and each fork's drop and class (DECLINE, HOLD); print
+    one line a fork."""
+    args = config_lib.parse(dc, config_lib.parse(ec))
+    gap = int(args.get("testing_iterations", 1000))
+    base = run_summary(cli._model_dir(args))
+    last = pair(base["eval"], at, gap)
+    before = float(np.mean([e["eval_psnr"] for e in last]))
+    rec = {"card": card(), "fork_at": at, "base_psnr_mean": before,
+           "base_psnr_evals": [e["iteration"] for e in last],
+           "rule": {"decline_db": DECLINE, "hold_db": HOLD},
+           "base": base, "forks": {}}
+    for name, _, mdir in fork_configs(dc, ec, specs, out):
+        fork = run_summary(mdir)
+        last = pair(fork["eval"], fork["eval"][-1]["iteration"], gap)
+        drop = before - float(np.mean([e["eval_psnr"] for e in last]))
+        fork.update(drop_db=drop, drop_evals=[e["iteration"] for e in last],
+                    background_growth=last[-1]["alive"]
+                    - base["eval"][-1]["alive"],
+                    outcome="declines" if drop >= DECLINE else
+                    "holds" if drop <= HOLD else "partial")
+        rec["forks"][name] = fork
+        print(f"{name}: drop {drop:.3f} dB ({fork['outcome']}); held-out "
+              f"PSNR {[round(e['eval_psnr'], 3) for e in fork['eval']]}, "
+              f"alive {[e['alive'] for e in fork['eval']]}; densify "
+              f"{fork['densify_totals']}", flush=True)
+    with open(os.path.join(out, "forks.json"), "w") as f:
+        json.dump(rec, f, indent=1)
+    return rec
+
+
 def card() -> str | None:
     """The card's name and power limit as nvidia-smi reports them, or
     None where nvidia-smi is missing."""
@@ -454,7 +654,19 @@ def main(argv=None):
     p.add_argument("--split", type=lambda v: [int(x) for x in v.split(",")],
                    default=None, help="train: chunk ends before the "
                    "schedule's end, comma-separated")
+    p.add_argument("--fork", type=int, default=None, metavar="N",
+                   help="train: train to N, then run --forks from that "
+                   "checkpoint; collect: write <out>/forks.json")
+    p.add_argument("--fork_to", type=int, default=None, metavar="M",
+                   help="train --fork: the forks' last iteration")
+    p.add_argument("--forks", type=lambda v: v.split(","), default=None,
+                   help="experiment configs of the forks, comma-separated, "
+                   "each config[:count]")
     a = p.parse_args(argv)
+    if a.fork is not None and not a.forks:
+        p.error("--fork needs --forks")
+    if a.command == "train" and a.fork is not None and a.fork_to is None:
+        p.error("train --fork needs --fork_to")
     if a.command in ("train", "eval") and a.dataset is None:
         p.error(f"{a.command} needs a dataset: waymo or kitti")
     if a.command == "gen":
@@ -464,6 +676,13 @@ def main(argv=None):
         gen_kitti(os.path.join(a.data, DATASETS["kitti"][1]), dev)
         gen_waymo(os.path.join(a.data, DATASETS["waymo"][1]), dev)
         print(f"wrote {a.data}", flush=True)
+    elif a.fork is not None:
+        dc, ec = configs(a, a.dataset or "waymo")
+        out = os.path.abspath(a.out)
+        if a.command == "train":
+            return train_forks(dc, ec, a.fork, a.fork_to, a.forks, out,
+                               a.device)
+        return collect_forks(dc, ec, a.fork, a.forks, out)
     elif a.command in ("train", "eval"):
         return run_cli(a, a.command, a.dataset)
     else:

@@ -63,14 +63,18 @@ def export_reference_pth(src: str, pth: str) -> dict:
             "asset_sizes": sizes}
 
 
+def child_env() -> dict[str, str]:
+    """This process's environment with this checkout importable."""
+    path = os.environ.get("PYTHONPATH")
+    return dict(os.environ, PYTHONPATH=REPO if not path
+                else os.pathsep.join([REPO, path]))
+
+
 def run(cmd: list[str]) -> float:
     """Run a command with this checkout importable; its seconds."""
-    path = os.environ.get("PYTHONPATH")
-    env = dict(os.environ, PYTHONPATH=REPO if not path
-               else os.pathsep.join([REPO, path]))
     print("+", " ".join(cmd), flush=True)
     t0 = time.perf_counter()
-    subprocess.run(cmd, check=True, env=env)
+    subprocess.run(cmd, check=True, env=child_env())
     return time.perf_counter() - t0
 
 

@@ -44,6 +44,9 @@ from lidar_rt_tpu_torch.utils import profiling
 Tensor = torch.Tensor
 
 STALE_AGE = (2 ** 31 - 1) // 2   # the age of a never-binned frame
+# The reference's `Trainer.run` scans the steps between two schedule
+# events in dispatches of this many (`lidar_rt_tpu/train/loop.py:436`).
+REFERENCE_CHUNK = 20
 
 
 class FrameBatch(NamedTuple):
@@ -310,7 +313,13 @@ class Trainer:
     tile than the steady-state K, and truncating them slows convergence,
     so steps 1..warmup_until render with `warmup_cfg` (a larger K), and
     every later step with `trace_cfg`.  warmup_until defaults to
-    densify_until_iter; the bin cache is rebuilt at the switch."""
+    densify_until_iter; the bin cache is rebuilt at the switch.  In `run`
+    the switch comes where the reference's comes: at the first step after
+    warmup_until that its `run` does not scan in a chunk of
+    REFERENCE_CHUNK steps (it switches only between chunks,
+    `lidar_rt_tpu/train/loop.py:465,485`), so under
+    configs/rehearsal/full.yaml at 2,081, and at 8,081 in a run resumed
+    at 8,000."""
 
     def __init__(self, scene: Scene, frames: LiDARFrames, args,
                  trace_cfg: tracer_lib.TraceConfig | None = None,
@@ -344,6 +353,8 @@ class Trainer:
         # not finite (`utils.profiling.guard_finite`).
         self.snapshot_dir: str | None = None
         self._elapsed_total = 0.0
+        # True on a step the reference would scan in a chunk (`run`).
+        self._in_scan = False
 
     def _make_step(self, cfg: tracer_lib.TraceConfig):
         """The training step for one trace config (the sharded trainer
@@ -392,7 +403,8 @@ class Trainer:
         it = self.iteration
         if it % int(opt_cfg.sh_increase_interval) == 0:
             self.state.scene = self.state.scene.one_up_sh_degree()
-        if self.warmup_until and it > self.warmup_until:
+        if self.warmup_until and it > self.warmup_until \
+                and not self._in_scan:
             # The steady-state budget: new cache shape, every frame stale.
             self.step_fn, self.step_cfg = self._main_step, self.trace_cfg
             self.warmup_until = 0
@@ -412,9 +424,16 @@ class Trainer:
     def run(self, iterations: int | None = None,
             log_every: int = 100) -> list[dict]:
         total = iterations or int(self.args.opt.iterations)
+        hard_end = self.iteration + total
         t0 = time.time()
+        scan = 0
         for local in range(1, total + 1):
+            if not scan and self._next_event(hard_end, log_every) \
+                    - self.iteration > REFERENCE_CHUNK:
+                scan = REFERENCE_CHUNK
+            self._in_scan = scan > 0
             self.step()
+            scan = max(scan - 1, 0)
             if self.iteration % log_every == 0 or local == total:
                 self._flush_metrics()
                 if self.snapshot_dir is not None:
@@ -427,9 +446,28 @@ class Trainer:
                 self.history[-1].update(
                     alive=int(self.state.scene.background.num_alive),
                     elapsed=self._elapsed_total + time.time() - t0)
+        self._in_scan = False
         self._flush_metrics()
         self._elapsed_total += time.time() - t0
         return self.history
+
+    def _next_event(self, hard_end: int, log_every: int) -> int:
+        """The reference's next iteration after this one with schedule
+        work (`lidar_rt_tpu/train/loop.py:438-453`)."""
+        it, opt_cfg = self.iteration, self.args.opt
+
+        def after(interval) -> int:
+            return (it // int(interval) + 1) * int(interval)
+
+        cands = [hard_end, after(opt_cfg.sh_increase_interval),
+                 after(log_every)]
+        if it < int(opt_cfg.densify_until_iter):
+            cands += [after(opt_cfg.densification_interval),
+                      after(opt_cfg.opacity_reset_interval),
+                      int(opt_cfg.densify_until_iter)]
+        if self.warmup_until:
+            cands.append(self.warmup_until)
+        return min(c for c in cands if c > it)
 
     def _flush_metrics(self) -> None:
         """Move pending device-side metrics into `history`, one entry per

@@ -42,7 +42,7 @@ def _same(a, b) -> bool:
 
 
 def test_every_config_file_is_found():
-    assert len(CONFIGS) == 34
+    assert len(CONFIGS) == 37
 
 
 @pytest.mark.parametrize("path", CONFIGS)
@@ -186,6 +186,25 @@ def test_args_view_and_default_experiment():
         args.nothing
     assert _same(config.default_experiment().to_dict(),
                  ref_config.default_experiment().to_dict())
+
+
+@pytest.mark.parametrize("fork,key,value", [
+    ("full_nodensify8k", "densify_until_iter", 8000),
+    ("full_noreset8k", "opacity_reset_interval", 8000)])
+@pytest.mark.parametrize("data", ["waymo", "kitti"])
+def test_fork_configs_resolve_alike(fork, key, value, data, at_repo):
+    """The two forks of configs/rehearsal/full.yaml at 8,000 steps, over
+    each rehearsal data config: both readers give the same values, and
+    each differs from full.yaml in its one `opt` key."""
+    dc, ec = f"configs/rehearsal/{data}.yaml", f"configs/rehearsal/{fork}.yaml"
+    got = config.parse(dc, config.parse(ec)).to_dict()
+    assert _same(got, ref_config.parse(dc, ref_config.parse(ec)).to_dict())
+    full = config.parse(dc, config.parse("configs/rehearsal/full.yaml"))
+    full = full.to_dict()
+    assert got["opt"].pop(key) == value
+    assert got["opt"] == {k: v for k, v in full["opt"].items() if k != key}
+    del full["opt"], got["opt"]
+    assert _same(got, full)
 
 
 @pytest.mark.parametrize("path", ["configs/exp.yaml",

@@ -20,6 +20,7 @@ import os
 from pathlib import Path
 
 import numpy as np
+import pytest
 import torch
 
 from lidar_rt_tpu.data import kitti as j_kitti
@@ -197,3 +198,71 @@ refine:
     assert np.isfinite(got["final_loss"]) and got["unet_npz_bytes"] > 0
     assert rec["results"]["kitti360"] == {"unet_npz_sha256": None}
     assert rec["schedule"].startswith("4 iterations")
+
+
+def test_train_forks_from_one_checkpoint(tmp_path):
+    """`train --fork 2 --fork_to 4 --forks exp.yaml:2` on a 10-frame,
+    32 x 128 Waymo segment: the base run to 2 (no refine), then two forks
+    side by side, each resumed from the base's checkpoint at 2 in its own
+    model directory; `collect --fork 2` summarises each fork's evals,
+    loss, alive surfels and densify events and reads its drop against
+    the base's last two evals."""
+    data, out = tmp_path / "data", tmp_path / "out"
+    runner.gen_waymo(str(data / "waymo"), torch.device("cpu"), 10, 32, 128)
+    exp = tmp_path / "exp.yaml"
+    exp.write_text(f"""parent_config: "{ROOT}/configs/rehearsal/exp.yaml"
+frame_length: [0, 9]
+eval_frames: [4, 8]
+testing_iterations: 1
+saving_iterations: [4]
+model:
+  voxel_size: 1.0
+opt:
+  iterations: 6
+  densify_from_iter: 0
+  densification_interval: 1
+  rebin_interval: 1
+tracer:
+  warmup_until: 2
+""")
+    common = ["--data", str(data), "--out", str(out), "-ec", str(exp),
+              "--device", "cpu", "--fork", "2", "--forks", f"{exp}:2"]
+    old = os.environ.get("OMP_NUM_THREADS")
+    os.environ["OMP_NUM_THREADS"] = "1"
+    try:
+        secs = runner.main(["train", "waymo", *common, "--fork_to", "4"])
+    finally:
+        if old is None:
+            os.environ.pop("OMP_NUM_THREADS")
+        else:
+            os.environ["OMP_NUM_THREADS"] = old
+    assert set(secs) == {"base", "exp_1", "exp_2"}
+    rec = runner.main(["collect", *common])
+    with open(out / "forks.json") as f:
+        assert json.load(f) == json.loads(json.dumps(rec))
+    base = rec["base"]
+    assert [e["iteration"] for e in base["eval"]] == [1, 2]
+    assert "refine_epochs" not in base["seconds"]
+    assert set(rec["forks"]) == {"exp_1", "exp_2"}
+    # Both forks re-seed the frame shuffle from the config's seed.
+    assert len({f["frame_order_sha256"] for f in rec["forks"].values()}) == 1
+    for name, fork in rec["forks"].items():
+        assert [e["iteration"] for e in fork["eval"]] == [3, 4]
+        assert [e["iteration"] for e in fork["densify"]] == [3, 3, 4, 4]
+        assert set(fork["loss_per_1000"]) == {1000}
+        between = fork["loss_between_events"]
+        assert between["first_tenth"] == between["last_tenth"] is not None
+        assert fork["eval_psnr_vs_events"]["n_at_event"] == 1
+        assert fork["densify_totals"]["background"]["events"] == 2
+        assert fork["densify_totals"]["actors"]["events"] == 2
+        assert fork["background_growth"] == \
+            fork["eval"][-1]["alive"] - base["eval"][-1]["alive"]
+        assert fork["drop_evals"] == [3, 4]
+        assert rec["base_psnr_evals"] == [1, 2]
+        want = rec["base_psnr_mean"] - np.mean(
+            [e["eval_psnr"] for e in fork["eval"]])
+        assert fork["drop_db"] == pytest.approx(want)
+        assert fork["outcome"] in ("declines", "holds", "partial")
+        mdir = out / "forks" / name
+        assert (out / "forks" / f"{name}.log").exists() and mdir.exists()
+        assert not any(p.name == "unet.npz" for p in mdir.rglob("*.npz"))

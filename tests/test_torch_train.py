@@ -10,6 +10,7 @@ reference renders with its jax engine (exact top-k); the port with its
 kernel path, whose plain twins run on the CPU.
 """
 
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -453,9 +454,9 @@ SMALL_OPT = dict(densify_from_iter=15, densification_interval=20,
 TILE = dict(tile_h=8, tile_w=16, max_per_tile=128)   # the actor is a candidate
 
 
-def _j_args():
+def _j_args(opt=SMALL_OPT):
     d = default_experiment().to_dict()
-    d["opt"].update(SMALL_OPT)
+    d["opt"].update(opt)
     d["model"].update(obj_pt_num=256, voxel_size=0.3)
     return Args(d)
 
@@ -476,14 +477,28 @@ def synthetic_scene():
     return frames, jittered(scene)
 
 
-def _trainers(frames, scene):
-    j_cfg = j_tracer.TraceConfig(tile=JTileConfig(**TILE), tile_batch=2)
-    t_cfg = t_tracer.TraceConfig(tile=TTileConfig(**TILE))
+def _trainers(frames, scene, opt=SMALL_OPT, tail_passes=0, warmup_k=None,
+              warmup_until=None):
+    """Makers of the reference's and the port's Trainer on the carried
+    scene, and the port's frames.  With `warmup_k`, steps 1..warmup_until
+    render with that K and the later ones with TILE's, both with
+    `tail_passes`, as a rehearsal config's `tracer:` block sets them."""
+    def configs(trace_config, tile_config, **kw):
+        cfg = trace_config(tile=tile_config(**TILE), tail_passes=tail_passes,
+                           **kw)
+        return cfg, None if warmup_k is None else dataclasses.replace(
+            cfg, tile=tile_config(**{**TILE, "max_per_tile": warmup_k}))
+
+    j_cfg, j_warm = configs(j_tracer.TraceConfig, JTileConfig, tile_batch=2)
+    t_cfg, t_warm = configs(t_tracer.TraceConfig, TTileConfig)
     t_scene, t_frames = _port_inputs(scene, frames)
-    return (lambda: j_loop.Trainer(scene, frames, _j_args(), j_cfg),
+    return (lambda: j_loop.Trainer(scene, frames, _j_args(opt), j_cfg,
+                                   warmup_cfg=j_warm,
+                                   warmup_until=warmup_until),
             lambda: t_loop.Trainer(t_scene, t_frames,
-                                   options.experiment_options(**SMALL_OPT),
-                                   t_cfg),
+                                   options.experiment_options(**opt), t_cfg,
+                                   warmup_cfg=t_warm,
+                                   warmup_until=warmup_until),
             t_frames)
 
 
