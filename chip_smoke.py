@@ -2583,13 +2583,24 @@ def probe_phase(card: str, seed: int, ptxas: dict[str, str]) -> list:
     abl_n, gate_n = dict(abl.launches), dict(gate.launches)
     print(f"[probe] launches on the probes' main paths: ablation {abl_n}, "
           f"gate body {gate_n}")
-    regs = {kernel: report for kernel, report in ptxas.items()
-            if kernel.startswith("probe_")}
+    def regs_line(kernel: str, report: str) -> str:
+        # probe_ablation_kernel<level>; probe_gate_kernel<bf16,exp>.
+        args = kernel[kernel.index("<") + 1:-1].split(",")
+        if kernel.startswith("probe_ablation"):
+            name = abl.LEVELS[int(args[0])]
+            r = abl_run[name]
+        else:
+            name = gate.mode_name("bf16" if args[0] == "true" else "f32",
+                                  args[1] == "true")
+            r = gate_run[name]
+        return (f"{name}: {report}, {r['ms']:.4f} ms, "
+                f"{r['bound_ms'] / r['ms']:.0%} of its bound")
+
     print(f"[probe] ptxas (registers and spills a thread, so whether each "
-          f"level's intermediates stay in registers): "
-          + "; ".join(f"{abl.LEVELS[int(k[k.index('<') + 1:-1])]}: {v}"
-                      if k.startswith("probe_ablation") else f"{k}: {v}"
-                      for k, v in sorted(regs.items())))
+          f"level's intermediates stay in registers) and each level's and "
+          f"mode's share of its bound: "
+          + "; ".join(regs_line(k, v) for k, v in sorted(ptxas.items())
+                      if k.startswith("probe_")))
     entries = []
     inputs = abl.make_inputs(seed, device=dev)
     for level in abl.LEVELS:

@@ -23,12 +23,23 @@
 // repetition (18 with the exp) over 67 TFLOP/s in float32, or over twice
 // that for packed bfloat16 pairs (two results an instruction), against
 // three (rows, lanes) arrays read or written once; at the reference's
-// shape (512 x 1024, 64 repetitions) the operations bound it.
+// shape (512 x 1024, 64 repetitions) the operations bound it.  Since
+// every multiply and add is rounded apart, the floor is the instructions
+// the body issues, not the fused-multiply-add count behind 67 TFLOP/s:
+// ~16 an element a repetition in float32 (0.0160 ms at the reference's
+// shape, 132 SMs issuing 128 lanes a clock at 1.98 GHz) and about as many
+// a packed pair in bfloat16, plus the exp's MUFU at 16 lanes a clock an
+// SM; lidar_rt_tpu_torch/scripts/sass_floor.py counts them in the SASS.
 //
 // Design: one thread per pair of adjacent elements, in registers for all
 // repetitions; the accumulator is written once.  As in the reference, each
 // repetition adds 1e-6 to `a`, so no repetition can be hoisted out of the
-// loop.
+// loop.  The compiler unrolls the repetitions (by four, two in float32
+// with the exp), which gives each warp independent instructions enough:
+// a design with 16 bytes a thread (two float32 pairs or four bfloat16
+// pairs, one chain each, interleaved), in a grid of one wave with a
+// stride loop, issued the same instructions an element and ran 1-8%
+// slower in every mode (PERF.md), so it was not kept.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

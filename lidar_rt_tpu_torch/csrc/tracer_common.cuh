@@ -174,28 +174,37 @@ __device__ __forceinline__ QuadCand quad_cand(const float4* s_cand, int c) {
 }
 
 // Stage candidate c of `tile` at row `slot` of s_cand, rows of kStride
-// slots.  Inputs are (T, rows, K) row-major.
-template <int kStride = kQuads>
+// slots: its first kGroups groups, all of them unless a kernel reads only
+// group 0 (n, p) or the four of the geometry.  Inputs are (T, rows, K)
+// row-major.
+template <int kStride = kQuads, int kGroups = kQuads>
 __device__ __forceinline__ void stage_quads(
     float4* s_cand, int slot, long long tile, int k, long long c,
     const float* __restrict__ axes, const float* __restrict__ plane,
     const float* __restrict__ inv_scale, const float* __restrict__ opac,
     const float* __restrict__ sign, const float* __restrict__ sh) {
+  static_assert(kGroups == 1 || kGroups == 4 || kGroups == kQuads,
+                "a prefix of the groups");
   float4* row = s_cand + slot * kStride;
   const int swz = kStride == kQuads ? slot & 7 : 0;
   const float* ax = axes + tile * 9 * k + c;
   const float* pl = plane + tile * 3 * k + c;
   const float* sc = inv_scale + tile * 2 * k + c;
   row[0 ^ swz] = make_float4(ax[0], ax[k], ax[2 * k], pl[0]);
-  row[1 ^ swz] = make_float4(ax[3 * k], ax[4 * k], ax[5 * k], pl[k]);
-  row[2 ^ swz] = make_float4(ax[6 * k], ax[7 * k], ax[8 * k], pl[2 * k]);
-  row[3 ^ swz] = make_float4(sc[0], sc[k], opac[tile * k + c],
-                             sign[tile * k + c]);
-  const float* s = sh + tile * kSh * k + c;
+  if constexpr (kGroups > 1) {
+    row[1 ^ swz] = make_float4(ax[3 * k], ax[4 * k], ax[5 * k], pl[k]);
+    row[2 ^ swz] = make_float4(ax[6 * k], ax[7 * k], ax[8 * k], pl[2 * k]);
+    row[3 ^ swz] = make_float4(sc[0], sc[k], opac[tile * k + c],
+                               sign[tile * k + c]);
+  }
+  if constexpr (kGroups > 4) {
+    const float* s = sh + tile * kSh * k + c;
 #pragma unroll
-  for (int q = 0; q < kSh / 4; ++q) {
-    row[(4 + q) ^ swz] = make_float4(s[4 * q * k], s[(4 * q + 1) * k],
-                                     s[(4 * q + 2) * k], s[(4 * q + 3) * k]);
+    for (int q = 0; q < kSh / 4; ++q) {
+      row[(4 + q) ^ swz] = make_float4(s[4 * q * k], s[(4 * q + 1) * k],
+                                       s[(4 * q + 2) * k],
+                                       s[(4 * q + 3) * k]);
+    }
   }
 }
 

@@ -10,7 +10,9 @@
     them, and the record in `E2E_r05.json`'s schema;
   * `kernel_microbench`, `bf16_microbench`: the reference's two probe
     kernels as H100 kernels (the forward body's ablation ladder; float32
-    against packed bfloat16);
+    against packed bfloat16), each with `--save`/`--against` to hold
+    two runs' outputs to the bit; `sass_floor`: each probe kernel's
+    instruction floor from its SASS;
   * `densify_stats`: the densification statistic of the rehearsal's Waymo
     scene in each of the port's training paths from one state;
   * `refine_spread`: the refine U-Net over several seeds on a trained

@@ -2,7 +2,8 @@
 float32 on the card?  (Counterpart of the reference's
 `scripts/bf16_microbench.py`.)
 
-    python -m lidar_rt_tpu_torch.scripts.bf16_microbench [--seed 0]
+    python -m lidar_rt_tpu_torch.scripts.bf16_microbench [--seed 0] \
+        [--save PATH] [--against PATH]
 
 The kernel, `csrc/bf16_microbench.cu`, repeats a body shaped like the
 forward kernel's gate phase (two multiply-adds, two multiplies, an
@@ -12,8 +13,9 @@ packed bf16x2 instructions.  For each of with and without the exp it
 prints the float32 and the bfloat16 ms per launch (CUDA events over ITERS
 launches after one), their ratio (about 2 if packing doubles the rate,
 about 1 if it buys nothing) and each one's bound: its operations over the
-card's rate for the type, or its bytes over the memory rate.  Measures on
-a CUDA card only.
+card's rate for the type, or its bytes over the memory rate.  `--save`
+and `--against` keep and hold each mode's ms and output as
+`kernel_microbench`'s do.  Measures on a CUDA card only.
 
 `probe(a, b, with_exp)` launches the kernel on CUDA tensors and runs the
 plain PyTorch version, `probe_reference`, on CPU tensors; nothing falls
@@ -149,22 +151,24 @@ def bound(a: torch.Tensor, with_exp: bool, reps: int = REPS
         (bytes_ms, "bytes")
 
 
-def run(seed: int = 0, device="cuda") -> dict[str, dict]:
+def run(seed: int = 0, device="cuda", save=None, against=None
+        ) -> dict[str, dict]:
     """Time every mode on the card (ITERS + 1 launches each) and print the
-    reference's lines with the bounds; returns {mode name: {"ms",
-    "bound_ms", "bound_by"}}."""
+    reference's lines with the bounds; save and hold the outputs as
+    `kernel_microbench.hold` does; returns {mode name: {"ms", "bound_ms",
+    "bound_by"}}."""
     dev = torch.device(device)
     if dev.type != "cuda":
         raise SystemExit("the probe measures a CUDA card: no device time "
                          "on the CPU")
-    out = {}
+    out, outs = {}, {}
     for dtype, with_exp in MODES:
+        name = mode_name(dtype, with_exp)
         a, b = make_inputs(dtype, seed, device=dev)
-        ms = kernel_microbench.event_ms(lambda: probe(a, b, with_exp),
-                                       ITERS)
+        ms = kernel_microbench.event_ms(
+            lambda: outs.__setitem__(name, probe(a, b, with_exp)), ITERS)
         b_ms, b_by = bound(a, with_exp)
-        out[mode_name(dtype, with_exp)] = {"ms": ms, "bound_ms": b_ms,
-                                           "bound_by": b_by}
+        out[name] = {"ms": ms, "bound_ms": b_ms, "bound_by": b_by}
     for with_exp in (False, True):
         f32 = out[mode_name("f32", with_exp)]
         bf16 = out[mode_name("bf16", with_exp)]
@@ -175,6 +179,7 @@ def run(seed: int = 0, device="cuda") -> dict[str, dict]:
               f"{bf16['bound_ms']:.4f} ms ({bf16['bound_by']})", flush=True)
     print("(ratio ~2x => packed bf16x2 doubles the rate; ~1x => packing "
           "buys nothing)")
+    kernel_microbench.hold(out, outs, save, against)
     return out
 
 
@@ -182,7 +187,10 @@ def main(argv=None) -> dict[str, dict]:
     p = argparse.ArgumentParser(
         prog="python -m lidar_rt_tpu_torch.scripts.bf16_microbench")
     p.add_argument("--seed", type=int, default=0)
-    return run(p.parse_args(argv).seed)
+    p.add_argument("--save", help="keep each mode's ms and output here")
+    p.add_argument("--against", help="hold them to another run's --save")
+    a = p.parse_args(argv)
+    return run(a.seed, save=a.save, against=a.against)
 
 
 if __name__ == "__main__":

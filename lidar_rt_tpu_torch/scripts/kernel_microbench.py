@@ -2,7 +2,7 @@
 (counterpart of the reference's `scripts/kernel_microbench.py`).
 
     python -m lidar_rt_tpu_torch.scripts.kernel_microbench [LEVEL ...] \
-        [--seed 0]
+        [--seed 0] [--k 128] [--save PATH] [--against PATH]
 
 Synthetic candidates in the forward kernel's layout, made from the seed as
 the reference makes them, at its shape (T=42 tiles of R=4096 rays, K=128
@@ -14,7 +14,11 @@ more stage of the body and writes a (T, 16, R) float32 block; the kernel,
 prints ms per launch (CUDA events over ITERS launches after one), G pairs
 per second, and the level's bound: its operations per pair (OPS_PER_PAIR)
 over the card's float32 rate, or its bytes over its memory rate, whichever
-is larger.  Measures on a CUDA card only.
+is larger.  `--k` sets the candidates a tile.  `--save` keeps each
+level's ms and output; `--against` holds this run's to such a file from
+another run (another tree's probe, say): both ms, and whether the
+outputs are the same bits, else how many elements differ and by how
+much.  Measures on a CUDA card only.
 
 `ablation(level, inputs)` launches the kernel on CUDA tensors and runs
 the plain PyTorch version, `ablation_reference`, on CPU tensors; nothing
@@ -277,19 +281,50 @@ def event_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def run(levels=DEFAULT_LEVELS, seed: int = 0, device="cuda"
-        ) -> dict[str, dict]:
+def hold(record: dict[str, dict], outs: dict[str, torch.Tensor],
+         save=None, against=None) -> None:
+    """Save each level's or mode's ms (from `record`) and output to
+    `save`; hold them to another run's file at `against`: print both ms
+    and whether the outputs are the same bits, else how many elements
+    differ and by how much, and add those to `record`."""
+    if save:
+        torch.save({name: {"ms": record[name]["ms"], "out": out.cpu()}
+                    for name, out in outs.items()}, save)
+    if not against:
+        return
+    other = torch.load(against)
+    for name, out in outs.items():
+        if name not in other:
+            continue
+        mine, theirs = out.cpu(), other[name]["out"]
+        ints = torch.int16 if mine.element_size() == 2 else torch.int32
+        differ = int((mine.view(ints) != theirs.view(ints)).sum())
+        diff = (mine.float() - theirs.float()).abs().max().item()
+        record[name].update(against_ms=other[name]["ms"], differ=differ,
+                            max_abs_diff=diff)
+        print(f"[against] {name:10s}: {record[name]['ms']:.4f} ms here, "
+              f"{other[name]['ms']:.4f} there; " + (
+                  "same bits" if not differ else
+                  f"{differ} elements differ, by up to {diff:.3e}"),
+              flush=True)
+
+
+def run(levels=DEFAULT_LEVELS, seed: int = 0, k: int = K, device="cuda",
+        save=None, against=None) -> dict[str, dict]:
     """Time each level's kernel on the card (ITERS + 1 launches each) and
-    print ms, G pairs/s and the bound; returns {level: {"ms", "bound_ms",
-    "bound_by", "gpairs_s"}}."""
+    print ms, G pairs/s and the bound, with K=`k` candidates a tile; save
+    and hold the outputs as `hold` does; returns {level: {"ms",
+    "bound_ms", "bound_by", "gpairs_s"}}."""
     dev = torch.device(device)
     if dev.type != "cuda":
         raise SystemExit("the probe measures a CUDA card: no device time "
                          "on the CPU")
-    inputs = make_inputs(seed, device=dev)
-    out = {}
+    inputs = make_inputs(seed, k=k, device=dev)
+    out, outs = {}, {}
     for level in levels:
-        ms = event_ms(lambda: ablation(level, inputs), ITERS)
+        ms = event_ms(lambda: outs.__setitem__(level,
+                                               ablation(level, inputs)),
+                      ITERS)
         b_ms, b_by = bound(level, inputs)
         pairs = work(level, inputs)["pairs"]
         out[level] = {"ms": ms, "bound_ms": b_ms, "bound_by": b_by,
@@ -297,6 +332,7 @@ def run(levels=DEFAULT_LEVELS, seed: int = 0, device="cuda"
         print(f"{level:10s}: {ms:7.4f} ms  {pairs / ms / 1e6:7.2f} G pairs/s"
               f"  bound {b_ms:.4f} ms ({b_by}, {OPS_PER_PAIR[level]} "
               f"operations a pair)", flush=True)
+    hold(out, outs, save, against)
     return out
 
 
@@ -307,11 +343,16 @@ def main(argv=None) -> dict[str, dict]:
                    help=f"any of {', '.join(LEVELS)} (default: "
                         f"{' '.join(DEFAULT_LEVELS)})")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--k", type=int, default=K,
+                   help="candidates a tile (even, 2 to 896)")
+    p.add_argument("--save", help="keep each level's ms and output here")
+    p.add_argument("--against", help="hold them to another run's --save")
     a = p.parse_args(argv)
     unknown = sorted(set(a.levels) - set(LEVELS))
     if unknown:
         p.error(f"unknown levels {unknown}: choose from {LEVELS}")
-    return run(a.levels or DEFAULT_LEVELS, a.seed)
+    return run(a.levels or DEFAULT_LEVELS, a.seed, a.k, save=a.save,
+               against=a.against)
 
 
 if __name__ == "__main__":

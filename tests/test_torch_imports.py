@@ -54,6 +54,7 @@ def test_port_imports_no_jax():
         "import lidar_rt_tpu_torch.scripts.e2e_rehearsal\n"
         "import lidar_rt_tpu_torch.scripts.kernel_microbench\n"
         "import lidar_rt_tpu_torch.scripts.bf16_microbench\n"
+        "import lidar_rt_tpu_torch.scripts.sass_floor\n"
         "from lidar_rt_tpu_torch.ops.tracer import (bin_tail_chain,\n"
         "                                           render_multi_return)\n"
         "from lidar_rt_tpu_torch.ops.kernels import check_exact_k\n"
@@ -134,6 +135,7 @@ def test_scripts_import_no_jax():
         "import lidar_rt_tpu_torch.scripts.e2e_rehearsal\n"
         "import lidar_rt_tpu_torch.scripts.kernel_microbench\n"
         "import lidar_rt_tpu_torch.scripts.bf16_microbench\n"
+        "import lidar_rt_tpu_torch.scripts.sass_floor\n"
         "import lidar_rt_tpu_torch.scripts.densify_stats\n"
         "import lidar_rt_tpu_torch.scripts.refine_spread\n"
         "import lidar_rt_tpu_torch.scripts.quality_check\n"

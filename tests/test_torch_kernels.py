@@ -952,26 +952,33 @@ def test_cached_training_step_on_card(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("k", (128, 2, 896))
 @pytest.mark.parametrize("level", kernel_microbench.LEVELS)
-def test_ablation_probe_matches_plain_on_card(cuda_device, level):
+def test_ablation_probe_matches_plain_on_card(cuda_device, level, k):
     """Each level of the forward body's ablation probe against its plain
-    version, at a reduced reference shape (4 tiles of 1024 rays, K=128)
-    and with a ragged last block (R = 1000)."""
+    version, at a reduced reference shape (4 tiles of 1024 rays) and with
+    a ragged last block (R = 1000), at the reference's K=128 (one staged
+    chunk), the least K=2 and the most K=896 (seven chunks)."""
     for r in (1024, 1000):
-        inputs = kernel_microbench.make_inputs(0, 4, r, 128, cuda_device)
+        inputs = kernel_microbench.make_inputs(0, 4, r, k, cuda_device)
         before = kernel_microbench.launches[level]
         got = kernel_microbench.ablation(level, inputs)
         torch.cuda.synchronize()
         assert kernel_microbench.launches[level] == before + 1
         want = kernel_microbench.ablation_reference(level, inputs)
         err, ratio = kernel_microbench.error(got, want)
-        assert ratio <= 1.0, (level, r, err)
+        assert ratio <= 1.0, (level, k, r, err)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("rows,lanes", ((64, 1024), (3, 1030), (512, 1024)))
 @pytest.mark.parametrize("dtype,with_exp", bf16_microbench.MODES)
-def test_bf16_probe_matches_plain_on_card(cuda_device, dtype, with_exp):
-    a, b = bf16_microbench.make_inputs(dtype, 0, 64, 1024, cuda_device)
+def test_bf16_probe_matches_plain_on_card(cuda_device, dtype, with_exp,
+                                          rows, lanes):
+    """Each mode of the gate body against its plain version: 64 x 1024,
+    3 x 1,030 (an even count that is not a multiple of 16 bytes' worth of
+    elements) and the reference's 512 x 1024."""
+    a, b = bf16_microbench.make_inputs(dtype, 0, rows, lanes, cuda_device)
     name = bf16_microbench.mode_name(dtype, with_exp)
     before = bf16_microbench.launches[name]
     got = bf16_microbench.probe(a, b, with_exp)
@@ -980,3 +987,19 @@ def test_bf16_probe_matches_plain_on_card(cuda_device, dtype, with_exp):
     want = bf16_microbench.probe_reference(a, b, with_exp)
     err, ratio = bf16_microbench.error(got, want)
     assert got.dtype == a.dtype and ratio <= 1.0, (name, err, ratio)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,with_exp", bf16_microbench.MODES)
+def test_bf16_probe_takes_unaligned_arrays_on_card(cuda_device, dtype,
+                                                   with_exp):
+    """Arrays that start 4 or 8 bytes past a 16-byte boundary (one pair
+    into a buffer), as a slice of a larger tensor gives them."""
+    a, b = (x.reshape(-1)[2:] for x in bf16_microbench.make_inputs(
+        dtype, 0, 8, 130, cuda_device))
+    assert a.data_ptr() % 16 and b.data_ptr() % 16
+    got = bf16_microbench.probe(a, b, with_exp)
+    torch.cuda.synchronize()
+    want = bf16_microbench.probe_reference(a, b, with_exp)
+    err, ratio = bf16_microbench.error(got, want)
+    assert got.dtype == a.dtype and ratio <= 1.0, (dtype, err, ratio)
