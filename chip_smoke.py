@@ -167,6 +167,21 @@ On one CUDA card it:
      smallest macro_factor (or thinned soup) where no macro sector
      truncates.  The JAX checkpoints' export needs jax and is tested on
      the CPU only.
+ 22. (run after 21) the bench, `lidar_rt_tpu_torch/bench.py`, on the
+     street scene at its flagship (20 coupled steps of the card's training
+     mode, re-binned at 0 and 10), timed from a CUDA graph and eagerly: the
+     opacity gradient a replay carries out of its last step against the
+     eager run's at the gradient bars, the launches the capture holds (one
+     cached forward and backward a step); 2 steps in exact order captured
+     the same way; the tile-order forward against its twin at the tile
+     shapes only `grid_overhead_probe` gives it (16x128, 32x128, 8x256 at
+     K=256); then the six stage profilers of `lidar_rt_tpu_torch/
+     scripts/` (`profile_stages`, `profile_amortized`, `stage_bench`,
+     `prep_bench`, `intercept_probe`, `grid_overhead_probe`) in this
+     process at 5 steps a timing, printing their lines: every time and
+     stage value finite, `intercept_probe`'s every-count-zero forward
+     compositing nothing; the launches of each path, a capture's counted
+     once a replay.
 
 Every failed check raises.  Without a CUDA device it exits non-zero before
 any phase.  The last two lines of standard output are the kernel table
@@ -195,7 +210,10 @@ import numpy as np
 import torch
 
 # bench.py's street soup, drawn with numpy from the seed: the port's one
-# copy (`lidar_rt_tpu_torch/scripts/street.py`).
+# copy (`lidar_rt_tpu_torch/scripts/street.py`), and its device profile
+# (`device_profile`: busy ms, idle share, top kernels, device operations a
+# call), which the stage profilers share.
+from lidar_rt_tpu_torch.scripts.street import device_profile as _device_profile
 from lidar_rt_tpu_torch.scripts.street import street_soup
 
 H, W = 64, 2650
@@ -358,46 +376,6 @@ def _event_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
-
-
-def _device_profile(fn, iters: int):
-    """Device time over `iters` calls of fn from a torch.profiler trace:
-    (busy ms per call, idle share of the device span from the first
-    kernel's start to the last one's end, top kernels as (name, ms per
-    call), device kernels per call), or None when the trace holds no
-    device events.  Only kernels, copies and memsets count: the device-side
-    ranges of profiler annotations (such as `Optimizer.step#Adam.step`)
-    cover kernels already counted.  Busy time is the union of their
-    intervals.  The profiler slows the host's launches, so the idle share
-    is an upper bound."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.events()
-              if e.device_type == DeviceType.CUDA
-              and not getattr(e, "is_user_annotation", False)
-              and "annotation" not in str(getattr(e, "activity_type", ""))]
-    if not events:
-        return None
-    busy, end = 0.0, float("-inf")
-    for start, stop in sorted((e.time_range.start, e.time_range.end)
-                              for e in events):
-        busy += max(0.0, stop - max(start, end))
-        end = max(end, stop)
-    span = (max(e.time_range.end for e in events)
-            - min(e.time_range.start for e in events))
-    by_name = collections.Counter()
-    for e in events:
-        by_name[e.name] += e.time_range.elapsed_us()
-    top = [(name, us / iters / 1e3) for name, us in by_name.most_common(6)]
-    return busy / iters / 1e3, 1.0 - busy / span, top, len(events) // iters
 
 
 def _grad_errors(got, ref, names) -> dict[str, tuple[float, float]]:
@@ -2802,6 +2780,204 @@ def design_phase(card: str, dev, seed: int) -> dict:
         "errs": errs}
 
 
+# Phase 22: the profilers' coupled steps per timing (the commands take
+# their modules' ITERS, 20 or 30), and the exact-order bench's.
+BENCH_PHASE_ITERS = 5
+BENCH_EXACT_ITERS = 2
+BENCH_TOOLS = ("profile_stages", "profile_amortized", "stage_bench",
+               "prep_bench", "intercept_probe", "grid_overhead_probe")
+
+
+def _tool_launches(before: dict, captures) -> dict[str, int]:
+    """The tracer kernels' launches on the card since `before` (a
+    `kernels.launch_counts()`), by LAUNCH_KEYS: the wrappers' counts, in
+    which the launches of each capture (a `captured` dict of `captures`)
+    are counted once, at capture, less those, plus GRAPH_REPLAYS
+    replays of each capture."""
+    from lidar_rt_tpu_torch.ops import kernels
+    from lidar_rt_tpu_torch.scripts import street
+
+    n = kernels.launches_since(before)
+    return {key: n[c] + (street.GRAPH_REPLAYS - 1)
+            * sum(cap[c] for cap in captures)
+            for key, c in zip(LAUNCH_KEYS, LAUNCH_COUNTERS)}
+
+
+def _finite(x) -> bool:
+    """Every tensor in x (a tensor or nested tuples of them) is finite."""
+    if isinstance(x, torch.Tensor):
+        return bool(torch.isfinite(x.float()).all())
+    return all(_finite(v) for v in x)
+
+
+def _tool_rows(name: str, r):
+    """The timed rows of a stage profiler's result."""
+    if name in ("profile_amortized", "intercept_probe"):
+        return list(r["rows"].values())
+    return list(r.values()) if isinstance(r, dict) else r
+
+
+def bench_phase(card: str, dev) -> dict:
+    """Phase 22: the port's bench (`lidar_rt_tpu_torch.bench`) and its six
+    stage profilers in this process on the street scene (64 x 2650,
+    131,072 surfels).  The bench's 20 coupled steps (the card's training
+    mode, tile order, re-binned at 0 and 10) are timed from a CUDA graph
+    and eagerly: the opacity gradient a replay carries out of its last step
+    is held to the eager run's at the gradient bars (the kernels' float
+    atomics rule out bits), and the graph holds one cached forward and one
+    cached backward a step.  A capture in exact order (fast sums) must
+    hold as well.  Then the tile-order forward against its twin at the
+    tile shapes only `grid_overhead_probe` gives it (16x128, 32x128, 8x256
+    at K=256), and each profiler at BENCH_PHASE_ITERS steps a timing:
+    every time and every stage's value finite; `intercept_probe`'s
+    every-count-zero forward composites nothing (channel rows 0-7 and
+    10-15 and accum zero, rows 8-9 the initial transmittance, exactly)
+    and its backward gives zero gradients.  Launches per path count each
+    capture's launches once a replay.  Returns the launches per path and
+    the forward's errors per shape."""
+    import importlib
+
+    from lidar_rt_tpu_torch import bench
+    from lidar_rt_tpu_torch.ops import cuda_tracer, kernels
+    from lidar_rt_tpu_torch.ops.binning import TileConfig
+    from lidar_rt_tpu_torch.scripts import grid_overhead_probe, street
+
+    t_phase = time.perf_counter()
+    bundle = street.street_scene_bundle(street.N_SURFELS, 0, dev)
+    grid, s2w = street.sensor(street.H, dev)
+    width = street.W
+    kn = bench.knobs({})       # the flagship, whatever the environment says
+    paths = {}
+
+    before = kernels.launch_counts()
+    cfg = bench.trace_config(kn)
+    r = bench.run(bundle, grid, width, s2w, cfg, dev, profile=True)
+    torch.cuda.synchronize()
+    paths["bench"] = _tool_launches(before, [r["captured"]])
+    print(f"[bench] {card}: python -m lidar_rt_tpu_torch.bench: "
+          + bench.describe(cfg, bench.ITERS), flush=True)
+    for line in bench.lines(r, dev):
+        print(f"[bench] {card}: {line}", flush=True)
+    print(f"[bench] {card}: {json.dumps(bench.result(r, dev))}", flush=True)
+    errs = _grad_errors([r["graph_carry"].grad], [r["eager_carry"].grad],
+                        ["d_opacity"])
+    print(f"[bench] {card}: the opacity gradient a replay carries out of "
+          f"its last step against the eager run's: {_fmt_grads(errs)}; "
+          f"losses {r['graph_carry'].loss.item():.6e} (graph), "
+          f"{r['eager_carry'].loss.item():.6e} (eager)", flush=True)
+    _check_grads(errs, "bench: the replayed opacity gradient vs eager")
+    cap = r["captured"]
+    _check(cap["forward_cache_launches"] == cap["backward_cache_launches"]
+           == bench.ITERS and sum(cap.values()) == 2 * bench.ITERS,
+           f"bench: the capture holds one cached forward and backward a "
+           f"step: {cap}")
+    _check(all(np.isfinite(r[k]) and r[k] > 0
+               for k in ("graph_ms", "eager_ms", "mray_graph")),
+           f"bench times: {r}")
+
+    before = kernels.launch_counts()
+    cfg_x = bench.trace_config(kn._replace(exact=True))
+    r_x = bench.run(bundle, grid, width, s2w, cfg_x, dev,
+                    iters=BENCH_EXACT_ITERS, warmup=1)
+    torch.cuda.synchronize()
+    paths["bench_exact"] = _tool_launches(before, [r_x["captured"]])
+    errs_x = _grad_errors([r_x["graph_carry"].grad],
+                          [r_x["eager_carry"].grad], ["d_opacity"])
+    print(f"[bench] {card}: BENCH_EXACT=1, {BENCH_EXACT_ITERS} steps: "
+          f"graph {r_x['graph_ms']:.3f} ms, eager {r_x['eager_ms']:.3f} ms "
+          f"a step; capture {r_x['captured']}; replayed gradient vs eager "
+          f"{_fmt_grads(errs_x)}", flush=True)
+    _check_grads(errs_x, "bench exact: the replayed opacity gradient")
+    _check(r_x["captured"]["forward_exact_launches"]
+           == r_x["captured"]["backward_exact_fast_launches"]
+           == BENCH_EXACT_ITERS, f"bench exact capture: {r_x['captured']}")
+
+    errs = {}
+    with torch.no_grad():
+        for th, tw, k, _label in grid_overhead_probe.ROWS:
+            if (th, tw) == (8, 128):
+                continue    # phases 3, 20 and 21 hold 8x128's
+            tile = TileConfig(tile_h=th, tile_w=tw, max_per_tile=k,
+                              binner="hier")
+            inputs, _ = cuda_tracer.tile_inputs(bundle, grid, width, s2w, 3,
+                                                tile)
+            chans, acc = kernels.tracer_forward(*inputs)
+            chans_p, acc_p = cuda_tracer.forward_tiles_reference(*inputs)
+            torch.cuda.synchronize()
+            err = (chans - chans_p).abs().max().item()
+            acc_err, acc_ok = _accum_err(acc, acc_p)
+            print(f"[bench-kernel] {card}: street scene, {th}x{tw} K={k}: "
+                  f"T={inputs.dirs.shape[0]} R={inputs.dirs.shape[1]}, "
+                  f"forward channels max abs err {err:.3e} (bar "
+                  f"{CHAN_ATOL}), accum {acc_err:.3e}", flush=True)
+            _check(err <= CHAN_ATOL and acc_ok,
+                   f"grid_overhead_probe's {th}x{tw}: forward vs twin")
+            errs[f"grid_{th}x{tw}_k{k}"] = err
+            del inputs, chans, chans_p
+
+    secs = {}
+    for name in BENCH_TOOLS:
+        mod = importlib.import_module(f"lidar_rt_tpu_torch.scripts.{name}")
+        before = kernels.launch_counts()
+        t = time.perf_counter()
+        out = mod.profile(bundle, grid, width, s2w, dev,
+                          iters=BENCH_PHASE_ITERS)
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t
+        rows = _tool_rows(name, out)
+        paths[name] = _tool_launches(before,
+                                     [row["captured"] for row in rows])
+        text = (mod.lines(out, grid.height, width, dev)
+                if name in ("profile_stages", "profile_amortized")
+                else mod.lines(out, dev))
+        for line in text:
+            print(f"[bench] {card}: {name}: {line}", flush=True)
+        _check(all(np.isfinite(row[k]) and row[k] > 0 for row in rows
+                   for k in ("graph_ms", "eager_ms")),
+               f"{name}: every stage's times finite")
+        # Stage 1's ranges are +inf past a column's overlapping surfels.
+        values = [row["value"] for row in rows]
+        if name == "prep_bench":
+            i = list(out).index("bin stage1 (topKc)")
+            values[i] = values[i][1]
+        _check(all(_finite(v) for v in values),
+               f"{name}: every stage's value finite")
+        if name == "intercept_probe":
+            chans, acc = out["rows"]["fwd_cnt0"]["value"]
+            t0 = out["inputs"].t0
+            g0 = out["rows"]["fwd+bwd_cnt0"]["value"]
+            zero_ok = (bool((chans[:, :8] == 0).all())
+                       and bool((chans[:, 10:] == 0).all())
+                       and torch.equal(chans[:, 8], t0)
+                       and torch.equal(chans[:, 9], t0)
+                       and bool((acc == 0).all()) and bool((g0 == 0).all()))
+            print(f"[bench] {card}: intercept_probe: every count zero: "
+                  f"channels and accum {'as' if zero_ok else 'NOT as'} "
+                  f"nothing composited, opacity gradient "
+                  f"{g0.abs().max().item():.3e}", flush=True)
+            _check(zero_ok, "intercept_probe: the every-count-zero forward "
+                   "composites nothing")
+    n = paths
+    _check(n["bench"]["fwd_c"] > 0 and n["bench"]["bwd_c"] > 0
+           and n["bench"]["fwd"] == n["bench"]["bwd"] == 0
+           and n["bench_exact"]["fwd_x"] > 0 and n["bench_exact"]["bwd_xf"] > 0
+           and all(n[p]["fwd"] > 0 for p in BENCH_TOOLS
+                   if p != "prep_bench")
+           and all(n[p]["bwd"] > 0 for p in ("profile_stages",
+                                              "profile_amortized",
+                                              "intercept_probe"))
+           and sum(n["prep_bench"].values()) == 0,
+           f"phase 22's kernel launches: {n}")
+    print(f"[bench] {card}: seconds (host clock): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in secs.items()) + f"; phase "
+          f"{time.perf_counter() - t_phase:.2f}; launches {LAUNCH_KEYS} "
+          f"(a capture's once a replay): " + ", ".join(
+              f"{p} {tuple(c.values())}" for p, c in n.items()), flush=True)
+    keyed = {key: {p: c[key] for p, c in n.items() if c[key] > 0}
+             for key in LAUNCH_KEYS}
+    return {"paths": keyed, "errs": errs}
+
+
 EXACT_FAST_STEPS = 5       # exact-order training steps with the fast sums
 
 
@@ -3165,6 +3341,7 @@ def main() -> None:
     parser.add_argument("--against", help="with --times: hold them to "
                         "another tree's saved outputs")
     args = parser.parse_args()
+    t_script = time.perf_counter()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device: "
                          "torch.cuda.is_available() is False")
@@ -3809,6 +3986,8 @@ def main() -> None:
     probes = probe_phase(card, args.seed, ptxas)
     # 21. The design probes on the street scene.
     design = design_phase(card, dev, args.seed)
+    # 22. The bench and its six stage profilers.
+    benched = bench_phase(card, dev)
     kern_err = max(kern_err, data["fwd_err"], sharded["fwd_err"])
     bwd_abs = max(bwd_abs, data["bwd_err"], sharded["bwd_err"])
     exact_fwd_err = max(exact_fwd_err, sharded["fwd_x_err"])
@@ -3822,6 +4001,7 @@ def main() -> None:
     tool_errs = {key: {t: e[key] for t, e in {**tools["errs"],
                                               **design["errs"]}.items()}
                  for key in ("fwd", "bwd", "fwd_c", "bwd_c")}
+    tool_errs["fwd"].update(benched["errs"])
     kern_err = max(kern_err, *tool_errs["fwd"].values())
     bwd_abs = max(bwd_abs, *tool_errs["bwd"].values())
     fwd_c_err = max(fwd_c_err, *tool_errs["fwd_c"].values())
@@ -3840,15 +4020,15 @@ def main() -> None:
                  "import_rt_finetune": roundtrip["fine"]["fwd"],
                  "import_rt_eval": roundtrip["eval"]["fwd"],
                  **runner["fwd_paths"], **tools["fwd_paths"],
-                 **design["fwd_paths"]}
+                 **design["fwd_paths"], **benched["paths"]["fwd"]}
     bwd_paths = {"train": train_bwd, "train_tail": mode_launches["tail"][1],
                  **data["bwd_paths"], "sharded": shard_n["bwd"],
-                 **design["bwd_paths"]}
+                 **design["bwd_paths"], **benched["paths"]["bwd"]}
     fwd_x_paths = {"serve_exact": serve_exact,
                    "train_exact": mode_launches["exact"][2],
                    "sharded": shard_n["fwd_x"],
                    "train_exact_fast": cached["launches"]["exact-fast"][2],
-                   **data["fwd_x_paths"]}
+                   **data["fwd_x_paths"], **benched["paths"]["fwd_x"]}
     bwd_x_paths = {"train_exact": mode_launches["exact"][3],
                    "sharded": shard_n["bwd_x"]}
     fwd_c_paths = {**data["fwd_c_paths"], **cli_runs["fwd_c_paths"],
@@ -3856,16 +4036,16 @@ def main() -> None:
                    "train_cached": cached["launches"]["cached"][4],
                    "import_rt_finetune": roundtrip["fine"]["fwd_c"],
                    **runner["fwd_c_paths"], **tools["fwd_c_paths"],
-                   **design["fwd_c_paths"]}
+                   **design["fwd_c_paths"], **benched["paths"]["fwd_c"]}
     bwd_c_paths = {**data["bwd_c_paths"], **cli_runs["bwd_c_paths"],
                    "sharded": shard_n["bwd_c"],
                    "train_cached": cached["launches"]["cached"][5],
                    "import_rt_finetune": roundtrip["fine"]["bwd_c"],
                    **runner["bwd_c_paths"], **tools["bwd_c_paths"],
-                   **design["bwd_c_paths"]}
+                   **design["bwd_c_paths"], **benched["paths"]["bwd_c"]}
     bwd_xf_paths = {"sharded": shard_n["bwd_xf"],
                     "train_exact_fast": cached["launches"]["exact-fast"][6],
-                    **data["bwd_xf_paths"]}
+                    **data["bwd_xf_paths"], **benched["paths"]["bwd_xf"]}
     train_work = works["training", False]
     # (inputs, work, backward, cache, fast) of each kernel's bound.
     kernel_work = {
@@ -3925,6 +4105,8 @@ def main() -> None:
         _check(all(n > 0 for n in paths.values()),
                f"{name} launched on its probe's path: {paths}")
     entries += probes
+    print(f"[total] {card}: chip_smoke.py {time.perf_counter() - t_script:.1f}"
+          f" s (host clock, the build included)", flush=True)
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": sum(paths.values()),

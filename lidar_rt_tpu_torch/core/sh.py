@@ -30,9 +30,15 @@ _DEGREE_OF_COEFF = np.array([0] + [1] * 3 + [2] * 5 + [3] * 7, dtype=np.int32)
 
 
 def degree_mask(active_degree: int, device=None) -> Tensor:
-    """(16,) float mask: 1 for coefficients of degree <= active_degree."""
-    return torch.as_tensor(_DEGREE_OF_COEFF <= int(active_degree),
-                           dtype=torch.float32, device=device)
+    """(16,) float mask: 1 for coefficients of degree <= active_degree.
+
+    Coefficient c has degree floor(sqrt(c)) (`_DEGREE_OF_COEFF`), so the
+    mask is 1 on the first (active_degree + 1)^2 coefficients: made on the
+    device with no copy from the host, which a CUDA graph could not
+    capture."""
+    kept = max(int(active_degree) + 1, 0) ** 2
+    return (torch.arange(NUM_SH_COEFFS, device=device) < kept).to(
+        torch.float32)
 
 
 def basis(dirs: Tensor, active_degree: int) -> Tensor:

@@ -10,13 +10,15 @@ Tensor = torch.Tensor
 
 
 def se3(rotation: Tensor, translation: Tensor) -> Tensor:
-    """(..., 3, 3) + (..., 3) -> homogeneous (..., 4, 4)."""
+    """(..., 3, 3) + (..., 3) -> homogeneous (..., 4, 4).  The corner is
+    filled on the device (a Python scalar assigned by index is copied from
+    the host, which a CUDA graph cannot capture)."""
     batch = rotation.shape[:-2]
     m = torch.zeros((*batch, 4, 4), dtype=rotation.dtype,
                     device=rotation.device)
     m[..., :3, :3] = rotation
     m[..., :3, 3] = translation
-    m[..., 3, 3] = 1.0
+    m[..., 3, 3].fill_(1.0)
     return m
 
 

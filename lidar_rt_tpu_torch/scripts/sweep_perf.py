@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import torch
 
+from lidar_rt_tpu_torch.bench import loss
 from lidar_rt_tpu_torch.core import transforms
 from lidar_rt_tpu_torch.ops import tracer as tracer_lib
 from lidar_rt_tpu_torch.ops.binning import TileConfig, bin_surfels
@@ -47,12 +48,6 @@ def trace_config(th: int, tw: int, k: int, fast: bool
         tile=TileConfig(tile_h=th, tile_w=tw, max_per_tile=k, binner="hier",
                         coarse_factor=COARSE_FACTOR),
         fast_math=fast, cache_fwd=fast)
-
-
-def loss(channels: Tensor) -> Tensor:
-    """The reference's sweep loss: |intensity| and depth squared."""
-    return (channels[..., 3].abs().sum() * 1e-3
-            + (channels[..., 0] ** 2).sum())
 
 
 def sweep(bundle: SurfelBundle, grid, width: int, s2w: Tensor,

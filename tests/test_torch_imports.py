@@ -123,10 +123,11 @@ def test_scripts_import_no_jax():
     """The commands of `lidar_rt_tpu_torch.scripts` (the
     reference-checkpoint commands, the rehearsal runner, the two probes,
     the densify and refine diagnostics, the two user tools, the street
-    scene and its eight design probes, and the JAX checkpoints' import)
-    load no
-    jax, yaml or module of `lidar_rt_tpu`, and each answers --help as a
-    `python -m` entry point."""
+    scene and its eight design probes, the JAX checkpoints' import, and
+    the bench's six stage profilers) and the bench
+    (`lidar_rt_tpu_torch.bench`) load no jax, yaml or module of
+    `lidar_rt_tpu`, and each answers --help as a `python -m` entry
+    point."""
     proc = _python(
         "import sys\n"
         "import lidar_rt_tpu_torch.scripts\n"
@@ -150,6 +151,13 @@ def test_scripts_import_no_jax():
         "import lidar_rt_tpu_torch.scripts.sweep_perf\n"
         "import lidar_rt_tpu_torch.scripts.compact_probe\n"
         "import lidar_rt_tpu_torch.scripts.import_jax_ckpt\n"
+        "import lidar_rt_tpu_torch.bench\n"
+        "import lidar_rt_tpu_torch.scripts.profile_stages\n"
+        "import lidar_rt_tpu_torch.scripts.profile_amortized\n"
+        "import lidar_rt_tpu_torch.scripts.stage_bench\n"
+        "import lidar_rt_tpu_torch.scripts.prep_bench\n"
+        "import lidar_rt_tpu_torch.scripts.intercept_probe\n"
+        "import lidar_rt_tpu_torch.scripts.grid_overhead_probe\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'yaml',\n"
         "                                    'lidar_rt_tpu'))\n"
@@ -159,7 +167,8 @@ def test_scripts_import_no_jax():
     assert proc.stdout.strip() == "clean"
     # Every command's --help at once, each its own process.
     helps = {(module, option): subprocess.Popen(
-        [sys.executable, "-m", f"lidar_rt_tpu_torch.scripts.{module}",
+        [sys.executable, "-m", module if "." in module
+         else f"lidar_rt_tpu_torch.scripts.{module}",
          "--help"], cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
         text=True) for module, option in (
             ("import_reference_ckpt", "--device"),
@@ -179,7 +188,14 @@ def test_scripts_import_no_jax():
             ("profile_binner", "--device"),
             ("sweep_perf", "--fast"),
             ("compact_probe", "--device"),
-            ("import_jax_ckpt", "--models_dir"))}
+            ("import_jax_ckpt", "--models_dir"),
+            ("lidar_rt_tpu_torch.bench", "--device"),
+            ("profile_stages", "--fast"),
+            ("profile_amortized", "--device"),
+            ("stage_bench", "--device"),
+            ("prep_bench", "--device"),
+            ("intercept_probe", "--device"),
+            ("grid_overhead_probe", "--device"))}
     for (module, option), help_ in helps.items():
         out, err = help_.communicate(timeout=300)
         assert help_.returncode == 0, (module, err)
