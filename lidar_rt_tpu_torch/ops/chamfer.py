@@ -15,6 +15,8 @@ from __future__ import annotations
 
 import torch
 
+from lidar_rt_tpu_torch.utils import profiling
+
 Tensor = torch.Tensor
 
 _BIG = 1e12
@@ -85,11 +87,12 @@ def chamfer_distance(a: Tensor, a_mask: Tensor, b: Tensor, b_mask: Tensor,
                      chunk: int = 512) -> Tensor:
     """Symmetric Chamfer loss: the mean of both directions' squared
     nearest-neighbour distances, each direction weighted 1/2."""
-    d_ab = min_sq_dists(a, a_mask, b, b_mask, chunk=chunk)
-    d_ba = min_sq_dists(b, b_mask, a, a_mask, chunk=chunk)
-    na = a_mask.sum().clamp_min(1)
-    nb = b_mask.sum().clamp_min(1)
-    return 0.5 * (d_ab.sum() / na + d_ba.sum() / nb)
+    with profiling.span("chamfer"):
+        d_ab = min_sq_dists(a, a_mask, b, b_mask, chunk=chunk)
+        d_ba = min_sq_dists(b, b_mask, a, a_mask, chunk=chunk)
+        na = a_mask.sum().clamp_min(1)
+        nb = b_mask.sum().clamp_min(1)
+        return 0.5 * (d_ab.sum() / na + d_ba.sum() / nb)
 
 
 def fscore(d_ab: Tensor, a_mask: Tensor, d_ba: Tensor, b_mask: Tensor,

@@ -37,6 +37,7 @@ from lidar_rt_tpu_torch.ops import cuda_tracer, geometry, kernels
 from lidar_rt_tpu_torch.ops.binning import (TileAssignment, TileConfig,
                                             bin_surfels, sensor_points)
 from lidar_rt_tpu_torch.ops.composite import RenderOutputs, SurfelBundle
+from lidar_rt_tpu_torch.utils import profiling
 
 Tensor = torch.Tensor
 
@@ -201,56 +202,59 @@ def trace(bundle: SurfelBundle, grid: rays_lib.SensorGrid, width: int,
     and drops them from the image (their weights still count in accum, as
     the wrap-padded tiles of a whole scan do).
     """
-    if cfg.tail_passes > 0:
-        if isinstance(assignment, TileAssignment):
-            raise ValueError(
-                "tail_passes composites one assignment per pass: pass a "
-                "sequence of tail_passes + 1 TileAssignments (e.g. the "
-                "trainer's cached chain) or None to re-bin per pass")
-        return _trace_tail(bundle, grid, width, sensor2world, background,
-                           active_sh_degree, cfg, min_depth, init_trans,
-                           assignment, col_offset, render_width)
-    if cfg.resolve_engine() == "cuda":
-        return cuda_tracer.trace(bundle, grid, width, sensor2world,
-                                 background, active_sh_degree, cfg.tile,
-                                 assignment, cfg.exact_order, min_depth,
-                                 init_trans, col_offset, render_width,
-                                 cfg.fast_math, cfg.use_cache)
+    with profiling.span("render"):
+        if cfg.tail_passes > 0:
+            if isinstance(assignment, TileAssignment):
+                raise ValueError(
+                    "tail_passes composites one assignment per pass: pass a "
+                    "sequence of tail_passes + 1 TileAssignments (e.g. the "
+                    "trainer's cached chain) or None to re-bin per pass")
+            return _trace_tail(bundle, grid, width, sensor2world, background,
+                               active_sh_degree, cfg, min_depth, init_trans,
+                               assignment, col_offset, render_width)
+        if cfg.resolve_engine() == "cuda":
+            return cuda_tracer.trace(bundle, grid, width, sensor2world,
+                                     background, active_sh_degree, cfg.tile,
+                                     assignment, cfg.exact_order, min_depth,
+                                     init_trans, col_offset, render_width,
+                                     cfg.fast_math, cfg.use_cache)
 
-    h = grid.height
-    w_r = width if render_width is None else render_width
-    n = bundle.num_surfels
-    if assignment is None:
-        assignment = cuda_tracer.bin_bundle(bundle, grid, width,
-                                            sensor2world, cfg.tile,
-                                            col_offset, w_r)
-    origin, dirs = rays_lib.range_rays(grid, width, sensor2world)
-    dirs_t = cuda_tracer.to_tiles(dirs, cfg.tile, col_offset,
-                                  w_r)                        # (T, R, 3)
-    md_t = (None if min_depth is None
-            else cuda_tracer.to_tiles(min_depth, cfg.tile))
-    t0_t = (None if init_trans is None
-            else cuda_tracer.to_tiles(init_trans, cfg.tile))
-    frames = geometry.build_frames(
-        bundle.means, quat_lib.to_rotation_matrix(bundle.rotations), origin)
-    idx_c = assignment.index.clamp(0, n - 1)
+        h = grid.height
+        w_r = width if render_width is None else render_width
+        n = bundle.num_surfels
+        if assignment is None:
+            assignment = cuda_tracer.bin_bundle(bundle, grid, width,
+                                                sensor2world, cfg.tile,
+                                                col_offset, w_r)
+        origin, dirs = rays_lib.range_rays(grid, width, sensor2world)
+        dirs_t = cuda_tracer.to_tiles(dirs, cfg.tile, col_offset,
+                                      w_r)                        # (T, R, 3)
+        md_t = (None if min_depth is None
+                else cuda_tracer.to_tiles(min_depth, cfg.tile))
+        t0_t = (None if init_trans is None
+                else cuda_tracer.to_tiles(init_trans, cfg.tile))
+        frames = geometry.build_frames(
+            bundle.means, quat_lib.to_rotation_matrix(bundle.rotations),
+            origin)
+        idx_c = assignment.index.clamp(0, n - 1)
 
-    chans, wsums = [], []
-    for s in range(0, idx_c.shape[0], cfg.tile_batch):
-        batch = slice(s, s + cfg.tile_batch)
-        idx = idx_c[batch]
-        c, ws = _composite_tile(
-            dirs_t[batch], geometry.SurfelFrames(*(f[idx] for f in frames)),
-            bundle.scales[idx], bundle.opacities[idx], bundle.sh[idx],
-            assignment.valid[batch], background, active_sh_degree,
-            cfg.exact_order, None if md_t is None else md_t[batch],
-            None if t0_t is None else t0_t[batch])
-        chans.append(c)
-        wsums.append(ws)
-    img = cuda_tracer.from_tiles(torch.cat(chans), cfg.tile, h, w_r)
-    accum = cuda_tracer.scatter_accum(assignment, torch.cat(wsums), n)
-    return RenderOutputs(channels=img[..., :9], accum_weights=accum,
-                         raw_trans=img[..., 9])
+        chans, wsums = [], []
+        for s in range(0, idx_c.shape[0], cfg.tile_batch):
+            batch = slice(s, s + cfg.tile_batch)
+            idx = idx_c[batch]
+            c, ws = _composite_tile(
+                dirs_t[batch],
+                geometry.SurfelFrames(*(f[idx] for f in frames)),
+                bundle.scales[idx], bundle.opacities[idx], bundle.sh[idx],
+                assignment.valid[batch], background, active_sh_degree,
+                cfg.exact_order, None if md_t is None else md_t[batch],
+                None if t0_t is None else t0_t[batch])
+            chans.append(c)
+            wsums.append(ws)
+        img = cuda_tracer.from_tiles(torch.cat(chans), cfg.tile, h, w_r)
+        accum = cuda_tracer.scatter_accum(assignment, torch.cat(wsums), n)
+        return RenderOutputs(channels=img[..., :9], accum_weights=accum,
+                             raw_trans=img[..., 9])
 
 
 def _tile_range_cutoff(assignment: TileAssignment, means: Tensor,
@@ -276,21 +280,22 @@ def bin_tail_chain(bundle: SurfelBundle, grid: rays_lib.SensorGrid,
     each strictly past the previous pass's per-tile K-th candidate range
     (a visibility oracle: every input is detached).  `trace` with
     cfg.tail_passes = passes consumes it; the trainer caches it."""
-    w2s = world2sensor.detach()
-    means = bundle.means.detach()
-    chain = []
-    min_range = None
-    for p in range(passes + 1):
-        a = bin_surfels(grid, width, w2s, means, bundle.scales,
-                        bundle.opacities, tile, rotations=bundle.rotations,
-                        min_range=min_range, col_offset=col_offset,
-                        num_cols=num_cols)
-        chain.append(a)
-        if p < passes:
-            cutoff = _tile_range_cutoff(a, means, w2s)
-            min_range = (cutoff if min_range is None
-                         else torch.maximum(cutoff, min_range))
-    return chain
+    with profiling.span("bin"):
+        w2s = world2sensor.detach()
+        means = bundle.means.detach()
+        chain = []
+        min_range = None
+        for p in range(passes + 1):
+            a = bin_surfels(grid, width, w2s, means, bundle.scales,
+                            bundle.opacities, tile, rotations=bundle.rotations,
+                            min_range=min_range, col_offset=col_offset,
+                            num_cols=num_cols)
+            chain.append(a)
+            if p < passes:
+                cutoff = _tile_range_cutoff(a, means, w2s)
+                min_range = (cutoff if min_range is None
+                             else torch.maximum(cutoff, min_range))
+        return chain
 
 
 def _trace_tail(bundle: SurfelBundle, grid: rays_lib.SensorGrid, width: int,

@@ -16,6 +16,7 @@ from lidar_rt_tpu_torch.core import quaternions as quat_lib
 from lidar_rt_tpu_torch.ops.composite import SurfelBundle
 from lidar_rt_tpu_torch.scene.asset import GaussianAsset
 from lidar_rt_tpu_torch.scene.tracks import ActorTrack
+from lidar_rt_tpu_torch.utils import profiling
 
 Tensor = torch.Tensor
 
@@ -80,36 +81,37 @@ def compose(scene: Scene, frame: int, decomp: str | None = None
     decomp: None renders everything; "background" / "object" zero the
     other subset's opacities.
     """
-    if decomp not in (None, "background", "object"):
-        raise ValueError(f"unknown decomp {decomp!r}")
-    frame = min(int(frame), scene.num_frames - 1)
-    bg = scene.background
-    bg_gate = 0.0 if decomp == "object" else 1.0
-    ac_gate = 0.0 if decomp == "background" else 1.0
-    means = [bg.xyz]
-    quats = [bg.rotation]
-    scales = [bg.scales]
-    opac = [torch.where(bg.alive, bg.opacity * bg_gate, 0.0)]
-    shs = [bg.sh]
-    alive = [bg.alive]
+    with profiling.span("compose"):
+        if decomp not in (None, "background", "object"):
+            raise ValueError(f"unknown decomp {decomp!r}")
+        frame = min(int(frame), scene.num_frames - 1)
+        bg = scene.background
+        bg_gate = 0.0 if decomp == "object" else 1.0
+        ac_gate = 0.0 if decomp == "background" else 1.0
+        means = [bg.xyz]
+        quats = [bg.rotation]
+        scales = [bg.scales]
+        opac = [torch.where(bg.alive, bg.opacity * bg_gate, 0.0)]
+        shs = [bg.sh]
+        alive = [bg.alive]
 
-    if scene.actors is not None:
-        ac = scene.actors
-        xyz_w, q_w = _actor_world(ac, scene.tracks, frame)
-        m, a = ac.xyz.shape[:2]
-        means.append(xyz_w.reshape(m * a, 3))
-        quats.append(q_w.reshape(m * a, 4))
-        scales.append(ac.scales.reshape(m * a, 2))
-        opac.append(torch.where(ac.alive, ac.opacity * ac_gate,
-                                0.0).reshape(m * a))
-        shs.append(ac.sh.reshape(m * a, 16, 3))
-        alive.append(ac.alive.reshape(m * a))
+        if scene.actors is not None:
+            ac = scene.actors
+            xyz_w, q_w = _actor_world(ac, scene.tracks, frame)
+            m, a = ac.xyz.shape[:2]
+            means.append(xyz_w.reshape(m * a, 3))
+            quats.append(q_w.reshape(m * a, 4))
+            scales.append(ac.scales.reshape(m * a, 2))
+            opac.append(torch.where(ac.alive, ac.opacity * ac_gate,
+                                    0.0).reshape(m * a))
+            shs.append(ac.sh.reshape(m * a, 16, 3))
+            alive.append(ac.alive.reshape(m * a))
 
-    bundle = SurfelBundle(
-        means=torch.cat(means), rotations=torch.cat(quats),
-        scales=torch.cat(scales), opacities=torch.cat(opac),
-        sh=torch.cat(shs))
-    return bundle, torch.cat(alive)
+        bundle = SurfelBundle(
+            means=torch.cat(means), rotations=torch.cat(quats),
+            scales=torch.cat(scales), opacities=torch.cat(opac),
+            sh=torch.cat(shs))
+        return bundle, torch.cat(alive)
 
 
 def split_by_asset(scene: Scene, flat: Tensor) -> list[Tensor]:

@@ -261,7 +261,8 @@ def make_train_step(frames: LiDARFrames, args,
         for o in opts:
             o.zero_grad()
         lb, out = loss_fn(scene, probe, batch, assignment)
-        lb.total.backward()
+        with profiling.span("backward"):
+            lb.total.backward()
         for o in opts:
             o.step()
         add_densify_stats(state, probe.grad, out["accum_weights"].detach())
@@ -274,12 +275,13 @@ def add_densify_stats(state: TrainState, g_probe: Tensor, accum: Tensor
                       ) -> None:
     """Accumulate each asset's densify statistics from the probe gradient
     (world-mean gradient norms) and the visibility (accum > 0)."""
-    parts_g = split_by_asset(state.scene, g_probe)
-    parts_w = split_by_asset(state.scene, accum)
-    state.stats_bg = state.stats_bg.add(parts_g[0], parts_w[0] > 0)
-    if state.stats_actors is not None:
-        state.stats_actors = state.stats_actors.add(
-            torch.cat(parts_g[1:]), torch.cat(parts_w[1:]) > 0)
+    with profiling.span("density_stats"):
+        parts_g = split_by_asset(state.scene, g_probe)
+        parts_w = split_by_asset(state.scene, accum)
+        state.stats_bg = state.stats_bg.add(parts_g[0], parts_w[0] > 0)
+        if state.stats_actors is not None:
+            state.stats_actors = state.stats_actors.add(
+                torch.cat(parts_g[1:]), torch.cat(parts_w[1:]) > 0)
 
 
 def step_metrics(lb: losses.LossBreakdown) -> dict[str, Tensor]:
@@ -398,28 +400,29 @@ class Trainer:
 
     def step(self) -> dict[str, Tensor]:
         """One iteration with its schedule events; returns its metrics."""
-        opt_cfg = self.args.opt
-        self.iteration += 1
-        it = self.iteration
-        if it % int(opt_cfg.sh_increase_interval) == 0:
-            self.state.scene = self.state.scene.one_up_sh_degree()
-        if self.warmup_until and it > self.warmup_until \
-                and not self._in_scan:
-            # The steady-state budget: new cache shape, every frame stale.
-            self.step_fn, self.step_cfg = self._main_step, self.trace_cfg
-            self.warmup_until = 0
-            self.state.bins = self._fresh_bins(self.trace_cfg)
-        f = self._sample_ids(1)[0]
-        self.state, metrics = self.step_fn(self.state,
-                                           frame_batch(self.frames, f))
-        self._pending_metrics.append((it, f, metrics))
-        if it < int(opt_cfg.densify_until_iter):
-            if (it > int(opt_cfg.densify_from_iter)
-                    and it % int(opt_cfg.densification_interval) == 0):
-                self._densify(it)
-            if it % int(opt_cfg.opacity_reset_interval) == 0:
-                self._reset_opacity()
-        return metrics
+        with profiling.span("step"):
+            opt_cfg = self.args.opt
+            self.iteration += 1
+            it = self.iteration
+            if it % int(opt_cfg.sh_increase_interval) == 0:
+                self.state.scene = self.state.scene.one_up_sh_degree()
+            if self.warmup_until and it > self.warmup_until \
+                    and not self._in_scan:
+                # The steady-state budget: new cache shape, every frame stale.
+                self.step_fn, self.step_cfg = self._main_step, self.trace_cfg
+                self.warmup_until = 0
+                self.state.bins = self._fresh_bins(self.trace_cfg)
+            f = self._sample_ids(1)[0]
+            self.state, metrics = self.step_fn(self.state,
+                                               frame_batch(self.frames, f))
+            self._pending_metrics.append((it, f, metrics))
+            if it < int(opt_cfg.densify_until_iter):
+                if (it > int(opt_cfg.densify_from_iter)
+                        and it % int(opt_cfg.densification_interval) == 0):
+                    self._densify(it)
+                if it % int(opt_cfg.opacity_reset_interval) == 0:
+                    self._reset_opacity()
+            return metrics
 
     def run(self, iterations: int | None = None,
             log_every: int = 100) -> list[dict]:
@@ -476,8 +479,10 @@ class Trainer:
         if not self._pending_metrics:
             return
         keys = list(self._pending_metrics[0][2])
-        host = torch.stack([torch.stack([m[k] for k in keys])
-                            for _, _, m in self._pending_metrics]).tolist()
+        with profiling.span("flush"):
+            host = torch.stack([torch.stack([m[k] for k in keys])
+                                for _, _, m in self._pending_metrics]
+                               ).tolist()
         for (it, f, _), row in zip(self._pending_metrics, host):
             self.history.append({**dict(zip(keys, row)), "iteration": it,
                                  "frame": f})
@@ -495,17 +500,18 @@ class Trainer:
             generator=self.state.generator)
 
     def _densify(self, it: int) -> None:
-        use_size = it > int(self.args.opt.opacity_reset_interval)
-        st = self.state
-        bg = st.scene.background
-        st.stats_bg, counts = density.densify_and_prune(
-            bg, st.opt_bg.all_moments(), st.stats_bg,
-            **self._densify_kwargs(bg, use_size))
-        self.densify_log.append({"iteration": it, "asset": "background",
-                                 **counts._asdict()})
-        if st.scene.actors is not None:
-            self._densify_actors(use_size)
-        self._invalidate_bins()
+        with profiling.span("densify"):
+            use_size = it > int(self.args.opt.opacity_reset_interval)
+            st = self.state
+            bg = st.scene.background
+            st.stats_bg, counts = density.densify_and_prune(
+                bg, st.opt_bg.all_moments(), st.stats_bg,
+                **self._densify_kwargs(bg, use_size))
+            self.densify_log.append({"iteration": it, "asset": "background",
+                                     **counts._asdict()})
+            if st.scene.actors is not None:
+                self._densify_actors(use_size)
+            self._invalidate_bins()
 
     def _densify_actors(self, use_size: bool) -> None:
         """Per-actor densification: each actor is its own model, densified
@@ -533,13 +539,14 @@ class Trainer:
                                  "asset": "actors", **totals._asdict()})
 
     def _reset_opacity(self) -> None:
-        st = self.state
-        density.reset_opacity(st.scene.background,
-                              st.opt_bg.moments("opacity"))
-        if st.scene.actors is not None:
-            density.reset_opacity(st.scene.actors,
-                                  st.opt_actors.moments("opacity"))
-        self._invalidate_bins()
+        with profiling.span("densify"):
+            st = self.state
+            density.reset_opacity(st.scene.background,
+                                  st.opt_bg.moments("opacity"))
+            if st.scene.actors is not None:
+                density.reset_opacity(st.scene.actors,
+                                      st.opt_actors.moments("opacity"))
+            self._invalidate_bins()
 
     def render_eval(self, frame: int) -> dict[str, Tensor]:
         """A render of the current scene at a frame, without autograd."""

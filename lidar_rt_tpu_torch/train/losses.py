@@ -14,6 +14,7 @@ from lidar_rt_tpu_torch.ops import chamfer as chamfer_lib
 from lidar_rt_tpu_torch.ops import ssim as ssim_lib
 from lidar_rt_tpu_torch.scene.asset import GaussianAsset
 from lidar_rt_tpu_torch.scene.tracks import ActorTrack
+from lidar_rt_tpu_torch.utils import profiling
 
 Tensor = torch.Tensor
 
@@ -107,21 +108,22 @@ def render_losses(depth: Tensor, intensity: Tensor, raydrop_prob: Tensor,
     """The 5-term training loss on one rendered frame.  All images (H, W);
     gt_mask is the "ray returned" mask, and the ray-drop labels are its
     complement."""
-    zero = torch.zeros((), device=depth.device)
-    loss_depth = weights.depth_l1 * l1(depth, gt_depth, gt_mask)
-    mask_f = gt_mask.to(intensity.dtype)
-    loss_intensity = (
-        weights.intensity_l1 * l1(intensity, gt_intensity, gt_mask)
-        + weights.intensity_l2 * l2(intensity, gt_intensity, gt_mask)
-        + weights.intensity_dssim * dssim(intensity * mask_f,
-                                          gt_intensity * mask_f))
-    loss_raydrop = weights.raydrop_bce * bce_probs(raydrop_prob, ~gt_mask)
-    loss_cd = zero if cd_loss is None else weights.cd * cd_loss
-    loss_reg = zero if reg_loss is None else weights.reg * reg_loss
-    total = loss_depth + loss_intensity + loss_raydrop + loss_cd + loss_reg
-    return LossBreakdown(total=total, depth=loss_depth,
-                         intensity=loss_intensity, raydrop=loss_raydrop,
-                         cd=loss_cd, reg=loss_reg)
+    with profiling.span("loss"):
+        zero = torch.zeros((), device=depth.device)
+        loss_depth = weights.depth_l1 * l1(depth, gt_depth, gt_mask)
+        mask_f = gt_mask.to(intensity.dtype)
+        loss_intensity = (
+            weights.intensity_l1 * l1(intensity, gt_intensity, gt_mask)
+            + weights.intensity_l2 * l2(intensity, gt_intensity, gt_mask)
+            + weights.intensity_dssim * dssim(intensity * mask_f,
+                                              gt_intensity * mask_f))
+        loss_raydrop = weights.raydrop_bce * bce_probs(raydrop_prob, ~gt_mask)
+        loss_cd = zero if cd_loss is None else weights.cd * cd_loss
+        loss_reg = zero if reg_loss is None else weights.reg * reg_loss
+        total = loss_depth + loss_intensity + loss_raydrop + loss_cd + loss_reg
+        return LossBreakdown(total=total, depth=loss_depth,
+                             intensity=loss_intensity, raydrop=loss_raydrop,
+                             cd=loss_cd, reg=loss_reg)
 
 
 def chamfer_loss(pred_pts: Tensor, pred_mask: Tensor, gt_pts: Tensor,

@@ -16,6 +16,8 @@ import math
 
 import torch
 
+from lidar_rt_tpu_torch.utils import profiling
+
 Tensor = torch.Tensor
 
 ADAM_EPS = 1e-15
@@ -74,12 +76,14 @@ class AssetOptimizer:
         self.steps = 0
 
     def zero_grad(self) -> None:
-        self.adam.zero_grad(set_to_none=True)
+        with profiling.span("adam"):
+            self.adam.zero_grad(set_to_none=True)
 
     def step(self) -> None:
-        self.adam.param_groups[0]["lr"] = self.schedule(self.steps)
-        self.adam.step()
-        self.steps += 1
+        with profiling.span("adam"):
+            self.adam.param_groups[0]["lr"] = self.schedule(self.steps)
+            self.adam.step()
+            self.steps += 1
 
     def moments(self, group: str) -> list[Tensor]:
         """The Adam moments of one group, shaped like its parameter (empty

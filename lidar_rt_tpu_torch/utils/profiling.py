@@ -1,10 +1,12 @@
 """Profiling and failure-detection hooks (counterpart of
 `lidar_rt_tpu.utils.profiling`).
 
-  * `StepTimer`: per-step wall time that waits for the device (CUDA events
-    bracket the interval on a card), the recorder's batch_time source;
+  * `span`: a named profiler annotation (`lrt.<name>`, every name in
+    `SPANS`) around one layer of the program, open only while a
+    `torch.profiler` records, so that it sits on the trace's timeline
+    beside the device work it launched; otherwise a shared no-op;
   * `trace`: a `torch.profiler` trace of [enter, exit), written as a
-    Chrome trace, with every operator's NVTX range on a card;
+    Chrome trace that holds the spans and the device's kernels;
   * `peak_mib`: the process's peak allocated device memory;
   * `enable_anomaly_detection`: `torch.autograd.set_detect_anomaly`;
   * `guard_finite`: snapshots the training state with `utils.checkpoint`
@@ -17,16 +19,47 @@ from __future__ import annotations
 import contextlib
 import math
 import os
-import time
 from typing import Any
 
 import torch
 
 
+# Every span the program emits, with what it holds.  A span wraps one
+# whole call, never the body of a per-chunk, per-tile-batch or per-actor
+# loop.
+SPANS = (
+    "lrt.step",           # Trainer.step: the iteration and its schedule
+    "lrt.bin",            # bin_tail_chain: a frame's tail chain binned
+    "lrt.compose",        # compose: the scene flattened at a frame
+    "lrt.render",         # trace: tile inputs, kernels, tail pass, untile
+    "lrt.chamfer",        # chamfer_distance: searches, ties, pairs
+    "lrt.loss",           # render_losses: L1, L2, DSSIM, BCE, the sum
+    "lrt.backward",       # the training loss's backward()
+    "lrt.adam",           # AssetOptimizer.zero_grad and step
+    "lrt.density_stats",  # add_densify_stats: probe norms, visibility
+    "lrt.densify",        # densify/prune and opacity-reset events
+    "lrt.flush",          # the pending metrics moved to the host
+)
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """The profiler annotation `lrt.<name>` while a `torch.profiler`
+    records; otherwise one shared no-op context, so that a span costs a
+    flag test when nothing is profiled (no annotation, no allocation, no
+    device sync)."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function("lrt." + name)
+    return _OFF
+
+
 @contextlib.contextmanager
 def trace(log_dir: str, device: str | torch.device = "cuda"):
     """Profile [enter, exit) on `device` (the card unless the caller names
-    another) into `<log_dir>/trace.json` (chrome://tracing, Perfetto)."""
+    another) into `<log_dir>/trace.json` (chrome://tracing, Perfetto): the
+    host's operators and `SPANS`, and on a card the device's kernels,
+    copies and memsets on the same timeline."""
     from torch.profiler import ProfilerActivity, profile
 
     cuda = torch.device(device).type == "cuda"
@@ -34,40 +67,11 @@ def trace(log_dir: str, device: str | torch.device = "cuda"):
     if cuda:
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=activities) as prof, \
-            torch.autograd.profiler.emit_nvtx(enabled=cuda):
+    with profile(activities=activities) as prof:
         yield prof
         if cuda:
             torch.cuda.synchronize(device)
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
-
-
-class StepTimer:
-    """Seconds between consecutive `lap()` calls, each ending once the
-    device's queued work is done: with CUDA events on a card (the interval
-    the device took, its waits for the host included), on the host clock
-    otherwise."""
-
-    def __init__(self, device: str | torch.device = "cuda"):
-        self.cuda = torch.device(device).type == "cuda"
-        self.last = self._mark()
-
-    def _mark(self):
-        if not self.cuda:
-            return time.perf_counter()
-        event = torch.cuda.Event(enable_timing=True)
-        event.record()
-        return event
-
-    def lap(self) -> float:
-        now = self._mark()
-        if self.cuda:
-            now.synchronize()
-            dt = self.last.elapsed_time(now) / 1e3
-        else:
-            dt = now - self.last
-        self.last = now
-        return dt
 
 
 def peak_mib(device: str | torch.device) -> float | None:

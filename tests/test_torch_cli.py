@@ -325,8 +325,6 @@ def test_trainer_snapshots_a_non_finite_loss(tmp_path):
 
 
 def test_profiling_hooks(tmp_path):
-    timer = profiling.StepTimer("cpu")
-    assert timer.lap() >= 0.0
     with profiling.trace(str(tmp_path), device="cpu"):
         torch.ones(8).sum()
     assert (tmp_path / "trace.json").exists()
