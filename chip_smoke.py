@@ -328,7 +328,7 @@ def ptxas_report(log: str) -> list[tuple[str, str]]:
     out, kernel, spills = [], None, ""
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            m = re.search(r"((?:tracer|probe)_[a-z_]+_kernel)"
+            m = re.search(r"((?:tracer|probe|candidate)_[a-z_]+_kernel)"
                           r"((?:L[bi]\d+E)*)",
                           line.replace("_kernelI", "_kernel"))
             args = [("true" if v == "1" else "false") if t == "b" else v
@@ -524,6 +524,27 @@ def bound(inputs, work: dict, backward: bool, culled: bool = True,
     by_ops = (flops / PEAK_F32_FLOPS + tf32_flops / PEAK_TF32_FLOPS) * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
                                                            "operations")
+
+
+def candidate_bound(index: torch.Tensor, valid: torch.Tensor,
+                    n: int) -> dict[str, float]:
+    """The least ms the card could take for the candidate gather and
+    scatter at these slots, by bytes (each input read once, each output
+    written once) over the memory rate.  The gather reads each slot's
+    int64 index and bool validity and the row of each surfel it lists (58
+    floats; sentinel slots list surfel N - 1) and writes 64 floats a slot;
+    the scatter reads the index and validity, the 63 gradient floats of
+    each valid slot and 10 floats of each surfel they list, and writes the
+    five (N, .) gradients, 58 floats a surfel."""
+    slots = index.numel()
+    idx = index.clamp(0, n - 1)
+    listed = int(torch.unique(idx).numel())
+    listed_valid = int(torch.unique(idx[valid]).numel())
+    gather = 9 * slots + 4 * (58 * listed + 64 * slots)
+    scatter = 9 * slots + 4 * (63 * int(valid.sum()) + 10 * listed_valid
+                               + 58 * n)
+    return {"candidate_gather": gather / PEAK_BYTES * 1e3,
+            "candidate_scatter": scatter / PEAK_BYTES * 1e3}
 
 
 def _reached(f) -> tuple[torch.Tensor, torch.Tensor]:
@@ -788,8 +809,9 @@ def _train_budgets(trainer, steps: int, what: str, card: str):
     """Run `steps` single steps with the tile-order kernels' launches
     counted from 0, in the trainer's mode (cached or replayed), and print
     them per budget: {K: (steps, forward launches, backward launches,
-    host ms per step)}.  Checks every loss and parameter finite, and that
-    no kernel of another mode ran."""
+    host ms per step)}.  Checks every loss and parameter finite, that no
+    kernel of another mode ran and that the candidate kernels launched
+    with each pass (their counts are left for the caller)."""
     from lidar_rt_tpu_torch.ops import kernels
 
     cached = trainer.trace_cfg.use_cache
@@ -814,6 +836,9 @@ def _train_budgets(trainer, steps: int, what: str, card: str):
             kernels.backward_exact_fast_launches) + others == (0,) * 5,
            f"{what}: launches of another mode in "
            f"{'cached' if cached else 'replayed'} tile-order training")
+    _check(_launch_counts() == _with_prep(_launch_counts()[:7]),
+           f"{what}: one candidate gather a forward and one scatter a "
+           f"backward launch: {dict(zip(LAUNCH_KEYS, _launch_counts()))}")
     loss = [h["loss"] for h in trainer.history]
     _check(len(loss) == steps and all(np.isfinite(loss)),
            f"{what}: training losses finite")
@@ -857,7 +882,7 @@ def data_phase(seed: int, card: str, dev, gen, tmp: str) -> dict:
     out = {"fwd_err": 0.0, "bwd_err": 0.0, "fwd_c_err": 0.0,
            "bwd_c_err": 0.0, "fwd_paths": {}, "bwd_paths": {},
            "fwd_c_paths": {}, "bwd_c_paths": {}, "fwd_x_paths": {},
-           "bwd_xf_paths": {}}
+           "bwd_xf_paths": {}, "prep_g_paths": {}, "prep_s_paths": {}}
     w_dir = os.path.join(tmp, "waymo")
     k_dir = os.path.join(tmp, "kitti360")
     w_imgs, gen_w_s = _timed(lambda: gen_waymo(
@@ -1038,6 +1063,8 @@ def data_phase(seed: int, card: str, dev, gen, tmp: str) -> dict:
                "(fast_math) train with the cache on the card")
         out[f"fwd{mode}_paths"][path] = sum(v[1] for v in by_k.values())
         out[f"bwd{mode}_paths"][path] = sum(v[2] for v in by_k.values())
+        out["prep_g_paths"][path] = kernels.prep_gather_launches
+        out["prep_s_paths"][path] = kernels.prep_scatter_launches
         prof = _device_profile(trainer.step, 3)
         if prof is None:
             print(f"[data-profile] {card}: the trace holds no device "
@@ -1052,19 +1079,19 @@ def data_phase(seed: int, card: str, dev, gen, tmp: str) -> dict:
             for name, ms in top:
                 print(f"[data-profile]   {ms:8.3f} ms  {name[:100]}")
         del trainer
-    out["fwd_x_paths"]["train_rehearsal_exact"], \
-        out["bwd_xf_paths"]["train_rehearsal_exact"] = exact_rehearsal(
-            w_scene, frames_w, card, dev)
+    l256 = exact_rehearsal(w_scene, frames_w, card, dev)
+    for key in ("fwd_x", "bwd_xf", "prep_g", "prep_s"):
+        out[f"{key}_paths"]["train_rehearsal_exact"] = l256[key]
     return out
 
 
-def exact_rehearsal(scene, frames, card: str, dev) -> tuple[int, int]:
+def exact_rehearsal(scene, frames, card: str, dev) -> dict[str, int]:
     """Phase 13's Waymo scene trained with the rehearsal's tracer block
     and exact_order: true, across the switch: the K=512 warm-up resolves
     to the torch engine (the exact kernels take K <= 256), K=256 to the
     exact kernels with the rehearsal's fast sums.  Prints the engine,
     launches, host ms per step and peak memory per budget; returns the
-    exact forward's and the fast exact backward's launches."""
+    K=256 steps' launches by LAUNCH_KEYS."""
     from lidar_rt_tpu_torch.train import loop, options
 
     opts = _waymo_options()
@@ -1089,7 +1116,8 @@ def exact_rehearsal(scene, frames, card: str, dev) -> tuple[int, int]:
         peak = torch.cuda.max_memory_allocated(dev) / 2 ** 20
         n = tuple(b - a for a, b in zip(before, _launch_counts()))
         k = trainer.step_cfg.tile.max_per_tile
-        steps, launches, ms, peaks = by_k.get(k, (0, (0,) * 7, [], []))
+        steps, launches, ms, peaks = by_k.get(
+            k, (0, (0,) * len(LAUNCH_KEYS), [], []))
         by_k[k] = (steps + 1, tuple(a + b for a, b in zip(launches, n)),
                    ms + [1e3 * s], peaks + [peak])
     loss = [h["loss"] for h in trainer.history]
@@ -1106,10 +1134,12 @@ def exact_rehearsal(scene, frames, card: str, dev) -> tuple[int, int]:
     _check((n512, n256) == (EXACT_DATA_WARMUP_UNTIL,
                             EXACT_DATA_STEPS - EXACT_DATA_WARMUP_UNTIL),
            f"exact rehearsal steps per budget {by_k.keys()}")
-    _check(l512 == (0,) * 7, f"K=512 exact steps launch no kernel: {l512}")
-    want = (0, 0, passes * n256, 0, 0, 0, passes * n256)
+    _check(l512 == (0,) * len(LAUNCH_KEYS),
+           f"K=512 exact steps launch no kernel: {l512}")
+    want = _with_prep((0, 0, passes * n256, 0, 0, 0, passes * n256))
     _check(l256 == want, f"K=256 exact steps: launches {l256}, want {want} "
-           "(the exact forward and the fast exact backward)")
+           "(the exact forward and the fast exact backward, fed by the "
+           "candidate gather and scatter)")
     _check(len(loss) == EXACT_DATA_STEPS and all(np.isfinite(loss)),
            "exact rehearsal losses finite")
     for part in ("background", "actors"):
@@ -1120,7 +1150,7 @@ def exact_rehearsal(scene, frames, card: str, dev) -> tuple[int, int]:
     # cache: give them back to the card for the later phases' processes.
     del trainer
     torch.cuda.empty_cache()
-    return l256[2], l256[6]
+    return dict(zip(LAUNCH_KEYS, l256))
 
 
 CLI_ITERATIONS, CLI_RESUMED = 20, 25     # of the rehearsal's 4,000
@@ -1298,12 +1328,18 @@ refine:
            and train_n["fwd_x"] == train_n["bwd_x"] == train_n["bwd_xf"] == 0,
            "CLI training: the cached tile-order kernels (the rehearsal's "
            "fast_math), grad-free renders uncached")
-    _check(eval_n["fwd"] > 0 and sum(eval_launches) == eval_n["fwd"],
-           "CLI eval: uncached tile-order forwards only")
+    _check(train_launches == _with_prep(train_launches[:7]),
+           "CLI training: a candidate gather a pass, a scatter a backward")
+    _check(eval_n["fwd"] > 0
+           and eval_launches == _with_prep((eval_n["fwd"],) + (0,) * 6),
+           "CLI eval: uncached tile-order forwards and their gathers only")
     return {"fwd_paths": {"cli_train": train_n["fwd"],
                           "cli_eval": eval_n["fwd"]},
             "fwd_c_paths": {"cli_train": train_n["fwd_c"]},
-            "bwd_c_paths": {"cli_train": train_n["bwd_c"]}}
+            "bwd_c_paths": {"cli_train": train_n["bwd_c"]},
+            "prep_g_paths": {"cli_train": train_n["prep_g"],
+                             "cli_eval": eval_n["prep_g"]},
+            "prep_s_paths": {"cli_train": train_n["prep_s"]}}
 
 
 SHARDED_STEPS, SHARDED_EXACT_STEPS = 10, 2     # phase 15 (d)
@@ -1371,13 +1407,34 @@ def _state_digest(trainer) -> str:
 
 
 # The launch counts of `_launch_counts`, in order: tile order, exact order,
-# the cached tile order and the exact order's fast sums; and their names in
-# `kernels.launch_counts()`.
-LAUNCH_KEYS = ("fwd", "bwd", "fwd_x", "bwd_x", "fwd_c", "bwd_c", "bwd_xf")
+# the cached tile order and the exact order's fast sums, then the candidate
+# gather and scatter; and their names in `kernels.launch_counts()`.
+LAUNCH_KEYS = ("fwd", "bwd", "fwd_x", "bwd_x", "fwd_c", "bwd_c", "bwd_xf",
+               "prep_g", "prep_s")
 LAUNCH_COUNTERS = ("forward_launches", "backward_launches",
                    "forward_exact_launches", "backward_exact_launches",
                    "forward_cache_launches", "backward_cache_launches",
-                   "backward_exact_fast_launches")
+                   "backward_exact_fast_launches", "prep_gather_launches",
+                   "prep_scatter_launches")
+
+
+def _with_prep(tracer: tuple[int, ...]) -> tuple[int, ...]:
+    """The launches by LAUNCH_KEYS of a run that made `tracer`, its
+    tracer kernels' (the first seven keys), through the render path: a
+    pass gathers its tile inputs once, for its forward launch, and
+    scatters once, for its backward launch."""
+    f, b, fx, bx, fc, bc, bxf = tracer
+    return (*tracer, f + fx + fc, b + bx + bc + bxf)
+
+
+def _prep_launches(path: str) -> tuple[int, int]:
+    """The candidate gather's and scatter's launches since the counters
+    were last reset, in the run of `path`; checks that they are one a
+    render pass and one a backward launch (`_with_prep`)."""
+    n = _launch_counts()
+    _check(n == _with_prep(n[:7]), f"{path}: a candidate gather a forward "
+           f"and a scatter a backward launch: {dict(zip(LAUNCH_KEYS, n))}")
+    return n[7], n[8]
 
 
 def _launch_counts() -> tuple[int, ...]:
@@ -1639,10 +1696,10 @@ def sharded_phase(tmp: str, card: str, dev, seed: int) -> dict:
     out["fwd_c_err"], out["bwd_c_err"] = bands[0]["cached"]
     _check(bands[0]["digest"] == bands[1]["digest"],
            "both ranks hold the same bundle gradients")
-    _check(tuple(bands[0]["launches"]) == (1, 1, 1, 1, 0, 0, 0)
-           and tuple(bands[1]["launches"]) == (1, 1, 1, 1, 0, 0, 0),
-           f"one launch of each kernel per rank and order: "
-           f"{[r['launches'] for r in bands]}")
+    _check(all(tuple(r["launches"]) == _with_prep((1, 1, 1, 1, 0, 0, 0))
+               for r in bands),
+           f"one launch of each kernel per rank and order, a candidate "
+           f"gather and scatter with each: {[r['launches'] for r in bands]}")
 
     # The same bands rendered in this process, one after the other.
     background = torch.tensor([0.0, 0.0, 1.0], device=dev)
@@ -1746,8 +1803,10 @@ def sharded_phase(tmp: str, card: str, dev, seed: int) -> dict:
     _check(spread <= 5e-2, "three runs of the Trainer stay within 5e-2")
     _check(bool(np.isfinite(loss).all()) and rel[0] <= 1e-6
            and rel.max() <= bar, "1x1 ShardedTrainer losses vs Trainer")
-    _check(one[4] == one[5] > 0 and one[1] == one[3] == one[6] == 0,
-           f"1x1: the rehearsal's settings train cached: {one}")
+    _check(one[4] == one[5] > 0 and one[1] == one[3] == one[6] == 0
+           and one == _with_prep(one[:7]),
+           f"1x1: the rehearsal's settings train cached, a candidate gather "
+           f"a pass and a scatter a backward: {one}")
     launches.update(dict(zip(LAUNCH_KEYS, one)))
 
     # (d): a dp = 2 x rays = 2 world.
@@ -1780,8 +1839,8 @@ def sharded_phase(tmp: str, card: str, dev, seed: int) -> dict:
         n = 2 * len(first["loss"])       # two passes a step
         # The rehearsal's fast_math: tile order trains cached, exact order
         # uncached with the fast sums.
-        want = ((0, 0, 0, 0, n, n, 0) if label == "tile"
-                else (0, 0, n, 0, 0, 0, n))
+        want = _with_prep((0, 0, 0, 0, n, n, 0) if label == "tile"
+                          else (0, 0, n, 0, 0, 0, n))
         _check(all(tuple(r["launches"]) == want for r in runs),
                f"2x2 {label}: launches per rank, want {want}")
         for r in runs:
@@ -1866,11 +1925,13 @@ tracer:
     print(f"[import] launches {LAUNCH_KEYS}: fine-tune {f_n}, eval {e_n}")
     passes = 2        # the rehearsal's one tail pass
     _check(f_n[4] == f_n[5] == passes * ROUNDTRIP_FINETUNE
-           and f_n[1] == f_n[2] == f_n[3] == f_n[6] == 0 and f_n[0] > 0,
+           and f_n[1] == f_n[2] == f_n[3] == f_n[6] == 0 and f_n[0] > 0
+           and f_n == _with_prep(f_n[:7]),
            "fine-tune: the cached pair per pass and step (the rehearsal's "
-           "fast_math), its periodic eval uncached")
-    _check(e_n[0] > 0 and sum(e_n) == e_n[0],
-           "eval: uncached tile-order forwards only")
+           "fast_math), its periodic eval uncached, a candidate gather a "
+           "pass and a scatter a backward")
+    _check(e_n[0] > 0 and e_n == _with_prep((e_n[0],) + (0,) * 6),
+           "eval: uncached tile-order forwards and their gathers only")
     for group, row in rec["metrics_mean"].items():
         for k, v in row.items():
             ok = (v == "unavailable(no-weights)" if "lpips" in k
@@ -1996,11 +2057,16 @@ refine:
         e_n = dict(zip(LAUNCH_KEYS, (e_n[c] for c in LAUNCH_COUNTERS)))
         _check(t_n["fwd_c"] == t_n["bwd_c"] == 2 * CLI_ITERATIONS
                and t_n["fwd"] > 0 and t_n["bwd"] == t_n["fwd_x"]
-               == t_n["bwd_x"] == t_n["bwd_xf"] == 0,
+               == t_n["bwd_x"] == t_n["bwd_xf"] == 0
+               and tuple(t_n.values()) == _with_prep(
+                   tuple(t_n.values())[:7]),
                f"runner train {key}: the cached pair per pass and step "
-               f"(one tail pass), evals uncached: {t_n}")
-        _check(e_n["fwd"] > 0 and sum(e_n.values()) == e_n["fwd"],
-               f"runner eval {key}: uncached tile-order forwards: {e_n}")
+               f"(one tail pass), evals uncached, a candidate gather a "
+               f"pass and a scatter a backward: {t_n}")
+        _check(e_n["fwd"] > 0 and tuple(e_n.values())
+               == _with_prep((e_n["fwd"],) + (0,) * 6),
+               f"runner eval {key}: uncached tile-order forwards and their "
+               f"gathers: {e_n}")
         launches[key] = (t_n, e_n)
         mean = got["metrics_mean"]
         print(f"[runner] {card}: {key}: held-out PSNR "
@@ -2028,7 +2094,13 @@ refine:
         "fwd_c_paths": {f"runner_train_{key}": n[0]["fwd_c"]
                         for key, n in launches.items()},
         "bwd_c_paths": {f"runner_train_{key}": n[0]["bwd_c"]
-                        for key, n in launches.items()}}
+                        for key, n in launches.items()},
+        "prep_g_paths": {f"runner_{stage}_{key}": n[i]["prep_g"]
+                         for key, n in launches.items()
+                         for i, stage in enumerate(("train", "eval"))
+                         if n[i] is not None},
+        "prep_s_paths": {f"runner_train_{key}": n[0]["prep_s"]
+                         for key, n in launches.items()}}
 
 
 def split_run(tmp: str, exp_cfg: str, log_path: str, card: str) -> dict:
@@ -2538,6 +2610,10 @@ def tools_phase(tmp: str, card: str, dev, gen) -> dict:
         "bwd_c_paths": {t: n[t]["bwd_c"] for t in ("quality_check",
                                                    "nan_forensics",
                                                    "truncation_trace")},
+        "prep_g_paths": {t: n[t]["prep_g"] for t in n},
+        "prep_s_paths": {t: n[t]["prep_s"] for t in ("quality_check",
+                                                     "nan_forensics",
+                                                     "truncation_trace")},
         "errs": shape_errs}
 
 
@@ -2763,8 +2839,12 @@ def design_phase(card: str, dev, seed: int) -> dict:
            and n["compact_probe"]["fwd"] > 0
            and n["compact_probe"]["bwd"] > 0
            and all(sum(n[p].values()) == 0 for p in DESIGN_PROBES
-                   if p not in ("sweep_perf", "compact_probe")),
-           f"the probes' kernel launches: {n}")
+                   if p not in ("sweep_perf", "compact_probe"))
+           and all(tuple(n[p].values()) == _with_prep(
+               tuple(n[p].values())[:7])
+               for p in ("sweep_perf", "sweep_perf_fast")),
+           f"the probes' kernel launches (the sweep's renders each with a "
+           f"candidate gather, and a scatter with a gradient): {n}")
     macro_level(card, dev, results["profile_binner"])
     print(f"[design] {card}: seconds (host clock): " + ", ".join(
         f"{k} {v:.2f}" for k, v in secs.items()) + f"; launches "
@@ -2777,6 +2857,10 @@ def design_phase(card: str, dev, seed: int) -> dict:
                                                 "compact_probe")},
         "fwd_c_paths": {"sweep_perf_fast": n["sweep_perf_fast"]["fwd_c"]},
         "bwd_c_paths": {"sweep_perf_fast": n["sweep_perf_fast"]["bwd_c"]},
+        "prep_g_paths": {p: n[p]["prep_g"] for p in ("sweep_perf",
+                                                      "sweep_perf_fast")},
+        "prep_s_paths": {p: n[p]["prep_s"] for p in ("sweep_perf",
+                                                      "sweep_perf_fast")},
         "errs": errs}
 
 
@@ -2868,9 +2952,10 @@ def bench_phase(card: str, dev) -> dict:
     _check_grads(errs, "bench: the replayed opacity gradient vs eager")
     cap = r["captured"]
     _check(cap["forward_cache_launches"] == cap["backward_cache_launches"]
-           == bench.ITERS and sum(cap.values()) == 2 * bench.ITERS,
+           == cap["prep_gather_launches"] == cap["prep_scatter_launches"]
+           == bench.ITERS and sum(cap.values()) == 4 * bench.ITERS,
            f"bench: the capture holds one cached forward and backward a "
-           f"step: {cap}")
+           f"step, and one candidate gather and scatter: {cap}")
     _check(all(np.isfinite(r[k]) and r[k] > 0
                for k in ("graph_ms", "eager_ms", "mray_graph")),
            f"bench times: {r}")
@@ -2966,8 +3051,10 @@ def bench_phase(card: str, dev) -> dict:
            and all(n[p]["bwd"] > 0 for p in ("profile_stages",
                                               "profile_amortized",
                                               "intercept_probe"))
-           and sum(n["prep_bench"].values()) == 0,
-           f"phase 22's kernel launches: {n}")
+           and sum(n["prep_bench"].values()) == n["prep_bench"]["prep_g"]
+           > 0,
+           f"phase 22's kernel launches (prep_bench's the candidate "
+           f"gather alone): {n}")
     print(f"[bench] {card}: seconds (host clock): " + ", ".join(
         f"{k} {v:.2f}" for k, v in secs.items()) + f"; phase "
           f"{time.perf_counter() - t_phase:.2f}; launches {LAUNCH_KEYS} "
@@ -3144,6 +3231,7 @@ def cache_phase(card: str, dev, f_inputs, g_fixed, t_inputs, g_train,
         print(f"[cache-train] {card}: {label}, {steps} steps at {H}x{W}: "
               f"launches {dict(zip(LAUNCH_KEYS, got_n))}; {times}peak "
               f"allocated {peak:.1f} MiB; loss {[round(x, 5) for x in loss]}")
+        want = _with_prep(want)
         _check(got_n == want, f"{label} training launches {got_n}, want "
                f"{want}")
         _check(all(np.isfinite(loss)), f"{label}: losses finite")
@@ -3204,6 +3292,130 @@ def ground_truth(scene, grid, poses):
 
 
 TIMES_ROUNDS, TIMES_LAUNCHES = 5, 20
+GRAPH_TIMED = ("candidate_gather", "candidate_scatter")
+PREP_OUTS = ("axes", "plane", "inv_scale", "opac", "sign", "sh")
+PREP_GRADS = ("d_means", "d_rotations", "d_scales", "d_opacities", "d_sh")
+
+
+def _candidate_fns(bundle, origin, assignment, grads, gen) -> dict:
+    """The candidate kernels at one render's candidates, for `--times`:
+    the gather, and the scatter of the tracer backward's gradients
+    `grads`; their plain versions; and, as `library_ms`, what PyTorch ran
+    in their place: the gather's advanced indexing of the five fields
+    (`indexing`), and autograd's backward of it (`index_put_`), one
+    `index_put_(accumulate=True)` per field of per-slot gradients into
+    zeroed (N, .) gradients."""
+    from lidar_rt_tpu_torch.ops import cuda_tracer, kernels
+
+    prep = (*bundle, origin, assignment.index, assignment.valid)
+    args = (bundle, origin, assignment.index, assignment.valid)
+    idx = assignment.index.clamp(0, bundle.means.shape[0] - 1)
+    per_slot = [torch.randn((*idx.shape, *x.shape[1:]), generator=gen,
+                            device=x.device) for x in bundle]
+
+    def index_put():
+        for x, g in zip(bundle, per_slot):
+            torch.zeros_like(x).index_put_((idx,), g, accumulate=True)
+
+    def indexing():
+        for x in bundle:
+            x[idx]
+
+    return {
+        "candidate_gather": lambda: kernels.candidate_gather(*prep),
+        "candidate_scatter": lambda: kernels.candidate_scatter(
+            *prep[:4], *prep[5:], *grads),
+        "candidate_gather_plain":
+            lambda: cuda_tracer.prepare_tile_inputs_reference(*args),
+        "candidate_scatter_plain":
+            lambda: cuda_tracer.candidate_scatter_reference(*args, *grads),
+        "indexing": indexing, "index_put_": index_put}
+
+
+# The card tests' bars on the candidate kernels (tests/
+# test_torch_candidate_prep.py): the gather's axes within GATHER_AXES_ATOL
+# and its plane offsets within GATHER_PLANE_REL of their largest magnitude
+# of the plain gather's, its copies, reciprocals and folds to the bit; the
+# scatter's gradients within SCATTER_REL of each field's largest magnitude
+# of the plain scatter's in float64.
+GATHER_AXES_ATOL, GATHER_PLANE_REL, SCATTER_REL = 1e-6, 2e-6, 1e-4
+
+
+def candidate_check(card: str, dev, bundle, origin, assignment, inputs,
+                    chans, g_chans, degree: int, gen) -> dict:
+    """The candidate gather and scatter at one render's candidates
+    `assignment` (phase 8's training render, whose tile inputs, channels
+    and channel gradients are `inputs`, `chans`, `g_chans`): the gather
+    against `prepare_tile_inputs_reference` and the scatter of the tracer
+    backward's gradients against `candidate_scatter_reference` in
+    float64, at the card tests' bars; each timed from a CUDA graph of
+    TIMES_LAUNCHES launches, beside its bound by bytes
+    (`candidate_bound`), its plain version (CUDA events) and PyTorch's
+    indexing or `index_put_` (`_candidate_fns`).  Returns {name: (max
+    abs err, ms, plain ms, library ms, bound ms)}."""
+    from lidar_rt_tpu_torch.core import sh as sh_lib
+    from lidar_rt_tpu_torch.ops import cuda_tracer, kernels
+    from lidar_rt_tpu_torch.ops.composite import SurfelBundle
+    from lidar_rt_tpu_torch.scripts import street
+
+    index, valid = assignment.index, assignment.valid
+    kept = sh_lib.kept_coeffs(degree)
+    with torch.no_grad():
+        grads = kernels.tracer_backward(*inputs, chans, g_chans)
+        got = kernels.candidate_gather(*bundle, origin, index, valid, kept)
+        want = cuda_tracer.prepare_tile_inputs_reference(
+            bundle, origin, index, valid, degree)
+        d = kernels.candidate_scatter(*bundle[:4], origin, index, valid,
+                                      *grads, kept)
+        ref = cuda_tracer.candidate_scatter_reference(
+            SurfelBundle(*(x.double() for x in bundle)), origin.double(),
+            index, valid, *(x.double() for x in grads), degree)[:5]
+        torch.cuda.synchronize()
+    # Sign and the opacity fold flip where the plane offset is within
+    # rounding of 0: held where it is clear of it.
+    scale = want[1].abs().amax()
+    clear = want[1][:, 0].abs() > 1e-5 * scale                # (T, K)
+    g_err = {name: (a - b).abs().amax().item() for name, a, b in zip(
+        PREP_OUTS, got, want) if name not in ("opac", "sign")}
+    for i, name in ((3, "opac"), (4, "sign")):
+        g_err[name] = ((got[i] - want[i]).abs() * clear).amax().item()
+    g_ok = (g_err["axes"] <= GATHER_AXES_ATOL
+            and g_err["plane"] <= GATHER_PLANE_REL * scale.item()
+            and g_err["inv_scale"] == g_err["sh"] == g_err["opac"]
+            == g_err["sign"] == 0.0)
+    s_err = {name: ((a.double() - b).abs().amax().item(),
+                    SCATTER_REL * b.abs().amax().item())
+             for name, a, b in zip(PREP_GRADS, d, ref)}
+    fns = _candidate_fns(bundle, origin, assignment, grads, gen)
+    ms = {name: street.graph_ms(lambda _i, fn=fns[name]: fn(),
+                                TIMES_LAUNCHES, dev).ms
+          for name in GRAPH_TIMED}
+    plain = {name: _event_ms(fns[name + "_plain"], 3) for name in ms}
+    library = {"candidate_gather": _event_ms(fns["indexing"], 5),
+               "candidate_scatter": _event_ms(fns["index_put_"], 5)}
+    bound_ms = candidate_bound(index, valid, bundle.means.shape[0])
+    print(f"[candidate] {card}: phase 8's training render, T x K = "
+          f"{tuple(index.shape)}, N = {bundle.means.shape[0]}, SH degree "
+          f"{degree}: gather vs plain max abs err " + ", ".join(
+              f"{k} {v:.3e}" for k, v in g_err.items())
+          + f" (bars: axes {GATHER_AXES_ATOL}, plane {GATHER_PLANE_REL} x "
+          f"{scale.item():.3e}, the rest 0; sign and opac where the plane "
+          f"is clear of 0); scatter vs plain (float64) max abs err "
+          + ", ".join(f"{k} {e:.3e} (bar {b:.3e})"
+                      for k, (e, b) in s_err.items()), flush=True)
+    print(f"[candidate] {card}: " + "; ".join(
+        f"{name} {ms[name]:.4f} ms (CUDA graph of {TIMES_LAUNCHES}), bound "
+        f"{bound_ms[name]:.4f} ms (bytes), plain {plain[name]:.4f} ms, "
+        f"library {library[name]:.4f} ms" for name in ms)
+          + " (library: the gather's five indexings; the scatter's "
+          "index_put_ into zeroed gradients)", flush=True)
+    _check(g_ok, f"candidate gather vs its plain version: {g_err}")
+    _check(all(e <= b for e, b in s_err.values()),
+           f"candidate scatter vs its plain version: {s_err}")
+    errs = {"candidate_gather": max(g_err.values()),
+            "candidate_scatter": max(e for e, _ in s_err.values())}
+    return {name: (errs[name], ms[name], plain[name], library[name],
+                   bound_ms[name]) for name in ms}
 
 
 def kernel_times(seed: int, save: str | None, against: str | None) -> None:
@@ -3215,14 +3427,21 @@ def kernel_times(seed: int, save: str | None, against: str | None) -> None:
     TIMES_LAUNCHES launches each, all modes in turn within a round (median,
     min and max over the rounds): the tile-order modes at phase 8's
     training inputs (the trainer's tile inputs at pose 0 after 30 steps),
-    the exact ones at phase 3's serving inputs.  The kernels' outputs on
-    the serving inputs (deterministic; each backward run twice, for the
-    atomics' spread) go to `save`; with `against`, a file that another
-    tree saved, they are held to it: the channels to the bit, accum and
-    every gradient within 4 x the larger spread of two runs or 1e-5 of the
-    field's largest magnitude."""
+    the exact ones at phase 3's serving inputs; then the candidate gather
+    and scatter at the training render's candidates beside their bound,
+    their plain versions and `index_put_` (`_candidate_fns`).  The
+    kernels' outputs on the serving inputs (deterministic; each backward
+    and the scatter run twice, for the atomics' spread) go to `save`; with
+    `against`, a file that another tree saved, they are held to it: the
+    channels and the gather's outputs to the bit, accum and every gradient
+    within 4 x the larger spread of two runs or 1e-5 of the field's
+    largest magnitude; the candidate kernels' outputs, which a tree
+    without them did not save, are then named and skipped, and any other
+    key missing fails."""
+    from lidar_rt_tpu_torch.core import rays as rays_lib
     from lidar_rt_tpu_torch.ops import cuda_tracer, kernels, tracer
     from lidar_rt_tpu_torch.scene import compose, scene_from_numpy
+    from lidar_rt_tpu_torch.scripts import street
     from lidar_rt_tpu_torch.train import loop, options
 
     card = _card()
@@ -3247,14 +3466,15 @@ def kernel_times(seed: int, save: str | None, against: str | None) -> None:
     trainer.run(TRAIN_STEPS + 10, log_every=TRAIN_STEPS + 10)
     gen = torch.Generator(device=dev).manual_seed(seed)
     with torch.no_grad():
-        bundle, _ = compose(scene, 0)
-        serve, _ = cuda_tracer.tile_inputs(
-            bundle, grid, W, s2w, scene.background.active_sh_degree, cfg.tile)
+        s_bundle, _ = compose(scene, 0)
+        serve, s_assign = cuda_tracer.tile_inputs(
+            s_bundle, grid, W, s2w, scene.background.active_sh_degree,
+            cfg.tile)
         bundle, _ = compose(trainer.state.scene, 0)
-        train, _ = cuda_tracer.tile_inputs(
+        train, t_assign = cuda_tracer.tile_inputs(
             bundle, grid, W, poses[0],
             trainer.state.scene.background.active_sh_degree, cfg.tile)
-        del trainer, bundle
+        del trainer
         chans, accum = kernels.tracer_forward(*serve)
         x_chans, x_accum = kernels.tracer_forward(*serve, exact=True)
         t_chans, _ = kernels.tracer_forward(*train)
@@ -3287,14 +3507,34 @@ def kernel_times(seed: int, save: str | None, against: str | None) -> None:
                 *serve, x_chans, g_exact, exact=True),
             "exact_backward_fast": lambda: kernels.tracer_backward(
                 *serve, x_chans, g_exact, exact=True, fast=True)}
+        fns.update(_candidate_fns(bundle, rays_lib.range_rays(
+            grid, W, poses[0])[0], t_assign, kernels.tracer_backward(
+                *train, t_chans, g_train), gen))
+        for name in GRAPH_TIMED:
+            fns[name + "_eager"] = fns[name]
         ms = {name: [] for name in fns}
         for _ in range(TIMES_ROUNDS):
             for name, fn in fns.items():
-                ms[name].append(_event_ms(fn, TIMES_LAUNCHES))
+                ms[name].append(street.graph_ms(
+                    lambda _i, fn=fn: fn(), TIMES_LAUNCHES, dev).ms
+                    if name in GRAPH_TIMED else _event_ms(fn, TIMES_LAUNCHES))
     print(f"[times] {card}: CUDA events, {TIMES_ROUNDS} rounds of "
-          f"{TIMES_LAUNCHES} launches, median (min-max): " + ", ".join(
+          f"{TIMES_LAUNCHES} launches ({', '.join(GRAPH_TIMED)} from a CUDA "
+          "graph of them, whose eager launches the host paces), median "
+          "(min-max): " + ", ".join(
               f"{name} {statistics.median(v):.4f} ({min(v):.4f}-"
               f"{max(v):.4f}) ms" for name, v in ms.items()), flush=True)
+    med = {name: statistics.median(v) for name, v in ms.items()}
+    b_ms = candidate_bound(t_assign.index, t_assign.valid,
+                           bundle.means.shape[0])
+    print(f"[times-prep] {card}: phase 8's training render, T x K = "
+          f"{tuple(t_assign.index.shape)}, N = {bundle.means.shape[0]}: "
+          + "; ".join(f"{name} {med[name]:.4f} ms (eager "
+                      f"{med[name + '_eager']:.4f}), bound {b_ms[name]:.4f} "
+                      f"ms (bytes), plain {med[name + '_plain']:.4f} ms"
+                      for name in b_ms)
+          + f"; library_ms (index_put_, autograd's backward of the five "
+          f"gathers) {med['index_put_']:.4f} ms", flush=True)
     with torch.no_grad():
         outs = {"chans": chans, "accum": accum, "exact_chans": x_chans,
                 "exact_accum": x_accum}
@@ -3307,17 +3547,34 @@ def kernel_times(seed: int, save: str | None, against: str | None) -> None:
                     for _ in range(2)]
             for name, *fields in zip(TWIN_GRADS, *runs):
                 outs[f"{label} {name}"] = fields
+        prep = (*s_bundle, rays_lib.range_rays(grid, W, s2w)[0],
+                s_assign.index, s_assign.valid)
+        for name, x in zip(PREP_OUTS, kernels.candidate_gather(*prep)):
+            outs[f"prep {name}"] = x
+        d_serve = kernels.tracer_backward(*serve, chans, g_serve)
+        runs = [kernels.candidate_scatter(*prep[:4], *prep[5:], *d_serve)
+                for _ in range(2)]
+        for name, *fields in zip(PREP_GRADS, *runs):
+            outs[f"prep {name}"] = fields
         torch.cuda.synchronize()
     if save:
         torch.save(outs, save)
     if not against:
         return
     other = torch.load(against, map_location=dev)
-    for key in ("chans", "exact_chans"):
+    # A tree without the candidate kernels saved no `prep *` outputs.
+    missing = [key for key in outs if key not in other]
+    for key in missing:
+        print(f"[times-against] {key}: not in {against}")
+    _check(all(key.startswith("prep ") for key in missing),
+           f"{against} holds every output but the candidate kernels': "
+           f"{missing} missing")
+    exact = ["chans", "exact_chans"] + [f"prep {name}" for name in PREP_OUTS]
+    for key in [key for key in exact if key in other]:
         same = torch.equal(outs[key], other[key])
         print(f"[times-against] {key}: {'bit-identical' if same else 'DIFFER'}")
         _check(same, f"{key} against {against}")
-    for key in [key for key in outs if "chans" not in key]:
+    for key in [key for key in outs if key not in exact and key in other]:
         mine = outs[key] if isinstance(outs[key], list) else [outs[key]] * 2
         theirs = (other[key] if isinstance(other[key], list)
                   else [other[key]] * 2)
@@ -3421,6 +3678,7 @@ def main() -> None:
     torch.cuda.synchronize()
     launches = kernels.forward_launches
     serve_bwd = kernels.backward_launches
+    prep_n = {"serve": _prep_launches("serve")}
     peak_mib = torch.cuda.max_memory_allocated(dev) / 2 ** 20
     renders = 1 + N_FRAMES
     print(f"[slice] render_scan + resimulate({N_FRAMES}): {renders} renders, "
@@ -3571,6 +3829,7 @@ def main() -> None:
     train_s = time.perf_counter() - t
     train_fwd = kernels.forward_launches
     train_bwd = kernels.backward_launches
+    prep_n["train"] = _prep_launches("train")
     train_peak_mib = torch.cuda.max_memory_allocated(dev) / 2 ** 20
     loss = [h["loss"] for h in history]
     seen = [h["frame"] for h in history]
@@ -3608,7 +3867,7 @@ def main() -> None:
         step_ms.append((time.perf_counter() - t) * 1e3)
     with torch.no_grad():
         bundle, _ = compose(trainer.state.scene, 0)
-        t_inputs, _ = cuda_tracer.tile_inputs(
+        t_inputs, t_assign = cuda_tracer.tile_inputs(
             bundle, grid, W, poses[0], trainer.state.scene.background
             .active_sh_degree, cfg.tile)
         t_chans, _ = kernels.tracer_forward(*t_inputs)
@@ -3642,6 +3901,9 @@ def main() -> None:
         (out["depth"].sum() + out["intensity"].sum()).backward()
 
     origin, dirs3 = rays_lib.range_rays(grid, W, poses[0])
+    candidates = candidate_check(
+        card, dev, bundle, origin, t_assign, t_inputs, t_chans, g_train,
+        trainer.state.scene.background.active_sh_degree, gen)
     stride = max(1, H * W // opts.opt.cd_max_points)
     gt_pts = origin + dirs3.reshape(-1, 3)[::stride] \
         * frames.depth(0).reshape(-1)[::stride, None]
@@ -3815,6 +4077,7 @@ def main() -> None:
     seq_x = sim.resimulate(scene, grid, W, poses, cfg=exact_cfg)
     torch.cuda.synchronize()
     serve_exact = kernels.forward_exact_launches
+    prep_n["serve_exact"] = _prep_launches("serve_exact")
     _check((serve_exact, kernels.forward_launches, kernels.backward_launches,
             kernels.backward_exact_launches) == (renders, 0, 0, 0),
            f"{serve_exact} exact forward launches for {renders} renders, "
@@ -3842,6 +4105,7 @@ def main() -> None:
         ret1, ret2 = tracer.render_multi_return(bundle, grid, W, s2w, degree)
         torch.cuda.synchronize()
         multi = kernels.forward_launches
+        prep_n["serve_multi_return"] = _prep_launches("serve_multi_return")
         _check((multi, kernels.forward_exact_launches) == (2, 0),
                f"{multi} forward launches for two returns")
         torch_cfg = tracer.TraceConfig(engine="torch")
@@ -3867,6 +4131,7 @@ def main() -> None:
     scan_t = sim.render_scan(scene, grid, W, s2w, 0, tail_cfg)
     torch.cuda.synchronize()
     serve_tail = kernels.forward_launches
+    prep_n["serve_tail"] = _prep_launches("serve_tail")
     _check((serve_tail, kernels.forward_exact_launches) == (2, 0),
            f"{serve_tail} forward launches for a one-tail-pass scan")
     plain_t = sim.render_scan(scene, grid, W, s2w, 0, tracer.TraceConfig(
@@ -3934,6 +4199,7 @@ def main() -> None:
                kernels.backward_exact_launches)
         mode_peak_mib = torch.cuda.max_memory_allocated(dev) / 2 ** 20
         mode_launches[label] = got
+        prep_n[f"train_{label}"] = _prep_launches(f"train_{label}")
         loss = [h["loss"] for h in trainer.history]
         seen = [h["frame"] for h in trainer.history]
         rebins = trainer.state.bins.rebins
@@ -4046,6 +4312,26 @@ def main() -> None:
     bwd_xf_paths = {"sharded": shard_n["bwd_xf"],
                     "train_exact_fast": cached["launches"]["exact-fast"][6],
                     **data["bwd_xf_paths"], **benched["paths"]["bwd_xf"]}
+    # The candidate gather serves every render pass, its scatter every
+    # pass with a gradient.
+    prep_g_paths = {**{p: g for p, (g, _) in prep_n.items()},
+                    "train_cached": cached["launches"]["cached"][7],
+                    "train_exact_fast": cached["launches"]["exact-fast"][7],
+                    **data["prep_g_paths"], **cli_runs["prep_g_paths"],
+                    "sharded": shard_n["prep_g"],
+                    "import_rt_finetune": roundtrip["fine"]["prep_g"],
+                    "import_rt_eval": roundtrip["eval"]["prep_g"],
+                    **runner["prep_g_paths"], **tools["prep_g_paths"],
+                    **design["prep_g_paths"], **benched["paths"]["prep_g"]}
+    prep_s_paths = {**{p: prep_n[p][1] for p in ("train", "train_tail",
+                                                 "train_exact")},
+                    "train_cached": cached["launches"]["cached"][8],
+                    "train_exact_fast": cached["launches"]["exact-fast"][8],
+                    **data["prep_s_paths"], **cli_runs["prep_s_paths"],
+                    "sharded": shard_n["prep_s"],
+                    "import_rt_finetune": roundtrip["fine"]["prep_s"],
+                    **runner["prep_s_paths"], **tools["prep_s_paths"],
+                    **design["prep_s_paths"], **benched["paths"]["prep_s"]}
     train_work = works["training", False]
     # (inputs, work, backward, cache, fast) of each kernel's bound.
     kernel_work = {
@@ -4104,7 +4390,21 @@ def main() -> None:
               f"{b_ms:.4f} ms ({b_by}); launches {paths}")
         _check(all(n > 0 for n in paths.values()),
                f"{name} launched on its probe's path: {paths}")
-    entries += probes
+    library_ms = {name: c[3] for name, c in candidates.items()}
+    prep = [(name, "lidar_rt_tpu_torch/csrc/candidate_prep.cu", replaces,
+             paths, *candidates[name][:3], (candidates[name][4], "bytes"))
+            for name, replaces, paths in (
+                ("candidate_gather", "lidar_rt_tpu/ops/pallas_tracer.py:428 "
+                 "(XLA's gather)", prep_g_paths),
+                ("candidate_scatter", "lidar_rt_tpu/ops/pallas_tracer.py:428 "
+                 "(XLA's transpose of the gather)", prep_s_paths))]
+    for name, _src, _rep, paths, _err, ms, _plain, (b_ms, b_by) in prep:
+        print(f"[bound] {card}: {name} {ms:.4f} ms against a bound of "
+              f"{b_ms:.4f} ms ({b_by}); library {library_ms[name]:.4f} ms; "
+              f"launches {paths}")
+        _check(all(n > 0 for n in paths.values()),
+               f"{name} launched on every path it serves: {paths}")
+    entries += prep + probes
     print(f"[total] {card}: chip_smoke.py {time.perf_counter() - t_script:.1f}"
           f" s (host clock, the build included)", flush=True)
     print(json.dumps({"kernels": [{
@@ -4113,7 +4413,7 @@ def main() -> None:
         "launches_by_path": paths, "max_abs_err": err,
         "max_abs_err_by_path": errs_by_path.get(name, {}), "ms": ms,
         "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": None,
+        "library_ms": library_ms.get(name),
     } for name, source, replaces, paths, err, ms, plain_ms, (b_ms, b_by)
         in entries]}))
     print(json.dumps({"ok": True, "device": {

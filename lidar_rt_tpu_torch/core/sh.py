@@ -29,16 +29,19 @@ C3 = (-0.5900435899266435, 2.890611442640554, -0.4570457994644658,
 _DEGREE_OF_COEFF = np.array([0] + [1] * 3 + [2] * 5 + [3] * 7, dtype=np.int32)
 
 
-def degree_mask(active_degree: int, device=None) -> Tensor:
-    """(16,) float mask: 1 for coefficients of degree <= active_degree.
+def kept_coeffs(active_degree: int) -> int:
+    """How many leading coefficients have degree <= active_degree:
+    coefficient c has degree floor(sqrt(c)) (`_DEGREE_OF_COEFF`), so the
+    first (active_degree + 1)^2, at most all 16."""
+    return min(max(int(active_degree) + 1, 0) ** 2, NUM_SH_COEFFS)
 
-    Coefficient c has degree floor(sqrt(c)) (`_DEGREE_OF_COEFF`), so the
-    mask is 1 on the first (active_degree + 1)^2 coefficients: made on the
-    device with no copy from the host, which a CUDA graph could not
-    capture."""
-    kept = max(int(active_degree) + 1, 0) ** 2
-    return (torch.arange(NUM_SH_COEFFS, device=device) < kept).to(
-        torch.float32)
+
+def degree_mask(active_degree: int, device=None) -> Tensor:
+    """(16,) float mask: 1 for coefficients of degree <= active_degree,
+    the first `kept_coeffs(active_degree)`: made on the device with no
+    copy from the host, which a CUDA graph could not capture."""
+    return (torch.arange(NUM_SH_COEFFS, device=device)
+            < kept_coeffs(active_degree)).to(torch.float32)
 
 
 def basis(dirs: Tensor, active_degree: int) -> Tensor:

@@ -26,6 +26,14 @@ kernels and twins composite in tile order, or with `exact` in each ray's
 ascending (depth, candidate index) order of its gate-passing hits.  The
 background term and the ray-drop head stay outside the kernels.
 
+The candidate rows of the boundary (axes .. sh) come from
+`_prepare_tile_inputs`: on CUDA tensors the candidate gather kernel, whose
+VJP is the candidate scatter kernel (`_CandidatePrep`, csrc/
+candidate_prep.cu: per valid slot, with atomics, in place of autograd's
+sorted `index_put_`); on CPU tensors the plain gather under autograd
+(`prepare_tile_inputs_reference`; the scatter's closed form is
+`candidate_scatter_reference`).
+
 The reference's two training modes (`ops.tracer.TraceConfig`): with
 `cache` (tile order) the forward also returns each (ray, candidate) step's
 signed gated alpha and signed exclusive transmittance as bfloat16, (T, K,
@@ -137,12 +145,16 @@ def bin_bundle(bundle: SurfelBundle, grid: rays_lib.SensorGrid, width: int,
                        num_cols=num_cols)
 
 
-def _prepare_tile_inputs(bundle: SurfelBundle, origin: Tensor,
-                         index: Tensor, valid: Tensor):
-    """Gather candidates and build their frames in (T, ., K) layout:
-    (axes, plane, inv_scale, opac, sign, sh).  The frame math is the torch
-    engine's (`build_frames` of `to_rotation_matrix`), so both engines see
-    the same per-pair alphas."""
+def prepare_tile_inputs_reference(bundle: SurfelBundle, origin: Tensor,
+                                  index: Tensor, valid: Tensor,
+                                  sh_degree: int | None = None):
+    """Plain PyTorch version of the candidate gather (`kernels.
+    candidate_gather`), differentiable by autograd: gather candidates and
+    build their frames in (T, ., K) layout: (axes, plane, inv_scale, opac,
+    sign, sh).  The frame math is the torch engine's (`build_frames` of
+    `to_rotation_matrix`), so both engines see the same per-pair alphas.
+    sh_degree: the active SH degree, whose mask folds into sh (None: no
+    mask)."""
     n = bundle.means.shape[0]
     idx = index.clamp(0, n - 1)                               # (T, K)
     frames = geometry.build_frames(
@@ -154,7 +166,99 @@ def _prepare_tile_inputs(bundle: SurfelBundle, origin: Tensor,
     # Binner validity and the degenerate-plane gate fold into opacity.
     opac = bundle.opacities[idx] * valid * (frames.p != 0.0)
     sh = bundle.sh[idx].permute(0, 3, 2, 1)                   # (T, 3, 16, K)
+    if sh_degree is not None:
+        sh = sh * sh_lib.degree_mask(sh_degree, sh.device)[:, None]
     return (axes.transpose(2, 3), plane, inv_scale, opac, frames.sign, sh)
+
+
+def candidate_scatter_reference(bundle: SurfelBundle, origin: Tensor,
+                                index: Tensor, valid: Tensor,
+                                d_axes: Tensor, d_plane: Tensor,
+                                d_inv_scale: Tensor, d_opac: Tensor,
+                                d_sh: Tensor, sh_degree: int | None = None
+                                ) -> tuple[Tensor, ...]:
+    """Plain PyTorch version of the candidate scatter (`kernels.
+    candidate_scatter`): the VJP of `prepare_tile_inputs_reference` for
+    the gradients of its outputs but sign, per slot through build_frames,
+    the rotation matrix and the quaternion's normalisation
+    (`quaternions.rotation_matrix_vjp`), 1 / scale, the opacity fold and
+    the SH mask, added per surfel with `index_add_`.  Only valid slots add: the
+    tracer backward leaves every gradient past a tile's valid prefix at
+    zero (`backward_tiles_reference`), so there the VJP is zero too.
+    Returns (d_means, d_rotations, d_scales, d_opacities, d_sh, d_origin)
+    in the bundle's shapes and (3,)."""
+    n = bundle.means.shape[0]
+    idx = index.clamp(0, n - 1)
+    q = bundle.rotations[idx]                                 # (T, K, 4)
+    m = quat_lib.to_rotation_matrix(q)                        # (T, K, 3, 3)
+    w1, w2, nv = m[..., :, 0], m[..., :, 1], m[..., :, 2]
+    omm = origin - bundle.means[idx]
+    p = -(nv * omm).sum(-1)
+    da = d_axes.permute(0, 3, 1, 2)                           # (T, K, 3, 3)
+    dp, dau, dav = (x[..., None] for x in d_plane.unbind(1))  # (T, K, 1)
+    g = torch.stack([da[..., 1, :] + dau * omm, da[..., 2, :] + dav * omm,
+                     da[..., 0, :] - dp * omm], dim=-1)       # G[r][c]
+    d_omm = -dp * nv + dau * w1 + dav * w2
+    dq = quat_lib.rotation_matrix_vjp(q, g)
+    r = 1.0 / bundle.scales[idx]
+    d_s = -(d_inv_scale.transpose(1, 2) * (r * r))
+    d_op = torch.where(p != 0.0, d_opac, 0.0)
+    d_shg = d_sh.permute(0, 3, 2, 1)                          # (T, K, 16, 3)
+    if sh_degree is not None:
+        d_shg = d_shg * sh_lib.degree_mask(sh_degree, d_sh.device)[:, None]
+    slot = torch.where(valid, idx, n).reshape(-1)
+
+    def add(x):
+        out = x.new_zeros((n + 1, *x.shape[2:]))
+        return out.index_add_(0, slot, x.reshape(-1, *x.shape[2:]))[:n]
+
+    d_means = add(-d_omm)
+    return (d_means, add(dq), add(d_s), add(d_op), add(d_shg),
+            -d_means.sum(0))
+
+
+class _CandidatePrep(torch.autograd.Function):
+    """The candidate gather and its VJP as one differentiable boundary on
+    CUDA tensors: `kernels.candidate_gather` forward, `kernels.
+    candidate_scatter` backward.  Saves only the inputs (no gathered
+    copies).  The origin's gradient, -sum of the means', only when
+    asked."""
+
+    @staticmethod
+    def forward(ctx, sh_kept, origin, index, valid, means, rotations, scales,
+                opacities, sh):
+        fields = [x.contiguous() for x in (means, rotations, scales,
+                                           opacities, sh)]
+        out = kernels.candidate_gather(*fields, origin, index, valid,
+                                       sh_kept)
+        ctx.sh_kept = sh_kept
+        ctx.save_for_backward(origin, index, valid, *fields[:4])
+        ctx.mark_non_differentiable(out[4])
+        return out
+
+    @staticmethod
+    def backward(ctx, d_axes, d_plane, d_inv_scale, d_opac, _d_sign, d_sh):
+        origin, index, valid, *fields = ctx.saved_tensors
+        grads = kernels.candidate_scatter(*fields, origin, index, valid,
+                                          d_axes, d_plane, d_inv_scale,
+                                          d_opac, d_sh, ctx.sh_kept)
+        d_origin = -grads[0].sum(0) if ctx.needs_input_grad[1] else None
+        return (None, d_origin, None, None, *grads)
+
+
+def _prepare_tile_inputs(bundle: SurfelBundle, origin: Tensor,
+                         index: Tensor, valid: Tensor,
+                         sh_degree: int | None = None):
+    """The tracer kernels' candidate inputs, (axes, plane, inv_scale,
+    opac, sign, sh), as `prepare_tile_inputs_reference`: its plain body
+    for CPU tensors, the candidate kernels (`_CandidatePrep`) for CUDA
+    tensors, which raise on failure; nothing falls back."""
+    if index.device.type == "cpu":
+        return prepare_tile_inputs_reference(bundle, origin, index, valid,
+                                             sh_degree)
+    kept = (sh_lib.NUM_SH_COEFFS if sh_degree is None
+            else sh_lib.kept_coeffs(sh_degree))
+    return _CandidatePrep.apply(kept, origin, index, valid, *bundle)
 
 
 def tile_inputs(bundle: SurfelBundle, grid: rays_lib.SensorGrid, width: int,
@@ -191,10 +295,9 @@ def tile_inputs(bundle: SurfelBundle, grid: rays_lib.SensorGrid, width: int,
         t0 = torch.ones((t_total, rays_per_tile), device=dirs_t.device)
     else:
         t0 = to_tiles(init_trans, tile).contiguous()
-    axes, plane, inv_scale, opac, sign, sh = _prepare_tile_inputs(
-        bundle, origin, assignment.index, assignment.valid)
     # The kernel computes the full-degree basis; the mask folds into sh.
-    sh = sh * sh_lib.degree_mask(active_sh_degree, sh.device)[:, None]
+    axes, plane, inv_scale, opac, sign, sh = _prepare_tile_inputs(
+        bundle, origin, assignment.index, assignment.valid, active_sh_degree)
     cnt = assignment.valid.sum(1, dtype=torch.int32)
     inputs = TileInputs(cnt, dirs_t, mind, t0, *(
         x.contiguous() for x in (axes, plane, inv_scale, opac, sign, sh)))

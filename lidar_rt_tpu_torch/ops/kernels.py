@@ -1,7 +1,8 @@
 """Build, binding and launch counters of the hand-written CUDA kernels.
 
 Each kernel source under `csrc/` (`tracer_forward.cu`, `tracer_backward.cu`;
-both include `tracer_common.cuh`; and the two probes of
+both include `tracer_common.cuh`; `candidate_prep.cu`, the gather of the
+tracer's tile inputs and its scatter-add VJP; and the two probes of
 `lidar_rt_tpu_torch/scripts/`, `kernel_microbench.cu` and
 `bf16_microbench.cu`) is compiled with nvcc for sm_90a into its own shared
 library with a plain C entry point, loaded with ctypes, at first use.
@@ -31,6 +32,8 @@ from typing import NamedTuple
 
 import torch
 
+from lidar_rt_tpu_torch.core.sh import NUM_SH_COEFFS
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -48,6 +51,11 @@ ENTRY_POINTS = {
         "tracer_backward": [_P] * 16 + [_I] * 5 + [_P],
         "tracer_backward_occupancy": [_I, _I, _P],
     },
+    "candidate_prep": {
+        "candidate_gather": [_P] * 14 + [_I] * 5 + [_P],
+        "candidate_scatter": [_P] * 17 + [_I] * 10 + [_P],
+        "candidate_prep_occupancy": [_I, _I, _P],
+    },
     "kernel_microbench": {
         "kernel_microbench": [_P] * 8 + [_I] * 4 + [_P],
     },
@@ -59,13 +67,14 @@ KERNELS = tuple(ENTRY_POINTS)
 # Each library's `const char* (int)` entry point naming a CUDA error.
 ERROR_STRINGS = {"tracer_forward": "tracer_error_string",
                  "tracer_backward": "tracer_error_string",
+                 "candidate_prep": "candidate_prep_error_string",
                  "kernel_microbench": "probe_error_string",
                  "bf16_microbench": "probe_error_string"}
 # The device kernels of each library, in the index order of its
 # `<library>_occupancy` entry point.  tracer_forward_kernel<cache>;
 # tracer_backward_kernel<source, fast>, source 0 the tile-order replay, 1
 # the exact walk's pairs; tracer_backward_cache_kernel<fast>, the cache
-# decode.
+# decode; candidate_prep's gather and scatter.
 DEVICE_KERNELS = {
     "tracer_forward": ("tracer_forward_kernel<false>",
                        "tracer_forward_exact_kernel",
@@ -77,6 +86,8 @@ DEVICE_KERNELS = {
                         "tracer_backward_kernel<1,true>",
                         "tracer_backward_kernel<0,true>",
                         "tracer_backward_cache_kernel<false>"),
+    "candidate_prep": ("candidate_gather_kernel",
+                       "candidate_scatter_kernel"),
 }
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -90,8 +101,9 @@ GRAD_ROWS = 64     # rows of the backward kernel's (T, 64, K) output
 EXACT_MAX_K = 256
 
 # Launches of each kernel in each mode: raised by one per launch in
-# `tracer_forward` and `tracer_backward`, nowhere else; each launch raises
-# exactly one.  Callers reset them to count a run's launches.
+# `tracer_forward`, `tracer_backward`, `candidate_gather` and
+# `candidate_scatter`, nowhere else; each launch raises exactly one.
+# Callers reset them to count a run's launches.
 forward_launches = 0           # tile order
 backward_launches = 0          # tile order, replayed (float32 or fast sums)
 forward_cache_launches = 0     # tile order, writing the cache
@@ -99,12 +111,18 @@ backward_cache_launches = 0    # tile order, decoding the cache
 forward_exact_launches = 0     # exact (per-ray depth) order
 backward_exact_launches = 0    # exact order, 3xTF32 sums
 backward_exact_fast_launches = 0   # exact order, 1xTF32 sums
+prep_gather_launches = 0       # a render pass's tile-input gather
+prep_scatter_launches = 0      # its scatter-add, when a gradient is taken
+# No launch count, so not in LAUNCH_COUNTS: the T x K slots summed over
+# the scatter's launches (known on the host, no sync); reset with them.
+prep_slots = 0
 
 
 LAUNCH_COUNTS = ("forward_launches", "backward_launches",
                  "forward_cache_launches", "backward_cache_launches",
                  "forward_exact_launches", "backward_exact_launches",
-                 "backward_exact_fast_launches")
+                 "backward_exact_fast_launches", "prep_gather_launches",
+                 "prep_scatter_launches")
 
 
 def launch_counts() -> dict[str, int]:
@@ -119,15 +137,17 @@ def launches_since(before: dict[str, int]) -> dict[str, int]:
 
 
 def reset_launches() -> None:
-    """Set every launch count to 0."""
+    """Set every launch count, and prep_slots, to 0."""
     global forward_launches, backward_launches
     global forward_cache_launches, backward_cache_launches
     global forward_exact_launches, backward_exact_launches
     global backward_exact_fast_launches
+    global prep_gather_launches, prep_scatter_launches, prep_slots
     forward_launches = backward_launches = 0
     forward_cache_launches = backward_cache_launches = 0
     forward_exact_launches = backward_exact_launches = 0
     backward_exact_fast_launches = 0
+    prep_gather_launches = prep_scatter_launches = prep_slots = 0
 
 
 def check_cache_order(exact: bool, cache) -> None:
@@ -284,16 +304,19 @@ def _check(kernel: str, expected: dict) -> torch.device:
     return dev
 
 
-def launch(name: str, dev: torch.device, pointers, dims) -> None:
-    """Call library `name`'s entry point of the same name with the
-    pointers, then the ints `dims`, then the current stream of `dev`;
-    raises if it returns a CUDA error (a refused launch)."""
+def launch(name: str, dev: torch.device, pointers, dims,
+           entry: str | None = None) -> None:
+    """Call library `name`'s entry point `entry` (default: the one of the
+    same name) with the pointers, then the ints `dims`, then the current
+    stream of `dev`; raises if it returns a CUDA error (a refused
+    launch)."""
     lib = _library(name)
+    entry = entry or name
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = getattr(lib, name)(*pointers, *dims, stream)
+        rc = getattr(lib, entry)(*pointers, *dims, stream)
     if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: "
+        raise RuntimeError(f"{entry} kernel launch failed: "
                            + lib.error_string(rc).decode())
 
 
@@ -424,3 +447,129 @@ def tracer_backward(cnt, dirs, mind, t0, axes, plane, inv_scale, opac, sign,
         backward_launches += 1
     return (grads[:, 0:9].view(t, 3, 3, k), grads[:, 9:12],
             grads[:, 12:14], grads[:, 14], grads[:, 16:].view(t, 3, 16, k))
+
+
+# Surfel fields of the candidate gather, with each field's trailing shape.
+_SURFEL_FIELDS = (("means", (3,)), ("rotations", (4,)), ("scales", (2,)),
+                  ("opacities", ()), ("sh", (NUM_SH_COEFFS, 3)))
+
+
+def _prep_check(fields: dict, origin, index, valid) -> tuple:
+    """Raise on surfel fields, origin, index or validity that the
+    candidate kernels do not take; returns (device, N, T, K)."""
+    dev = index.device
+    if dev.type != "cuda":
+        raise ValueError(f"the candidate kernels need CUDA tensors, got {dev}")
+    n = fields["means"].shape[0]
+    if n == 0:
+        raise ValueError("the candidate kernels need at least one surfel")
+    t, k = index.shape
+    f32 = torch.float32
+    expected = {name: (fields[name], (n, *rest), f32)
+                for name, rest in _SURFEL_FIELDS if name in fields}
+    expected["index"] = (index, (t, k), torch.int64)
+    expected["valid"] = (valid, (t, k), torch.bool)
+    for name, (x, shape, dtype) in expected.items():
+        if x.device != dev:
+            raise ValueError(f"{name} is on {x.device}, index on {dev}")
+        if tuple(x.shape) != shape or x.dtype != dtype:
+            raise ValueError(f"{name}: expected {shape} {dtype}, got "
+                             f"{tuple(x.shape)} {x.dtype}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if (origin.device != dev or tuple(origin.shape) != (3,)
+            or origin.dtype != f32):
+        raise ValueError(f"origin: expected (3,) {f32} on {dev}, got "
+                         f"{tuple(origin.shape)} {origin.dtype} on "
+                         f"{origin.device}")
+    return dev, n, t, k
+
+
+def candidate_gather(means, rotations, scales, opacities, sh, origin, index,
+                     valid, sh_kept: int = NUM_SH_COEFFS
+                     ) -> tuple[torch.Tensor, ...]:
+    """Launch the candidate gather on the current stream: each tile's
+    candidates `index` (T, K) (sentinel N past the valid prefix, clamped)
+    and their frames against `origin` (3,), in the tracer kernels' layout:
+    (axes (T, 3, 3, K), plane (T, 3, K), inv_scale (T, 2, K), opac (T, K),
+    sign (T, K), sh (T, 3, 16, K)), each contiguous, sh's coefficients
+    from `sh_kept` on zeroed.  The surfel fields are float32 CUDA tensors
+    (N, 3), (N, 4), (N, 2), (N,), (N, 16, 3), contiguous; index (T, K)
+    int64; valid (T, K) bool.  As `ops.cuda_tracer.
+    prepare_tile_inputs_reference`.  Raises on any input the kernel does
+    not take and on a failed launch."""
+    global prep_gather_launches
+    fields = dict(means=means, rotations=rotations, scales=scales,
+                  opacities=opacities, sh=sh)
+    dev, n, t, k = _prep_check(fields, origin, index, valid)
+    if sh.data_ptr() % 16:
+        sh = sh.clone()      # the kernel reads each row as float4s
+
+    def out(*shape):
+        return torch.empty((t, *shape, k), dtype=torch.float32, device=dev)
+
+    outs = (out(3, 3), out(3), out(2), out(), out(), out(3, NUM_SH_COEFFS))
+    launch("candidate_prep", dev,
+           [x.data_ptr() for x in (means, rotations, scales, opacities, sh,
+                                   origin, index, valid, *outs)],
+           (n, t, k, origin.stride(0), sh_kept), entry="candidate_gather")
+    prep_gather_launches += 1
+    return outs
+
+
+def _rows(x: torch.Tensor, shape: tuple) -> tuple[torch.Tensor, int]:
+    """A gradient (T, *rows) whose rows the scatter reads contiguous, and
+    its tile stride: x itself where its rows are (a view of the tracer
+    backward's (T, 64, K) buffer is), else a contiguous copy."""
+    if tuple(x.shape) != shape or x.dtype != torch.float32:
+        raise ValueError(f"gradient: expected {shape} float32, got "
+                         f"{tuple(x.shape)} {x.dtype}")
+    inner = [1]
+    for size in reversed(shape[2:]):
+        inner.insert(0, inner[0] * size)
+    if (list(x.stride()[1:]) != inner
+            or x.stride(0) < inner[0] * shape[1]):
+        x = x.contiguous()
+    return x, x.stride(0)
+
+
+def candidate_scatter(means, rotations, scales, opacities, origin, index,
+                      valid, d_axes, d_plane, d_inv_scale, d_opac, d_sh,
+                      sh_kept: int = NUM_SH_COEFFS
+                      ) -> tuple[torch.Tensor, ...]:
+    """Launch the candidate scatter on the current stream: the VJP of
+    `candidate_gather` for the gradients of its outputs but sign (zero in
+    every slot past a tile's valid prefix, as the tracer backward leaves
+    them: those slots are skipped), added with atomics in no fixed order.
+    Returns (d_means (N, 3), d_rotations (N, 4), d_scales (N, 2),
+    d_opacities (N,), d_sh (N, 16, 3)), contiguous views of one buffer
+    zeroed by one memset.  As `ops.cuda_tracer.candidate_scatter_reference`
+    (which also gives d_origin).  Raises on any input the kernel does not
+    take and on a failed launch."""
+    global prep_scatter_launches, prep_slots
+    fields = dict(means=means, rotations=rotations, scales=scales,
+                  opacities=opacities)
+    dev, n, t, k = _prep_check(fields, origin, index, valid)
+    grads = [_rows(x, (t, *rows, k)) for x, rows in (
+        (d_axes, (3, 3)), (d_plane, (3,)), (d_inv_scale, (2,)), (d_opac, ()),
+        (d_sh, (3, NUM_SH_COEFFS)))]
+    for x, _ in grads:
+        if x.device != dev:
+            raise ValueError(f"a gradient is on {x.device}, index on {dev}")
+    # sh first, then rotations and scales: every vector atomic aligned.
+    buf = torch.zeros(58 * n, dtype=torch.float32, device=dev)
+    g_sh = buf[:48 * n].view(n, NUM_SH_COEFFS, 3)
+    g_rot = buf[48 * n:52 * n].view(n, 4)
+    g_scales = buf[52 * n:54 * n].view(n, 2)
+    g_means = buf[54 * n:57 * n].view(n, 3)
+    g_op = buf[57 * n:]
+    launch("candidate_prep", dev,
+           [x.data_ptr() for x in (means, rotations, scales, opacities,
+                                   origin, index, valid)]
+           + [x.data_ptr() for x, _ in grads]
+           + [x.data_ptr() for x in (g_means, g_rot, g_scales, g_op, g_sh)],
+           (n, t, k, origin.stride(0), sh_kept, *(s for _, s in grads)),
+           entry="candidate_scatter")
+    prep_scatter_launches += 1
+    prep_slots += t * k
+    return g_means, g_rot, g_scales, g_op, g_sh

@@ -111,7 +111,7 @@ def test_exact_training_step_at_k512_on_card(cuda_device):
     card: step 1 at K = 512 resolves to the torch engine (no kernel
     launch, finite loss and parameters on the card); step 2, past the
     switch, at K = 256 on the exact forward and the exact backward with
-    the configs' fast sums."""
+    the configs' fast sums, fed by the candidate gather and scatter."""
     frames, track = synthetic.generate(num_frames=2, height=32, width=256,
                                        device=cuda_device)
     args = options.experiment_options(rebin_interval=10)
@@ -134,7 +134,9 @@ def test_exact_training_step_at_k512_on_card(cuda_device):
     n = kernels.launch_counts()
     assert n["forward_exact_launches"] == n["backward_exact_fast_launches"] \
         == 1
-    assert sum(n.values()) == 2
+    # and the candidate gather and its scatter, one each for the pass
+    assert n["prep_gather_launches"] == n["prep_scatter_launches"] == 1
+    assert sum(n.values()) == 4
     assert all(np.isfinite(h["loss"]) for h in trainer.history)
     for v in trainer.state.scene.background.params().values():
         assert v.is_cuda and bool(torch.isfinite(v).all())
